@@ -1,0 +1,354 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile]
+
+Builds the port's CUDA kernels from ``sparkdl_tpu_torch/csrc`` (one nvcc
+per source, in parallel, into ``build/sparkdl_tpu_torch/``), checks each
+kernel against its plain PyTorch version at the shapes the Xception
+featurize path gives it and times both (and the PyTorch library call
+that computes the same function, as a yardstick the port never calls),
+then drives ``DeepImageFeaturizer(modelName="Xception")`` through
+``transform(...).collect()`` twice: on 256×256 images (resized on the
+card by ``preproc_resize``; the network then runs in float32 with
+bf16-rounded weights) and on 299×299 images (no resize; the network runs
+in bf16). Each run is checked against the port's own CPU run of the same
+weights, and the launch counters show the path went through the kernels.
+``--profile`` adds device times from ``torch.profiler`` beside each event
+time, and one profiled pass per featurize run: device time by kernel and
+the device's idle share.
+
+Prints one JSON object per phase; the line before the last is the kernels
+summary and the card's ``name, power.limit``; the last line is the
+``{"ok": true, "device": ...}`` record. Any failure raises (exit code ≠ 0,
+no result line). Exits 2 when CUDA is not available.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+BATCH = 16
+N_IMAGES = 32
+F32_REL = 1e-3        # float32 whole-slice tolerance, relative to max|ref|
+BF16_REL = 5e-2       # bf16 whole-slice tolerance, relative to max|ref|
+F32_KERNEL_REL = 1e-5  # float32 kernel tolerance, relative to max(1, |ref|)
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core peak
+              torch.float32: 67e12}     # float32 outside the tensor cores
+SEP2D_SHAPES = [(147, 147, 64, 128), (19, 19, 728, 728),
+                (10, 10, 1536, 2048)]
+PREPROC_SHAPES = [(256, 256), (512, 384)]
+TARGET = (299, 299)
+PROFILE = "--profile" in sys.argv[1:]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn()`` from ``torch.profiler``: the kernels'
+    own durations, without the host's launch gaps that CUDA events see."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def timings(kernel, plain, library) -> dict:
+    """Event times of the kernel, its plain version and the library call;
+    with ``--profile`` also their device times."""
+    out = {"ms": timed_ms(kernel), "plain_ms": timed_ms(plain),
+           "library_ms": timed_ms(library)}
+    if PROFILE:
+        out.update(device_ms=device_ms(kernel),
+                   plain_device_ms=device_ms(plain),
+                   library_device_ms=device_ms(library))
+    return out
+
+
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    t_ops = flops / H100_FLOPS[dtype]
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def check_sep2d(kernels, dev):
+    """sep2d against plain_sep2d and the library's depthwise → 1×1 conv →
+    affine, at the main path's first, middle-flow and last shapes."""
+    import torch.nn.functional as F
+
+    rows = []
+    gen = torch.Generator().manual_seed(SEED)
+    for h, w, cin, cout in SEP2D_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dtype)
+            dw9 = (torch.randn(9, cin, generator=gen) * 0.2).to(dev, dtype)
+            pw = (torch.randn(cin, cout, generator=gen)
+                  / cin ** 0.5).to(dev, dtype)
+            scale = (torch.rand(cout, generator=gen) + 0.5).to(dev)
+            shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+            y = kernels.sep2d(x, dw9, pw, scale, shift)
+            ref = kernels.plain_sep2d(x, dw9, pw, scale, shift)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            limit = (F32_KERNEL_REL * max(1.0, float(ref.float().abs().max()))
+                     if dtype == torch.float32 else kernels.BF16_TOLERANCE)
+            assert err <= limit, f"sep2d {h}x{w} {cin}->{cout} {dtype}: " \
+                                 f"max|err| {err} > {limit}"
+            xn = x.permute(0, 3, 1, 2)
+            w_dw = dw9.t().reshape(cin, 1, 3, 3).contiguous()
+            w_pw = pw.t().reshape(cout, cin, 1, 1).contiguous()
+            sc, sh = scale.to(dtype).view(1, cout, 1, 1), \
+                shift.to(dtype).view(1, cout, 1, 1)
+
+            def library():
+                t = F.conv2d(xn, w_dw, padding=1, groups=cin)
+                return F.conv2d(t, w_pw) * sc + sh
+
+            item = x.element_size()
+            pos = BATCH * h * w
+            flops = pos * (18 * cin + 2 * cin * cout)
+            nbytes = (pos * (cin + cout) + 9 * cin + cin * cout) * item \
+                + 2 * cout * 4
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            rows.append({
+                "shape": [BATCH, h, w, cin, cout],
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tolerance": limit,
+                **timings(lambda: kernels.sep2d(x, dw9, pw, scale, shift),
+                          lambda: kernels.plain_sep2d(x, dw9, pw, scale,
+                                                      shift),
+                          library),
+                "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+                "mbytes": nbytes / 1e6})
+            emit({"phase": "kernel_check", "kernel": "sep2d", **rows[-1]})
+    return rows
+
+
+def check_preproc(kernels, dev):
+    """preproc_resize against plain_preproc and cast + F.interpolate."""
+    import torch.nn.functional as F
+
+    rows = []
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for h, w in PREPROC_SHAPES:
+        x = torch.randint(0, 256, (BATCH, h, w, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+        y = kernels.preproc_resize(x, TARGET, torch.float32)
+        ref = kernels.plain_preproc(x, TARGET, torch.float32)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        limit = F32_KERNEL_REL * max(1.0, float(ref.abs().max()))
+        assert err <= limit, f"preproc {h}x{w}: max|err| {err} > {limit}"
+
+        def library():
+            return F.interpolate(x.permute(0, 3, 1, 2).float(), size=TARGET,
+                                 mode="bilinear", align_corners=False,
+                                 antialias=False)
+
+        outs = BATCH * TARGET[0] * TARGET[1] * 3
+        flops = outs * 9  # 6 multiplies + 3 adds per output element
+        nbytes = x.numel() + outs * 4
+        b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
+        rows.append({
+            "shape": [BATCH, h, w, 3, *TARGET], "dtype": "uint8->float32",
+            "max_abs_err": err, "tolerance": limit,
+            **timings(lambda: kernels.preproc_resize(x, TARGET,
+                                                     torch.float32),
+                      lambda: kernels.plain_preproc(x, TARGET,
+                                                    torch.float32),
+                      library),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6})
+        emit({"phase": "kernel_check", "kernel": "preproc_resize",
+              **rows[-1]})
+    return rows
+
+
+def featurize(s, images, weights, batch_size):
+    from sparkdl_tpu_torch.image import imageIO
+
+    df = s.DataFrame.fromColumns({"image": imageIO.imageArraysToStructColumn(
+        images, [f"img_{i}" for i in range(len(images))])})
+    feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                 modelName="Xception", weights=weights,
+                                 batchSize=batch_size)
+    return feat, df
+
+
+def profile_pass(name, feat, df, top: int = 12):
+    """One more featurize pass under ``torch.profiler``: device time by
+    kernel and the device's idle share of the pass's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        feat.transform(df).collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    emit({"phase": f"{name}_profile", "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
+          "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+          "top_kernels": [{"name": k[:90], "ms": ms, "calls": n,
+                           "share": ms / busy_ms}
+                          for k, ms, n in kernels[:top]]})
+
+
+def main_path(s, kernels, name, size, expect_preproc, rel_tol):
+    """Featurize N_IMAGES seeded images of ``size`` on the card (one
+    warm-up pass, then the counted and timed pass), and check two of them
+    against the port's CPU run of the same weights."""
+    rng = np.random.default_rng(SEED + size[0])
+    images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
+              for _ in range(N_IMAGES)]
+    s.EngineConfig.device = "cuda"
+    feat, df = featurize(s, images, "random", BATCH)
+    feat.transform(df).collect()  # warm-up (builds, allocator, cuDNN plans)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = feat.transform(df).collect()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    gpu = np.stack([np.asarray(r["features"], np.float32) for r in rows])
+    assert gpu.shape == (N_IMAGES, 2048), gpu.shape
+    assert np.isfinite(gpu).all(), "non-finite features"
+    forwards = -(-N_IMAGES // BATCH)
+    assert counts["sep2d"] == 34 * forwards, counts
+    assert counts["preproc_resize"] == (forwards if expect_preproc else 0), \
+        counts
+
+    state = {k: v.detach().cpu().clone() for k, v in
+             feat._model_function("featurize").variables.state_dict()
+             .items()}
+    s.EngineConfig.device = "cpu"
+    cpu_feat, cpu_df = featurize(s, images[:2], state, 2)
+    cpu = np.stack([np.asarray(r["features"], np.float32)
+                    for r in cpu_feat.transform(cpu_df).collect()])
+    s.EngineConfig.device = "cuda"
+    err = float(np.max(np.abs(gpu[:2] - cpu)))
+    limit = rel_tol * float(np.max(np.abs(cpu)))
+    assert err <= limit, f"{name}: features differ from the CPU run by " \
+                         f"{err} > {limit}"
+    out = {"phase": name, "images": N_IMAGES, "source_size": list(size),
+           "batch_size": BATCH,
+           "precision": s.EngineConfig.inference_precision,
+           "seconds": seconds, "images_per_s": N_IMAGES / seconds,
+           "launches": counts, "max_abs_err_vs_cpu": err,
+           "tolerance": limit, "feature_max_abs": float(np.abs(cpu).max())}
+    emit(out)
+    if PROFILE:
+        profile_pass(name, feat, df)
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke run needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "environment", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(),
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "nvidia_smi": smi})
+
+    import sparkdl_tpu_torch as s
+    from sparkdl_tpu_torch.core import cuda_build, kernels
+
+    t0 = time.perf_counter()
+    per_source = cuda_build.build_all()
+    ptxas = [line.strip() for n in per_source
+             for line in cuda_build.build_log(n).splitlines()
+             if "registers" in line or "spill" in line]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_s": per_source, "ptxas": ptxas})
+
+    dev = torch.device("cuda")
+    sep_rows = check_sep2d(kernels, dev)
+    pre_rows = check_preproc(kernels, dev)
+
+    resized = main_path(s, kernels, "featurize_resized", (256, 256), True,
+                        F32_REL)
+    native = main_path(s, kernels, "featurize_native", TARGET, False,
+                       BF16_REL)
+
+    def summary(name, source, replaces, rows, headline):
+        launches = resized["launches"][name] + native["launches"][name]
+        assert launches > 0, f"{name} never launched on the main path"
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "launches_by_phase": {"featurize_resized":
+                                      resized["launches"][name],
+                                      "featurize_native":
+                                      native["launches"][name]},
+                **{k: headline[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "shape", "dtype")},
+                "kernel_ms": headline["ms"], "shapes": rows}
+
+    mid = next(r for r in sep_rows
+               if r["shape"][1:] == [19, 19, 728, 728]
+               and r["dtype"] == "bfloat16")
+    emit({"kernels": [
+        summary("sep2d", "sparkdl_tpu_torch/csrc/sep2d.cu",
+                "sparkdl_tpu/core/kernels.py:454", sep_rows, mid),
+        summary("preproc_resize", "sparkdl_tpu_torch/csrc/preproc_resize.cu",
+                "sparkdl_tpu/core/kernels.py:586", pre_rows, pre_rows[0]),
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

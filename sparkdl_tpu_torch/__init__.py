@@ -1,0 +1,45 @@
+"""sparkdl_tpu_torch — Deep Learning Pipelines on PyTorch and CUDA.
+
+The port of ``sparkdl_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
+Public names follow ``sparkdl_tpu``; the kernels that package wrote in
+Pallas are hand-written CUDA C++ for Hopper here (``csrc/``). Models run
+on the card by default (``EngineConfig.device = "cuda"``). The package
+imports torch, numpy and the standard library only, and nothing of
+``sparkdl_tpu``. Submodules load lazily on attribute access.
+"""
+
+import logging as _logging
+
+from sparkdl_tpu_torch.version import __version__
+
+_logging.getLogger(__name__).addHandler(_logging.NullHandler())
+
+_LAZY_EXPORTS = {
+    "imageIO": ("sparkdl_tpu_torch.image", "imageIO"),
+    "readImages": ("sparkdl_tpu_torch.image", "readImages"),
+    "readImagesWithCustomFn": ("sparkdl_tpu_torch.image",
+                               "readImagesWithCustomFn"),
+    "DataFrame": ("sparkdl_tpu_torch.engine", "DataFrame"),
+    "EngineConfig": ("sparkdl_tpu_torch.engine", "EngineConfig"),
+    "Transformer": ("sparkdl_tpu_torch.ml", "Transformer"),
+    "TorchImageTransformer": ("sparkdl_tpu_torch.ml",
+                              "TorchImageTransformer"),
+    "TFImageTransformer": ("sparkdl_tpu_torch.ml", "TFImageTransformer"),
+    "DeepImageFeaturizer": ("sparkdl_tpu_torch.ml", "DeepImageFeaturizer"),
+    "DeepImagePredictor": ("sparkdl_tpu_torch.ml", "DeepImagePredictor"),
+}
+
+__all__ = ["__version__"] + sorted(_LAZY_EXPORTS)
+
+
+def __getattr__(name):
+    try:
+        module_name, attr = _LAZY_EXPORTS[name]
+    except KeyError:
+        raise AttributeError(
+            f"module 'sparkdl_tpu_torch' has no attribute {name!r}") from None
+    import importlib
+
+    value = getattr(importlib.import_module(module_name), attr)
+    globals()[name] = value
+    return value

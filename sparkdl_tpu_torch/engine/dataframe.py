@@ -1,0 +1,234 @@
+"""The port's DataFrame engine and its configuration.
+
+A port of the parts of ``sparkdl_tpu.engine.dataframe`` that the
+featurize path uses. A frame is a list of partitions, each a
+:class:`Batch` of plain columns — numpy arrays (dim 0 = rows), Python
+lists, or :class:`~sparkdl_tpu_torch.image.imageIO.ImageColumn` — plus a
+lazy chain of per-partition ops. Partitions run in order on the calling
+thread; the supervisor, durability and the cluster are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from sparkdl_tpu_torch.image.imageIO import (
+    ImageColumn, imageFields, imageStructsToColumn,
+)
+
+
+class EngineConfig:
+    """Engine-wide knobs the featurize path reads (class attributes)."""
+
+    # Precision the executor applies to every model
+    # (ModelFunction.with_dtype): "bfloat16" (the default) or "float32".
+    inference_precision: str = "bfloat16"
+    # Ship raw uint8 at source size and resize on the device
+    # (ModelFunction.resized, the preproc_resize kernel). False is not
+    # ported yet (its host-downscale branch needs the native loader).
+    fused_preprocess: bool = True
+    # Where models run. "cuda" is the default; without a card, transform
+    # raises rather than silently running on the CPU. Tests set "cpu".
+    device: str = "cuda"
+
+    _PRECISIONS = ("float32", "bfloat16")
+
+    @classmethod
+    def snapshot(cls) -> Dict[str, Any]:
+        return {k: getattr(cls, k) for k in
+                ("inference_precision", "fused_preprocess", "device")}
+
+    @classmethod
+    def restore(cls, saved: Dict[str, Any]) -> None:
+        for k, v in saved.items():
+            setattr(cls, k, v)
+
+    @classmethod
+    def validate(cls) -> None:
+        if cls.inference_precision not in cls._PRECISIONS:
+            raise ValueError(
+                f"EngineConfig.inference_precision must be one of "
+                f"{cls._PRECISIONS}, got {cls.inference_precision!r}")
+
+
+# ---------------------------------------------------------------------------
+# Columns
+# ---------------------------------------------------------------------------
+
+
+def _col_slice(col, start: int, stop: int):
+    if isinstance(col, ImageColumn):
+        return col.slice(start, stop)
+    return col[start:stop]
+
+
+def _col_values(col) -> List[Any]:
+    """Per-row Python values (Spark Row analog)."""
+    if isinstance(col, ImageColumn):
+        return col.to_pylist()
+    if isinstance(col, np.ndarray):
+        return col.tolist()
+    return [v.tolist() if isinstance(v, np.ndarray) else v for v in col]
+
+
+def _as_column(values):
+    if isinstance(values, (ImageColumn, np.ndarray)):
+        return values
+    values = list(values)
+    present = [v for v in values if v is not None]
+    if present and all(isinstance(v, dict) and set(v) == set(imageFields)
+                       for v in present):
+        return imageStructsToColumn(values)
+    return values
+
+
+class Batch:
+    """One partition: named plain columns of equal length."""
+
+    def __init__(self, columns: Dict[str, Any], num_rows: int) -> None:
+        self.columns = columns
+        self.num_rows = num_rows
+
+    def column(self, name: str):
+        try:
+            return self.columns[name]
+        except KeyError:
+            raise KeyError(f"No such column: {name!r}") from None
+
+    def with_column(self, name: str, col) -> "Batch":
+        if len(col) != self.num_rows:
+            raise ValueError(f"column {name!r} has {len(col)} values "
+                             f"for {self.num_rows} rows")
+        columns = dict(self.columns)
+        columns[name] = col
+        return Batch(columns, self.num_rows)
+
+    def select(self, names: Sequence[str]) -> "Batch":
+        return Batch({n: self.column(n) for n in names}, self.num_rows)
+
+
+def _split(columns: Dict[str, Any], num_partitions: Optional[int]
+           ) -> List[Batch]:
+    lengths = {len(c) for c in columns.values()}
+    if len(lengths) > 1:
+        raise ValueError(f"columns differ in length: {sorted(lengths)}")
+    n = lengths.pop() if lengths else 0
+    parts = max(1, min(num_partitions or 1, max(n, 1)))
+    per = -(-n // parts) if n else 0
+    if n == 0:
+        return [Batch(dict(columns), 0)]
+    return [Batch({k: _col_slice(c, s, s + per) for k, c in columns.items()},
+                  min(per, n - s))
+            for s in range(0, n, per)]
+
+
+class DataFrame:
+    """Immutable, lazily-evaluated partitioned frame of plain columns."""
+
+    def __init__(self, partitions: List[Batch], columns: List[str],
+                 ops: Optional[List[Callable[[Batch], Batch]]] = None):
+        self._partitions = partitions
+        self._columns = list(columns)
+        self._ops = list(ops or [])
+        self._materialized: Optional[List[Batch]] = None
+        self._lock = threading.Lock()
+
+    # -- constructors --------------------------------------------------------
+
+    @classmethod
+    def fromColumns(cls, columns: Dict[str, Any],
+                    numPartitions: Optional[int] = None) -> "DataFrame":
+        """Build from ``{name: numpy array | list | ImageColumn}``.
+        ``numPartitions`` defaults to 1."""
+        cols = {name: _as_column(v) for name, v in columns.items()}
+        return cls(_split(cols, numPartitions), list(cols))
+
+    @classmethod
+    def fromRows(cls, rows: List[Dict[str, Any]],
+                 numPartitions: Optional[int] = None) -> "DataFrame":
+        names: List[str] = []
+        for row in rows:
+            names.extend(k for k in row if k not in names)
+        return cls.fromColumns({n: [r.get(n) for r in rows] for n in names},
+                               numPartitions)
+
+    # -- metadata ------------------------------------------------------------
+
+    @property
+    def columns(self) -> List[str]:
+        return list(self._columns)
+
+    @property
+    def numPartitions(self) -> int:
+        return len(self._partitions)
+
+    def __repr__(self) -> str:
+        return (f"DataFrame[{', '.join(self._columns)}] "
+                f"({self.numPartitions} partitions)")
+
+    # -- execution -----------------------------------------------------------
+
+    def _materialize(self) -> List[Batch]:
+        with self._lock:
+            if self._materialized is None:
+                out = []
+                for batch in self._partitions:
+                    for op in self._ops:
+                        batch = op(batch)
+                    out.append(batch)
+                self._materialized = out
+            return self._materialized
+
+    def collect(self) -> List[Dict[str, Any]]:
+        rows: List[Dict[str, Any]] = []
+        for batch in self._materialize():
+            values = {n: _col_values(batch.column(n)) for n in self._columns}
+            rows.extend({n: values[n][i] for n in self._columns}
+                        for i in range(batch.num_rows))
+        return rows
+
+    def count(self) -> int:
+        return sum(b.num_rows for b in self._materialize())
+
+    # -- transformations (lazy) ----------------------------------------------
+
+    def _with_op(self, op: Callable[[Batch], Batch],
+                 columns: List[str]) -> "DataFrame":
+        if self._materialized is not None and self._ops:
+            return DataFrame(self._materialized, columns, [op])
+        return DataFrame(self._partitions, columns, self._ops + [op])
+
+    def select(self, *cols: str) -> "DataFrame":
+        names = list(cols)
+        for name in names:
+            if name not in self._columns:
+                raise KeyError(f"No such column: {name!r}")
+        return self._with_op(lambda b: b.select(names), names)
+
+    def drop(self, *cols: str) -> "DataFrame":
+        return self.select(*[c for c in self._columns if c not in cols])
+
+    def _added(self, name: str) -> List[str]:
+        return self._columns + ([name] if name not in self._columns else [])
+
+    def withColumn(self, name: str, fn: Callable,
+                   inputCols: Sequence[str]) -> "DataFrame":
+        """Row-wise UDF column: ``fn(*input_values) -> value``."""
+        def op(batch: Batch) -> Batch:
+            inputs = [_col_values(batch.column(c)) for c in inputCols]
+            values = [fn(*row) for row in zip(*inputs)] if inputs else []
+            return batch.with_column(name, _as_column(values))
+
+        return self._with_op(op, self._added(name))
+
+    def withColumnBatch(self, name: str, fn: Callable[[Batch], Any]
+                        ) -> "DataFrame":
+        """Vectorized column: ``fn(batch) -> column`` (len == num_rows) —
+        the hook model transformers use to stage a whole partition."""
+        def op(batch: Batch) -> Batch:
+            return batch.with_column(name, _as_column(fn(batch)))
+
+        return self._with_op(op, self._added(name))

@@ -1,0 +1,180 @@
+"""TorchImageTransformer — a model applied to an image column.
+
+A port of ``sparkdl_tpu.ml.image_transformer.TPUImageTransformer`` (the
+reference's ``TFImageTransformer``):
+
+    host: image column → one contiguous NHWC uint8 batch
+    device: cast → resize (preproc_resize) → preprocess → model → flatten
+
+run per partition through ``DataFrame.withColumnBatch``, with every
+device call going through ``core.executor.execute``.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from sparkdl_tpu_torch.core import executor as device_executor
+from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+from sparkdl_tpu_torch.image import imageIO
+from sparkdl_tpu_torch.ml.base import Transformer
+from sparkdl_tpu_torch.param.base import Param, keyword_only
+from sparkdl_tpu_torch.param.converters import TypeConverters
+from sparkdl_tpu_torch.param.shared_params import (
+    HasBatchSize, HasInputCol, HasModelFunction, HasOutputCol,
+    HasOutputMode,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
+                            HasModelFunction, HasOutputMode, HasBatchSize):
+    """Apply a ModelFunction to an image-struct column.
+
+    ``outputMode="vector"`` flattens model output per row into a float
+    vector column; ``outputMode="image"`` re-wraps 3-D HWC output as image
+    structs.
+    """
+
+    inputSize = Param(
+        "TorchImageTransformer", "inputSize",
+        "(H, W) images are resized to before the model; None uses the "
+        "model input spec's spatial dims",
+        typeConverter=TypeConverters.identity)
+
+    @keyword_only
+    def __init__(self, *, inputCol: Optional[str] = None,
+                 outputCol: Optional[str] = None,
+                 modelFunction=None,
+                 outputMode: str = "vector",
+                 batchSize: int = 64,
+                 inputSize: Optional[Tuple[int, int]] = None) -> None:
+        super().__init__()
+        self._setDefault(outputMode="vector", batchSize=64, inputSize=None)
+        self.setParams(**self._input_kwargs)
+
+    @keyword_only
+    def setParams(self, *, inputCol: Optional[str] = None,
+                  outputCol: Optional[str] = None,
+                  modelFunction=None,
+                  outputMode: str = "vector",
+                  batchSize: int = 64,
+                  inputSize: Optional[Tuple[int, int]] = None
+                  ) -> "TorchImageTransformer":
+        return self._set(**self._input_kwargs)
+
+    def setInputSize(self, value) -> "TorchImageTransformer":
+        return self._set(inputSize=value)
+
+    def getInputSize(self):
+        return self.getOrDefault(self.inputSize)
+
+    # -- execution -----------------------------------------------------------
+
+    def _target_size(self, model) -> Optional[Tuple[int, int]]:
+        size = self.getOrDefault(self.inputSize)
+        if size is not None:
+            return tuple(size)
+        return model.input_spec.spatial_size()
+
+    def _transform(self, dataset):
+        model = self.getModelFunction()
+        if model is None:
+            raise ValueError("modelFunction must be set")
+        # decided now, not at collect: without the configured device the
+        # transform fails here instead of running somewhere else later
+        device_executor.resolve_device()
+        input_col = self.getInputCol()
+        mode = self.getOutputMode()
+        batch_size = self.getBatchSize()
+        target_size = self._target_size(model)
+        run = model.flattened() if mode == "vector" else model
+        if input_col not in dataset.columns:
+            raise KeyError(f"No such column: {input_col!r}")
+
+        def apply_partition(batch):
+            col = batch.column(input_col)
+            # Uniform column → its contiguous NHWC block, no per-row work.
+            fast = imageIO.uniformImageBatch(col)
+            if fast is not None:
+                stacked, valid_idx = fast
+                valid = valid_idx.tolist()
+                stacked, run_fast = _resize_uniform_batch(stacked,
+                                                          target_size, run)
+                out = device_executor.execute(run_fast, stacked,
+                                              batch_size=batch_size)
+                if mode == "vector":
+                    return _vectors_with_nulls(out, valid, batch.num_rows)
+                return _images_with_nulls(out, valid, batch.num_rows,
+                                          [col.origin[i] for i in valid])
+
+            # Ragged columns: per-row staging, host resize, and malformed
+            # rows degrade to null cells instead of failing the partition.
+            structs = (col.to_pylist() if isinstance(col, imageIO.ImageColumn)
+                       else list(col))
+            present = [i for i, s in enumerate(structs) if s is not None]
+            stacked, kept, dropped = \
+                imageIO.imageStructsToBatchArrayTolerant(
+                    [structs[i] for i in present],
+                    target_size=target_size, dtype=None)
+            if dropped:
+                logger.warning(
+                    "TorchImageTransformer: dropped %d undecodable image "
+                    "row(s) of %d in partition (%r) — emitting null cells",
+                    dropped, len(present), input_col)
+            valid = [present[j] for j in kept]
+            if not valid:
+                return [None] * batch.num_rows
+            out = device_executor.execute(run, stacked,
+                                          batch_size=batch_size)
+            if mode == "vector":
+                return _vectors_with_nulls(out, valid, batch.num_rows)
+            return _images_with_nulls(out, valid, batch.num_rows,
+                                      [structs[i]["origin"] for i in valid])
+
+        return dataset.withColumnBatch(self.getOutputCol(), apply_partition)
+
+
+def _resize_uniform_batch(stacked: np.ndarray, target_size, run):
+    """Resize policy for a uniform batch: under
+    ``EngineConfig.fused_preprocess`` the raw batch ships at source size
+    and the resize runs on the device in front of the model
+    (``ModelFunction.resized``, the ``preproc_resize`` kernel)."""
+    if target_size is None or tuple(stacked.shape[1:3]) == tuple(target_size):
+        return stacked, run
+    if not EngineConfig.fused_preprocess:
+        raise NotImplementedError(
+            "EngineConfig.fused_preprocess=False (host-side downscale) is "
+            "not ported yet")
+    return stacked, run.resized(stacked.shape[1:3], tuple(target_size))
+
+
+def _vectors_with_nulls(out: np.ndarray, valid: List[int], num_rows: int):
+    out = np.asarray(out, dtype=np.float32).reshape(len(valid), -1)
+    if len(valid) == num_rows:
+        return out
+    values: list = [None] * num_rows
+    for j, i in enumerate(valid):
+        values[i] = out[j]
+    return values
+
+
+def _images_with_nulls(out: np.ndarray, valid: List[int], num_rows: int,
+                       origins) -> imageIO.ImageColumn:
+    out = np.asarray(out)
+    if out.ndim != 4:
+        raise ValueError(
+            f"outputMode='image' needs NHWC model output, got shape "
+            f"{out.shape}")
+    arrays: list = [None] * num_rows
+    names = [""] * num_rows
+    for j, i in enumerate(valid):
+        arr = out[j]
+        arrays[i] = arr if arr.dtype in (np.uint8, np.float32) \
+            else arr.astype(np.float32)
+        names[i] = origins[j]
+    return imageIO.imageArraysToStructColumn(arrays, names)

@@ -1,0 +1,169 @@
+"""Building blocks of the ported model zoo, in the reference's semantics.
+
+A port of the parts of ``sparkdl_tpu.models.layers`` that Xception uses.
+Activations are NHWC throughout, as in the JAX package; each conv views
+them as NCHW (channels-last memory) for ``F.conv2d``. Weights use
+PyTorch's layouts (``models/convert.py`` maps the Flax tree onto them).
+Each layer computes in the promoted type of its input and weights, as a
+Flax layer computes in ``result_type(input, weights)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sparkdl_tpu_torch.core import kernels
+
+KERAS_BN_EPS = 1e-3          # keras BatchNormalization default
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA "SAME" padding along one axis: (before, after). The total is
+    split with the extra cell AFTER, so it is asymmetric when odd (e.g. a
+    3×3 stride-2 window over 74 pads 0 before and 1 after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Module):
+    """Conv without bias on NHWC activations, "VALID" or XLA "SAME"
+    padding; weight (Cout, Cin/groups, kh, kw)."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride=1,
+                 padding: str = "SAME", groups: int = 1) -> None:
+        super().__init__()
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
+        self.padding = padding
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, *self.kernel))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        xn = x.to(dtype).permute(0, 3, 1, 2)
+        if self.padding == "SAME":
+            (t, b), (l, r) = (
+                same_pads(x.shape[1], self.kernel[0], self.stride[0]),
+                same_pads(x.shape[2], self.kernel[1], self.stride[1]))
+            if t or b or l or r:
+                xn = F.pad(xn, (l, r, t, b))
+        y = F.conv2d(xn, self.weight.to(dtype), stride=self.stride,
+                     groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over the last axis in the reference's op order:
+    ``(x − mean)·(γ·rsqrt(var + eps)) + β`` (``flax.linen.BatchNorm``),
+    NOT the folded affine — that belongs to the kernel route only."""
+
+    def __init__(self, channels: int, eps: float = KERAS_BN_EPS,
+                 scale: bool = True) -> None:
+        super().__init__()
+        self.eps = eps
+        self.weight = (nn.Parameter(torch.ones(channels)) if scale
+                       else None)
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+def max_pool_same(x: torch.Tensor, window: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """``nn.max_pool(padding="SAME")`` on NHWC: pads with −inf by XLA's
+    split (see :func:`same_pads`), then a VALID max pool."""
+    t, b = same_pads(x.shape[1], window, stride)
+    l, r = same_pads(x.shape[2], window, stride)
+    xn = x.permute(0, 3, 1, 2)
+    if t or b or l or r:
+        xn = F.pad(xn, (l, r, t, b), value=float("-inf"))
+    return F.max_pool2d(xn, window, stride).permute(0, 2, 3, 1)
+
+
+class SeparableConvBN(nn.Module):
+    """SeparableConv2D(use_bias=False) + BatchNorm (the Xception unit):
+    depthwise (groups = Cin) then pointwise 1×1, then BN.
+
+    ``kernel_family`` opts the unit into the fused ``sep2d`` route
+    (``core/kernels.py``): at inference, a 3×3 stride-1 unit runs as one
+    kernel launch; otherwise the plain body runs."""
+
+    def __init__(self, cin: int, features: int, kernel=(3, 3),
+                 strides=(1, 1), bn_eps: float = KERAS_BN_EPS,
+                 kernel_family: Optional[str] = None) -> None:
+        super().__init__()
+        self.kernel = _pair(kernel)
+        self.strides = _pair(strides)
+        self.kernel_family = kernel_family
+        self.depthwise = Conv2d(cin, cin, self.kernel, self.strides,
+                                "SAME", groups=cin)
+        self.pointwise = Conv2d(cin, features, 1)
+        self.bn = BatchNorm(features, bn_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fused = self._fused(x)
+        if fused is not None:
+            return fused
+        return self.bn(self.pointwise(self.depthwise(x)))
+
+    def _fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.training or self.kernel_family is None:
+            return None
+        if self.strides != (1, 1) or self.kernel != (3, 3):
+            return None
+        return kernels.route_sep2d(
+            x, self.depthwise.weight, self.pointwise.weight, self.bn.weight,
+            self.bn.bias, self.bn.running_mean, self.bn.running_var,
+            self.bn.eps)
+
+
+class Dense(nn.Module):
+    """``nn.Dense``: weight (out, in), bias (out,)."""
+
+    def __init__(self, cin: int, cout: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype),
+                        self.bias.to(dtype))
+
+
+def classifier_head(x: torch.Tensor, dense: Dense,
+                    activation: Optional[str]) -> torch.Tensor:
+    x = dense(x)
+    if activation == "softmax":
+        x = torch.softmax(x, dim=-1)
+    return x
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(1, 2))
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's default kernel init: truncated normal (±2σ) with variance
+    1/fan_in, where fan_in = Cin/groups · kh · kw (or Dense's ``in``)."""
+    fan_in = weight[0].numel()
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)

@@ -1,0 +1,178 @@
+"""Named-model registry, ported from ``sparkdl_tpu.models.registry``.
+
+Each entry carries the module builder, the fixed input size, the
+device-side preprocessing function, and the feature dimension. Weight
+sources for :func:`build_featurizer` / :func:`build_predictor`:
+
+- ``"random"`` (or None): a seeded init from a ``torch.Generator`` on the
+  CPU (Flax's default initializers), so every device gets the same
+  weights from the same seed;
+- a Flax ``{"params", "batch_stats"}`` tree of numpy arrays, converted by
+  ``models/convert.py`` — how the JAX package's weights come across;
+- a PyTorch state dict, or the path of one saved with ``torch.save``.
+
+Xception is the one model ported so far; the reference's other names
+raise a clear "not yet ported" error.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from sparkdl_tpu_torch.core.model_function import (
+    ModelFunction, TensorSpec, torch_dtype,
+)
+from sparkdl_tpu_torch.models import layers
+from sparkdl_tpu_torch.models.convert import from_flax_variables
+from sparkdl_tpu_torch.models.xception import Xception
+
+# ---------------------------------------------------------------------------
+# Device-side preprocessing (input: float RGB in [0, 255], NHWC)
+# ---------------------------------------------------------------------------
+
+_CAFFE_MEAN = (103.939, 116.779, 123.68)  # BGR means, keras 'caffe' mode
+_TORCH_MEAN = (0.485, 0.456, 0.406)
+_TORCH_STD = (0.229, 0.224, 0.225)
+
+
+def preprocess_tf_mode(x: torch.Tensor) -> torch.Tensor:
+    """keras 'tf' mode: scale to [-1, 1]."""
+    return x / 127.5 - 1.0
+
+
+def preprocess_caffe_mode(x: torch.Tensor) -> torch.Tensor:
+    """keras 'caffe' mode: RGB->BGR, subtract ImageNet means."""
+    x = x.flip(-1)
+    return x - torch.tensor(_CAFFE_MEAN, dtype=x.dtype, device=x.device)
+
+
+def preprocess_torch_mode(x: torch.Tensor) -> torch.Tensor:
+    """keras 'torch' mode: [0,1] scale then ImageNet RGB mean/std."""
+    x = x / 255.0
+    mean = torch.tensor(_TORCH_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(_TORCH_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
+
+
+def preprocess_identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+PREPROCESS_MODES: Dict[str, Callable] = {
+    "tf": preprocess_tf_mode,
+    "caffe": preprocess_caffe_mode,
+    "torch": preprocess_torch_mode,
+    "identity": preprocess_identity,
+}
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    builder: Callable[..., nn.Module]    # kwargs -> nn.Module
+    input_size: Tuple[int, int]          # (H, W)
+    preprocess: Callable                 # device-side, on tensors
+    feature_dim: int
+    classes: int = 1000
+
+
+SUPPORTED_MODELS: Dict[str, ModelSpec] = {
+    "Xception": ModelSpec(
+        "Xception", Xception, (299, 299), preprocess_tf_mode, 2048),
+}
+
+#: Every name the JAX package's registry serves; those not in
+#: :data:`SUPPORTED_MODELS` are not ported yet.
+REFERENCE_MODEL_NAMES = sorted([
+    "InceptionV3", "ResNet50", "ResNet101", "ResNet152", "Xception",
+    "VGG16", "VGG19", "MobileNetV2", "TestNet", "DenseNet121",
+    "EfficientNetB0", "MobileNetV3Small", "NASNetMobile", "ResNet50V2",
+    "EfficientNetV2B0", "ConvNeXtTiny", "DenseNet169", "DenseNet201",
+    "ResNet101V2", "ResNet152V2", "EfficientNetB1", "MobileNetV3Large",
+])
+SUPPORTED_MODEL_NAMES = sorted(SUPPORTED_MODELS)
+
+
+def get_model_spec(name: str) -> ModelSpec:
+    spec = SUPPORTED_MODELS.get(name)
+    if spec is not None:
+        return spec
+    if name in REFERENCE_MODEL_NAMES:
+        raise NotImplementedError(
+            f"Model {name!r} is not yet ported to sparkdl_tpu_torch; "
+            f"ported: {SUPPORTED_MODEL_NAMES}")
+    raise ValueError(
+        f"Unsupported model {name!r}; supported: {SUPPORTED_MODEL_NAMES}")
+
+
+def _random_init(module: nn.Module, seed: int) -> None:
+    """Flax's default initializers from a seeded CPU generator: conv and
+    Dense kernels lecun-normal, biases zero, BN γ=1, β=0, mean 0, var 1."""
+    gen = torch.Generator().manual_seed(seed)
+    for sub in module.modules():
+        if isinstance(sub, (layers.Conv2d, layers.Dense)):
+            layers.lecun_normal_(sub.weight, gen)
+
+
+def _resolve_weights(module: nn.Module, name: str, weights, seed: int
+                     ) -> None:
+    if weights is None or (isinstance(weights, str) and weights == "random"):
+        _random_init(module, seed)
+        return
+    if isinstance(weights, str):
+        state = torch.load(weights, map_location="cpu", weights_only=True)
+    elif isinstance(weights, dict) and "params" in weights:
+        state = from_flax_variables(name, weights)
+    elif isinstance(weights, dict):
+        state = weights
+    else:
+        raise TypeError(
+            f"Cannot resolve weights for {name!r} from "
+            f"{type(weights).__name__}; pass 'random', a Flax variables "
+            "tree of numpy arrays, a state dict, or a state-dict file")
+    # a head-less module takes the head-less part of a full model's weights
+    wanted = module.state_dict()
+    state = {k: v for k, v in state.items() if k in wanted}
+    module.load_state_dict(state, strict=True)
+
+
+def _spec_input(spec: ModelSpec) -> TensorSpec:
+    h, w = spec.input_size
+    return TensorSpec((None, h, w, 3), "float32")
+
+
+def _build(name: str, include_top: bool, weights, seed: int,
+           dtype) -> ModelFunction:
+    spec = get_model_spec(name)
+    if include_top:
+        module = spec.builder(include_top=True, classes=spec.classes)
+    else:
+        module = spec.builder(include_top=False, pooling="avg")
+    _resolve_weights(module, name, weights, seed)
+    kind = "predict" if include_top else "featurize"
+    mf = ModelFunction.fromModule(module, _spec_input(spec),
+                                  name=f"{name}_{kind}")
+    if dtype is not None and torch_dtype(dtype) != torch.float32:
+        mf = mf.with_compute_dtype(dtype)
+    return mf.with_preprocess(spec.preprocess)
+
+
+def build_featurizer(name: str, weights="random", seed: int = 0,
+                     dtype=None) -> ModelFunction:
+    """Headless named model as a ModelFunction emitting feature vectors.
+
+    Input contract: float RGB [0, 255] NHWC at the model's input size;
+    scaling runs on the device. ``dtype`` (None = float32) is the compute
+    dtype; the executor applies ``EngineConfig.inference_precision`` on
+    top."""
+    return _build(name, False, weights, seed, dtype)
+
+
+def build_predictor(name: str, weights="random", seed: int = 0,
+                    dtype=None) -> ModelFunction:
+    """Full named model (softmax probabilities) as a ModelFunction."""
+    return _build(name, True, weights, seed, dtype)

@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA card and skip elsewhere. The machine with the
+card has no JAX, so this file imports none and runs without the suite's
+``conftest.py``:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 max|Δ| ≤ 1e-5·max(1, max|ref|) (another summation
+order); bf16 max|Δ| ≤ 0.05 (the JAX package's ``BF16_TOLERANCE``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sparkdl_tpu_torch.core import kernels
+
+EPS = 1e-3
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _f32_bound(ref: torch.Tensor) -> float:
+    return 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 9, 16, 72), (3, 5, 4, 40, 24),
+                                   (1, 19, 19, 728, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu_in", [False, True])
+def test_sep2d_matches_plain(card, shape, dtype, relu_in):
+    b, h, w, cin, cout = shape
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=gen).to(card, dtype)
+    dw9 = (torch.randn(9, cin, generator=gen) * 0.2).to(card, dtype)
+    pw = (torch.randn(cin, cout, generator=gen) / cin ** 0.5).to(card, dtype)
+    scale = (torch.rand(cout, generator=gen) + 0.5).to(card)
+    shift = (torch.randn(cout, generator=gen) * 0.1).to(card)
+    before = kernels.launches["sep2d"]
+    y = kernels.sep2d(x, dw9, pw, scale, shift, relu_in=relu_in)
+    torch.cuda.synchronize()
+    assert kernels.launches["sep2d"] == before + 1
+    ref = kernels.plain_sep2d(x, dw9, pw, scale, shift, relu_in=relu_in)
+    assert y.dtype == dtype and y.shape == ref.shape
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
+                   else kernels.BF16_TOLERANCE), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32,
+                                      torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("src,dst", [((13, 17), (29, 23)),
+                                     ((40, 36), (32, 32))])
+def test_preproc_resize_matches_plain(card, in_dtype, out_dtype, src, dst):
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randint(0, 256, (2, *src, 3), generator=gen,
+                      dtype=torch.uint8).to(card, in_dtype)
+    y = kernels.preproc_resize(x, dst, out_dtype)
+    torch.cuda.synchronize()
+    ref = kernels.plain_preproc(x, dst, out_dtype)
+    assert y.dtype == out_dtype and y.shape == ref.shape
+    err = float((y.float() - ref.float()).abs().max())
+    # bf16 output on the [0, 255] scale: one bf16 ulp is 1.0 there
+    assert err <= (_f32_bound(ref.float()) if out_dtype == torch.float32
+                   else 2.0), err
+
+
+@pytest.mark.cuda
+def test_wrappers_check_their_inputs(card):
+    x = torch.zeros(1, 4, 4, 8, device=card)
+    dw9, pw = torch.zeros(9, 8, device=card), torch.zeros(8, 4, device=card)
+    sc, sh = torch.ones(4, device=card), torch.zeros(4, device=card)
+    with pytest.raises(TypeError):
+        kernels.sep2d(x, dw9.half(), pw, sc, sh)
+    with pytest.raises(ValueError):
+        kernels.sep2d(x.permute(0, 2, 1, 3), dw9, pw, sc, sh)
+    with pytest.raises(ValueError):
+        kernels.sep2d(x, dw9.cpu(), pw, sc, sh)
+    with pytest.raises(TypeError):
+        kernels.preproc_resize(x.half(), (2, 2), torch.float32)
+
+
+@pytest.mark.cuda
+def test_xception_features_match_cpu(card):
+    """A whole Xception forward on the card (34 sep2d launches) against
+    the same weights on the CPU, float32, 75×75: max|Δ| ≤ 1e-3·max|ref|."""
+    from sparkdl_tpu_torch.models.registry import build_featurizer
+
+    mf = build_featurizer("Xception", weights="random", seed=3)
+    x = np.random.default_rng(4).integers(0, 256, (2, 75, 75, 3), np.uint8)
+    cpu = mf.apply_batch(x, batch_size=2, device="cpu")
+    kernels.reset_launches()
+    gpu = mf.apply_batch(x, batch_size=2, device=card)
+    assert kernels.launches["sep2d"] == 34
+    assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()

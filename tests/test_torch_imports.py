@@ -1,0 +1,96 @@
+"""The port stands alone: it imports nothing of JAX or of ``sparkdl_tpu``,
+and it runs on the card unless asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sparkdl_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_no_forbidden_imports_in_source():
+    files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad.extend(f"{path.relative_to(ROOT)}: {n}" for n in names
+                       if _forbidden(n))
+    assert not bad, bad
+
+
+def test_featurize_on_cpu_loads_no_jax(tmp_path):
+    """A featurize on the CPU in a fresh process leaves no JAX and no
+    ``sparkdl_tpu`` in ``sys.modules``."""
+    script = tmp_path / "probe.py"
+    script.write_text(
+        "import sys\n"
+        "import numpy as np\n"
+        "import sparkdl_tpu_torch as s\n"
+        "from sparkdl_tpu_torch.image import imageIO\n"
+        "s.EngineConfig.device = 'cpu'\n"
+        "s.EngineConfig.inference_precision = 'float32'\n"
+        "rng = np.random.default_rng(0)\n"
+        "imgs = [rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)\n"
+        "        for _ in range(2)]\n"
+        "df = s.DataFrame.fromColumns(\n"
+        "    {'image': imageIO.imageArraysToStructColumn(imgs, ['a', 'b'])})\n"
+        "rows = s.DeepImageFeaturizer(inputCol='image', outputCol='f',\n"
+        "    modelName='Xception', batchSize=2).transform(df).collect()\n"
+        "assert len(rows) == 2 and len(rows[0]['f']) == 2048\n"
+        "top = {m.split('.')[0] for m in sys.modules}\n"
+        "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                    'sparkdl_tpu'}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_default_device_without_cuda_raises():
+    """With the default ``EngineConfig.device = "cuda"`` and no card,
+    ``transform`` raises instead of running on the CPU."""
+    import sparkdl_tpu_torch as s
+    from sparkdl_tpu_torch.image import imageIO
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    assert s.EngineConfig.device == "cuda"
+    img = np.zeros((8, 8, 3), np.uint8)
+    df = s.DataFrame.fromColumns(
+        {"image": imageIO.imageArraysToStructColumn([img], ["a"])})
+    feat = s.DeepImageFeaturizer(inputCol="image", outputCol="f",
+                                 modelName="Xception")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        feat.transform(df)
+
+
+def test_unported_models_say_so():
+    import sparkdl_tpu_torch as s
+
+    feat = s.DeepImageFeaturizer(inputCol="image", outputCol="f",
+                                 modelName="InceptionV3")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        feat._model_function("featurize")

@@ -1,0 +1,121 @@
+"""Print the port's measured parity against the JAX package, on the CPU.
+
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py
+
+The same comparisons the ``tests/test_torch_*.py`` files assert, with the
+measured max|Δ| printed as JSON lines (``PERF.md`` quotes them): the
+plain kernel versions against the Pallas kernels (interpret mode) and
+their XLA twins, Xception at 75×75, and the featurize slice at 299×299.
+"""
+
+import json
+import os
+import sys
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from tests import test_torch_featurizer as feat_tests  # noqa: E402
+from tests import test_torch_kernels as kt  # noqa: E402
+from tests.torch_port_helpers import headless, max_abs, random_variables  # noqa: E402
+
+
+def kernels_report():
+    b, h, w, cin, cout = 2, 7, 9, 16, 24
+    for dtype in ("float32", "bfloat16"):
+        for relu_in in (False, True):
+            x, dw, pw, gamma, beta, mean, var = kt._sep2d_operands(
+                b, h, w, cin, cout)
+            jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+            xj, dwj, pwj = (jnp.asarray(a, jdt) for a in (x, dw, pw))
+            scale, shift = kt.jk._fold_bn(*(jnp.asarray(a) for a in
+                                            (gamma, beta, mean, var)),
+                                          kt.EPS, cout)
+            pallas = kt.jk.sep2d(xj, dwj.reshape(9, cin),
+                                 pwj.reshape(cin, cout), scale, shift,
+                                 relu_in=relu_in, interpret=True)
+            twin = kt.jk.xla_sep2d(xj, dwj, pwj, *(jnp.asarray(a, jdt) for a
+                                                   in (gamma, beta, mean,
+                                                       var)),
+                                   kt.EPS, relu_in=relu_in)
+            ours = kt.tk.plain_sep2d(
+                kt._t(xj, tdt), kt._t(dwj.reshape(9, cin), tdt),
+                kt._t(pwj.reshape(cin, cout), tdt),
+                torch.from_numpy(np.array(scale)),
+                torch.from_numpy(np.array(shift)), relu_in=relu_in)
+            print(json.dumps({
+                "check": "plain_sep2d", "dtype": dtype, "relu_in": relu_in,
+                "vs_pallas": max_abs(kt._np32(ours), kt._np32(pallas)),
+                "vs_xla": max_abs(kt._np32(ours), kt._np32(twin)),
+                "max_abs_ref": float(np.abs(kt._np32(twin)).max())}))
+    rng = np.random.default_rng(1)
+    for src, dst in (((13, 17), (29, 23)), ((40, 36), (32, 32))):
+        x = rng.integers(0, 256, size=(2, *src, 3)).astype(np.uint8)
+        for out in ("float32", "bfloat16"):
+            ours = kt._np32(kt.tk.plain_preproc(torch.from_numpy(x), dst,
+                                                getattr(torch, out)))
+            print(json.dumps({
+                "check": "plain_preproc", "src": src, "dst": dst,
+                "out": out,
+                "vs_pallas": max_abs(ours, kt._np32(kt.jk.preproc_resize(
+                    jnp.asarray(x), dst, out, interpret=True))),
+                "vs_xla": max_abs(ours, kt._np32(kt.jk.xla_preproc(
+                    jnp.asarray(x), dst, out)))}))
+
+
+def xception_report():
+    from sparkdl_tpu.models.xception import Xception as JaxXception
+    from sparkdl_tpu_torch.models.convert import from_flax_variables
+    from sparkdl_tpu_torch.models.xception import Xception
+
+    jm = JaxXception(include_top=False, pooling="avg")
+    vs = headless(random_variables(JaxXception(include_top=True),
+                                   (1, 75, 75, 3), seed=0))
+    x = np.random.default_rng(5).normal(size=(2, 75, 75, 3)).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(jm.apply)(vs, x))
+    tm = Xception(include_top=False)
+    tm.load_state_dict(from_flax_variables("Xception", vs))
+    with torch.inference_mode():
+        ours = tm.eval()(torch.from_numpy(x)).numpy()
+    print(json.dumps({"check": "xception_75x75_f32",
+                      "max_abs": max_abs(ours, ref),
+                      "max_abs_ref": float(np.abs(ref).max())}))
+
+
+def slice_report():
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu.engine.dataframe import EngineConfig as JaxConfig
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    JaxConfig.inference_precision = "float32"
+    EngineConfig.device, EngineConfig.inference_precision = "cpu", "float32"
+    from sparkdl_tpu.models.xception import Xception as JaxXception
+
+    vs = headless(random_variables(JaxXception(include_top=True),
+                                   (1, 75, 75, 3), seed=11))
+    rng = np.random.default_rng(12)
+    images = [rng.integers(0, 256, size=(64, 80, 3), dtype=np.uint8)
+              for _ in range(3)]
+    jdf, tdf = feat_tests._frames(images, ["a", "b", "c"])
+    kw = dict(inputCol="image", outputCol="features", modelName="Xception",
+              weights=vs, batchSize=3)
+    ref = feat_tests._features(sparkdl_tpu.DeepImageFeaturizer(**kw), jdf)
+    ours = feat_tests._features(sparkdl_tpu_torch.DeepImageFeaturizer(**kw),
+                                tdf)
+    print(json.dumps({"check": "featurizer_64x80_to_299_f32",
+                      "max_abs": max_abs(ours, ref),
+                      "max_abs_ref": float(np.abs(ref).max())}))
+
+
+if __name__ == "__main__":
+    kernels_report()
+    xception_report()
+    slice_report()

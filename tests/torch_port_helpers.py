@@ -1,0 +1,55 @@
+"""Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
+
+Weights come from numpy with a fixed seed, shaped by the JAX module's own
+variables tree (``jax.eval_shape`` of its ``init``: tracing only, no
+compile), and cross to the port through ``from_flax_variables``. The BN
+statistics are drawn away from their init values (γ≠1, β≠0, mean≠0,
+var≠1), so a BN parameter mapped to the wrong place shows.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+
+def random_variables(module, input_shape, seed: int = 0):
+    """A ``{"params", "batch_stats"}`` tree of numpy arrays for ``module``."""
+    shapes = jax.eval_shape(lambda: module.init(
+        jax.random.PRNGKey(0), jnp.zeros(input_shape, jnp.float32)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, sd):
+        leaf = path[-1].key
+        shape = sd.shape
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        if leaf == "scale":
+            return (np.abs(rng.normal(size=shape)) + 0.5).astype(np.float32)
+        if leaf in ("bias", "mean"):
+            return (rng.normal(size=shape) * 0.1).astype(np.float32)
+        if leaf == "var":
+            return (np.abs(rng.normal(size=shape)) + 1.0).astype(np.float32)
+        raise ValueError(f"unexpected variable {path}")
+
+    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    return jax.tree_util.tree_map(np.asarray, _plain(tree))
+
+
+def _plain(tree):
+    if hasattr(tree, "items"):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
+
+
+def headless(variables):
+    """The featurizer's part of a full (include_top) Xception tree."""
+    return {"params": {k: v for k, v in variables["params"].items()
+                       if k != "predictions"},
+            "batch_stats": variables["batch_stats"]}
+
+
+def max_abs(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                               - np.asarray(b, np.float32))))
