@@ -4,18 +4,31 @@
 
 Builds the port's CUDA kernels from ``sparkdl_tpu_torch/csrc`` (one nvcc
 per source, in parallel, into ``build/sparkdl_tpu_torch/``), checks each
-kernel against its plain PyTorch version at the shapes the Xception
-featurize path gives it and times both (and the PyTorch library call
-that computes the same function, as a yardstick the port never calls),
-then drives ``DeepImageFeaturizer(modelName="Xception")`` through
-``transform(...).collect()`` twice: on 256×256 images (resized on the
-card by ``preproc_resize``; the network then runs in float32 with
-bf16-rounded weights) and on 299×299 images (no resize; the network runs
-in bf16). Each run is checked against the port's own CPU run of the same
-weights, and the launch counters show the path went through the kernels.
+kernel against its plain PyTorch version at the shapes the featurize
+paths give it and times both (and the PyTorch library call that computes
+the same function, as a yardstick the port never calls), then drives five
+featurize phases through ``transform(...).collect()``, each on 32 images
+at batch 16 after one warm-up pass:
+
+- ``featurize_resized`` / ``featurize_native``:
+  ``DeepImageFeaturizer(modelName="Xception")`` on 256×256 images
+  (resized on the card by ``preproc_resize``; the network then runs in
+  float32 with bf16-rounded weights) and on 299×299 images (no resize;
+  bf16), with ``sep2d`` at its 34 sites per forward;
+- ``inception_featurize_resized``:
+  ``DeepImageFeaturizer(modelName="InceptionV3")``, the default fast path
+  (BN folded, branch 1×1 convs fused, plain convs), on 256×256 images;
+- ``inception_module_native`` / ``inception_module_resized``:
+  ``TorchImageTransformer`` over ``build_featurizer("InceptionV3",
+  fast=False)``, the module path, with ``pw1x1`` at its 39 sites per
+  forward, on 299×299 images (bf16) and 256×256 images (float32).
+
+Each phase is checked against the port's own CPU run of the same weights
+on two images, and the launch counters, set to 0 just before the phase and
+read just after, show that it went through exactly the kernels it should.
 ``--profile`` adds device times from ``torch.profiler`` beside each event
-time, and one profiled pass per featurize run: device time by kernel and
-the device's idle share.
+time, and one profiled pass per phase: device time by kernel and the
+device's idle share.
 
 Prints one JSON object per phase; the line before the last is the kernels
 summary and the card's ``name, power.limit``; the last line is the
@@ -42,6 +55,10 @@ H100_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core peak
               torch.float32: 67e12}     # float32 outside the tensor cores
 SEP2D_SHAPES = [(147, 147, 64, 128), (19, 19, 728, 728),
                 (10, 10, 1536, 2048)]
+# InceptionV3's 1×1 sites at 35×35, 17×17 and 8×8 (widest of each grid);
+# the last entry of each case is ``relu``
+PW1X1_CASES = [(35, 35, 192, 64, True), (17, 17, 768, 192, True),
+               (8, 8, 2048, 448, True), (35, 35, 192, 64, False)]
 PREPROC_SHAPES = [(256, 256), (512, 384)]
 TARGET = (299, 299)
 PROFILE = "--profile" in sys.argv[1:]
@@ -154,6 +171,54 @@ def check_sep2d(kernels, dev):
     return rows
 
 
+def check_pw1x1(kernels, dev):
+    """pw1x1 against plain_pw1x1 and the library's matmul → affine → relu,
+    at InceptionV3's module-path shapes, in float32 and bf16."""
+    rows = []
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for h, w, cin, cout, relu in PW1X1_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dtype)
+            w2 = (torch.randn(cin, cout, generator=gen)
+                  / cin ** 0.5).to(dev, dtype)
+            # scale < 1 keeps |y| under 8, where one bf16 ulp is below 0.05
+            scale = (torch.rand(cout, generator=gen) * 0.5 + 0.5).to(dev)
+            shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+            y = kernels.pw1x1(x, w2, scale, shift, relu=relu)
+            ref = kernels.plain_pw1x1(x, w2, scale, shift, relu=relu)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            limit = (F32_KERNEL_REL * max(1.0, float(ref.float().abs().max()))
+                     if dtype == torch.float32 else kernels.BF16_TOLERANCE)
+            assert err <= limit, f"pw1x1 {h}x{w} {cin}->{cout} {dtype}: " \
+                                 f"max|err| {err} > {limit}"
+            x2 = x.reshape(-1, cin)
+            sc, sh = scale.to(dtype), shift.to(dtype)
+
+            def library():
+                y = torch.matmul(x2, w2) * sc + sh
+                return torch.relu(y) if relu else y
+
+            item = x.element_size()
+            n = BATCH * h * w
+            flops = 2 * n * cin * cout
+            nbytes = (n * (cin + cout) + cin * cout) * item + 2 * cout * 4
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            rows.append({
+                "shape": [BATCH, h, w, cin, cout], "relu": relu,
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tolerance": limit,
+                **timings(lambda: kernels.pw1x1(x, w2, scale, shift,
+                                                relu=relu),
+                          lambda: kernels.plain_pw1x1(x, w2, scale, shift,
+                                                      relu=relu),
+                          library),
+                "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+                "mbytes": nbytes / 1e6})
+            emit({"phase": "kernel_check", "kernel": "pw1x1", **rows[-1]})
+    return rows
+
+
 def check_preproc(kernels, dev):
     """preproc_resize against plain_preproc and cast + F.interpolate."""
     import torch.nn.functional as F
@@ -194,15 +259,37 @@ def check_preproc(kernels, dev):
     return rows
 
 
-def featurize(s, images, weights, batch_size):
+def featurize(s, model, images, weights, batch_size):
+    """The user-facing transformer of one phase and its frame. ``model``
+    is (name, "named") for ``DeepImageFeaturizer(modelName=name)``, or
+    (name, "module") for ``TorchImageTransformer`` over
+    ``build_featurizer(name, fast=False)``."""
     from sparkdl_tpu_torch.image import imageIO
+    from sparkdl_tpu_torch.models import registry
 
     df = s.DataFrame.fromColumns({"image": imageIO.imageArraysToStructColumn(
         images, [f"img_{i}" for i in range(len(images))])})
-    feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
-                                 modelName="Xception", weights=weights,
-                                 batchSize=batch_size)
+    name, path = model
+    if path == "named":
+        feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                     modelName=name, weights=weights,
+                                     batchSize=batch_size)
+    else:
+        feat = s.TorchImageTransformer(
+            inputCol="image", outputCol="features", outputMode="vector",
+            modelFunction=registry.build_featurizer(name, weights=weights,
+                                                    fast=False),
+            batchSize=batch_size)
     return feat, df
+
+
+def model_state(s, feat):
+    """The float32 weights of a phase's model, on the CPU."""
+    mf = (feat._model_function("featurize")
+          if isinstance(feat, s.DeepImageFeaturizer)
+          else feat.getModelFunction())
+    return {k: v.detach().cpu().clone()
+            for k, v in mf.variables.state_dict().items()}
 
 
 def profile_pass(name, feat, df, top: int = 12):
@@ -232,15 +319,16 @@ def profile_pass(name, feat, df, top: int = 12):
                           for k, ms, n in kernels[:top]]})
 
 
-def main_path(s, kernels, name, size, expect_preproc, rel_tol):
+def main_path(s, kernels, name, model, size, per_forward, rel_tol):
     """Featurize N_IMAGES seeded images of ``size`` on the card (one
-    warm-up pass, then the counted and timed pass), and check two of them
-    against the port's CPU run of the same weights."""
+    warm-up pass, then the counted and timed pass), check the launch
+    counts against ``per_forward`` launches per forward, and check two of
+    the features against the port's CPU run of the same weights."""
     rng = np.random.default_rng(SEED + size[0])
     images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
               for _ in range(N_IMAGES)]
     s.EngineConfig.device = "cuda"
-    feat, df = featurize(s, images, "random", BATCH)
+    feat, df = featurize(s, model, images, "random", BATCH)
     feat.transform(df).collect()  # warm-up (builds, allocator, cuDNN plans)
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -253,15 +341,12 @@ def main_path(s, kernels, name, size, expect_preproc, rel_tol):
     assert gpu.shape == (N_IMAGES, 2048), gpu.shape
     assert np.isfinite(gpu).all(), "non-finite features"
     forwards = -(-N_IMAGES // BATCH)
-    assert counts["sep2d"] == 34 * forwards, counts
-    assert counts["preproc_resize"] == (forwards if expect_preproc else 0), \
-        counts
+    expected = {k: per_forward.get(k, 0) * forwards for k in counts}
+    assert counts == expected, f"{name}: launches {counts} != {expected}"
 
-    state = {k: v.detach().cpu().clone() for k, v in
-             feat._model_function("featurize").variables.state_dict()
-             .items()}
     s.EngineConfig.device = "cpu"
-    cpu_feat, cpu_df = featurize(s, images[:2], state, 2)
+    cpu_feat, cpu_df = featurize(s, model, images[:2], model_state(s, feat),
+                                 2)
     cpu = np.stack([np.asarray(r["features"], np.float32)
                     for r in cpu_feat.transform(cpu_df).collect()])
     s.EngineConfig.device = "cuda"
@@ -269,7 +354,8 @@ def main_path(s, kernels, name, size, expect_preproc, rel_tol):
     limit = rel_tol * float(np.max(np.abs(cpu)))
     assert err <= limit, f"{name}: features differ from the CPU run by " \
                          f"{err} > {limit}"
-    out = {"phase": name, "images": N_IMAGES, "source_size": list(size),
+    out = {"phase": name, "model": model[0], "path": model[1],
+           "images": N_IMAGES, "source_size": list(size),
            "batch_size": BATCH,
            "precision": s.EngineConfig.inference_precision,
            "seconds": seconds, "images_per_s": N_IMAGES / seconds,
@@ -279,6 +365,21 @@ def main_path(s, kernels, name, size, expect_preproc, rel_tol):
     if PROFILE:
         profile_pass(name, feat, df)
     return out
+
+
+# (phase, (model, path), source size, launches per forward, tolerance)
+PHASES = [
+    ("featurize_resized", ("Xception", "named"), (256, 256),
+     {"sep2d": 34, "preproc_resize": 1}, F32_REL),
+    ("featurize_native", ("Xception", "named"), TARGET, {"sep2d": 34},
+     BF16_REL),
+    ("inception_featurize_resized", ("InceptionV3", "named"), (256, 256),
+     {"preproc_resize": 1}, F32_REL),
+    ("inception_module_native", ("InceptionV3", "module"), TARGET,
+     {"pw1x1": 39}, BF16_REL),
+    ("inception_module_resized", ("InceptionV3", "module"), (256, 256),
+     {"pw1x1": 39, "preproc_resize": 1}, F32_REL),
+]
 
 
 def main() -> int:
@@ -313,35 +414,38 @@ def main() -> int:
 
     dev = torch.device("cuda")
     sep_rows = check_sep2d(kernels, dev)
+    pw_rows = check_pw1x1(kernels, dev)
     pre_rows = check_preproc(kernels, dev)
 
-    resized = main_path(s, kernels, "featurize_resized", (256, 256), True,
-                        F32_REL)
-    native = main_path(s, kernels, "featurize_native", TARGET, False,
-                       BF16_REL)
+    phases = {name: main_path(s, kernels, name, model, size, per_forward,
+                              tol)
+              for name, model, size, per_forward, tol in PHASES}
 
     def summary(name, source, replaces, rows, headline):
-        launches = resized["launches"][name] + native["launches"][name]
+        by_phase = {p: out["launches"][name] for p, out in phases.items()}
+        launches = sum(by_phase.values())
         assert launches > 0, f"{name} never launched on the main path"
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "launches_by_phase": {"featurize_resized":
-                                      resized["launches"][name],
-                                      "featurize_native":
-                                      native["launches"][name]},
+                "launches_by_phase": by_phase,
                 **{k: headline[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms", "shape", "dtype")},
                 "kernel_ms": headline["ms"], "shapes": rows}
 
-    mid = next(r for r in sep_rows
-               if r["shape"][1:] == [19, 19, 728, 728]
-               and r["dtype"] == "bfloat16")
+    sep_mid = next(r for r in sep_rows
+                   if r["shape"][1:] == [19, 19, 728, 728]
+                   and r["dtype"] == "bfloat16")
+    pw_mid = next(r for r in pw_rows
+                  if r["shape"][1:] == [17, 17, 768, 192]
+                  and r["dtype"] == "bfloat16")
     emit({"kernels": [
         summary("sep2d", "sparkdl_tpu_torch/csrc/sep2d.cu",
-                "sparkdl_tpu/core/kernels.py:454", sep_rows, mid),
+                "sparkdl_tpu/core/kernels.py:454", sep_rows, sep_mid),
         summary("preproc_resize", "sparkdl_tpu_torch/csrc/preproc_resize.cu",
                 "sparkdl_tpu/core/kernels.py:586", pre_rows, pre_rows[0]),
+        summary("pw1x1", "sparkdl_tpu_torch/csrc/pw1x1.cu",
+                "sparkdl_tpu/core/kernels.py:516", pw_rows, pw_mid),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

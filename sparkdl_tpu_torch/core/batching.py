@@ -43,7 +43,8 @@ def run_batched(fn: Callable[[torch.Tensor], torch.Tensor],
     Each chunk is padded on the host into a (pinned, on CUDA) staging
     buffer and uploaded with ONE host-to-device copy; pad rows are sliced
     off on the device, the chunk outputs concatenated there, and the
-    result fetched with one device-to-host copy."""
+    result fetched with one device-to-host copy (a bfloat16 result as
+    float32)."""
     n = array.shape[0]
     if n == 0:
         raise ValueError("run_batched needs at least one row")
@@ -60,4 +61,6 @@ def run_batched(fn: Callable[[torch.Tensor], torch.Tensor],
             out = fn(host.to(device, non_blocking=True))
         outs.append(out[:n_valid])
     result = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    if result.dtype == torch.bfloat16:  # numpy has no bfloat16
+        result = result.float()
     return result.cpu().numpy()

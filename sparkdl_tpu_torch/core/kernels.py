@@ -1,25 +1,30 @@
 """The port's hand-written kernels, their plain versions and their routes.
 
-Two of the JAX package's Pallas kernels (``sparkdl_tpu/core/kernels.py``)
-run on the featurize path of Xception, and each is a CUDA C++ kernel for
-Hopper here (``csrc/``, built by :mod:`.cuda_build`):
+The three Pallas kernels of the JAX package (``sparkdl_tpu/core/kernels.py``)
+that run on a user path are CUDA C++ kernels for Hopper here (``csrc/``,
+built by :mod:`.cuda_build`):
 
 - :func:`sep2d` — optional ReLU → 3×3 SAME stride-1 depthwise → 1×1
   pointwise product (f32 accumulate) → folded-BN affine, with the
   depthwise result kept on chip (the Xception ``SeparableConvBN`` body);
+- :func:`pw1x1` — a 1×1 stride-1 conv as one ``(B·H·W, Cin)·(Cin, Cout)``
+  product (f32 accumulate) → folded-BN affine → optional ReLU (the
+  InceptionV3 ``ConvBN`` body at its 1×1 SAME sites);
 - :func:`preproc_resize` — cast + bilinear resize (half-pixel centres, no
   antialias, edge-clamped) of an NHWC batch (the fused-preprocess
   prologue of ``ModelFunction.resized``).
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
-PyTorch version (:func:`plain_sep2d`, :func:`plain_preproc`) only for a
-tensor on the CPU; there is no fallback on the card. :data:`launches`
-counts kernel launches, one per wrapper call that reached the card.
+PyTorch version (:func:`plain_sep2d`, :func:`plain_pw1x1`,
+:func:`plain_preproc`) only for a tensor on the CPU; there is no fallback
+on the card. :data:`launches` counts kernel launches, one per wrapper
+call that reached the card.
 
 Models call the ``route_*`` entry points, which follow the JAX package's
 ``"force"`` mode: every eligible site routes. The TPU's VMEM budgets
-(``_sep2d_geometry``, ``_preproc_geometry``) are not limits of the
-function and are dropped; the accept-if-faster gate is not ported yet.
+(``_sep2d_geometry``, ``_pw1x1_geometry``, ``_preproc_geometry``) are not
+limits of the function and are dropped; the accept-if-faster gate is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from sparkdl_tpu_torch.core import cuda_build
 BF16_TOLERANCE = 0.05
 
 #: Kernel launches on the card since the last :func:`reset_launches`.
-launches: Dict[str, int] = {"sep2d": 0, "preproc_resize": 0}
+launches: Dict[str, int] = {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
@@ -150,6 +155,65 @@ def _fold_bn(gamma, beta, mean, var, eps: float):
         scale = scale * gamma.float()
     shift = beta.float() - mean.float() * scale
     return scale.contiguous(), shift.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# pw1x1
+# ---------------------------------------------------------------------------
+
+
+def plain_pw1x1(x, w2, scale, shift, *, relu: bool = False):
+    """Plain PyTorch version of :func:`pw1x1`: the product of the float32
+    upcasts, the affine and ReLU in float32, the result in x's type."""
+    cout = w2.shape[-1]
+    y = torch.matmul(x.float(), w2.float())
+    y = y * scale.reshape(cout) + shift.reshape(cout)
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype).contiguous()
+
+
+def pw1x1(x, w2, scale, shift, *, relu: bool = False):
+    """Fused 1×1 conv (one product over the flattened positions) → affine
+    → optional ReLU: ``(B, H, W, Cin) → (B, H, W, Cout)`` in x's type
+    (float32 or bfloat16).
+
+    ``w2`` is (Cin, Cout) in x's type; ``scale``/``shift`` are the folded
+    BN affine, float32, (Cout,) or (1, Cout)."""
+    if not _on_card(x, "pw1x1"):
+        return plain_pw1x1(x, w2, scale, shift, relu=relu)
+    if x.dim() != 4:
+        raise ValueError(f"pw1x1: x must be (B, H, W, Cin), got {x.shape}")
+    b, h, w, cin = x.shape
+    cout = w2.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pw1x1: x must be float32 or bfloat16, got {x.dtype}")
+    _check(x, "x", x.device, x.dtype, (b, h, w, cin))
+    _check(w2, "w2", x.device, x.dtype, (cin, cout))
+    scale, shift = scale.reshape(cout), shift.reshape(cout)
+    _check(scale, "scale", x.device, torch.float32, (cout,))
+    _check(shift, "shift", x.device, torch.float32, (cout,))
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _pw1x1_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w2.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), out.data_ptr(), b * h * w, cin, cout,
+                 int(relu), _DTYPE_CODES[x.dtype], stream)
+    _raise_on_error(err, "pw1x1")
+    launches["pw1x1"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _pw1x1_fn():
+    fn = cuda_build.library("pw1x1").sparkdl_pw1x1
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +343,18 @@ def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
     pw2 = pw_weight.reshape(cout, cin).t().to(x.dtype).contiguous()
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return sep2d(x.contiguous(), dw9, pw2, scale, shift, relu_in=relu_in)
+
+
+def route_pw1x1(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
+                eps: float, *, relu: bool):
+    """The fused 1×1 ConvBN body for one site. The conv weight is in the
+    port's layout, (Cout, Cin, 1, 1); it is cast to x's type as the JAX
+    route does."""
+    cin = x.shape[-1]
+    cout = conv_weight.shape[0]
+    w2 = conv_weight.reshape(cout, cin).t().to(x.dtype).contiguous()
+    scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
+    return pw1x1(x.contiguous(), w2, scale, shift, relu=relu)
 
 
 def route_preproc(x, target_hw: Tuple[int, int], out_dtype):

@@ -51,6 +51,10 @@ class ModelFunction:
     """``apply_fn(variables, x) -> y`` + ``variables`` (an ``nn.Module``,
     or None for a weightless function) + input spec."""
 
+    #: True when the registry selected an inference-specialized fast apply
+    #: (``models/*_fast.py``); set after construction by the registry.
+    fast_path = False
+
     def __init__(self, apply_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                  variables: Any, input_spec: TensorSpec,
                  name: str = "model") -> None:
@@ -61,6 +65,14 @@ class ModelFunction:
         self._flat_cache: Optional["ModelFunction"] = None
         self._resize_cache: Dict[Tuple, "ModelFunction"] = {}
         self._precision_cache: Dict[str, "ModelFunction"] = {}
+
+    @classmethod
+    def fromFunction(cls, fn: Callable[[Any, torch.Tensor], torch.Tensor],
+                     variables: Any, input_spec: TensorSpec,
+                     name: str = "fn") -> "ModelFunction":
+        """From a function ``fn(variables, x)`` over any tensors, e.g. an
+        ``nn.Module``'s (the ``TFInputGraph.fromGraph`` analog)."""
+        return cls(fn, variables, input_spec, name=name)
 
     @classmethod
     def fromModule(cls, module: torch.nn.Module, input_spec: TensorSpec,

@@ -1,6 +1,7 @@
 """Building blocks of the ported model zoo, in the reference's semantics.
 
-A port of the parts of ``sparkdl_tpu.models.layers`` that Xception uses.
+A port of the parts of ``sparkdl_tpu.models.layers`` that Xception and
+InceptionV3 use.
 Activations are NHWC throughout, as in the JAX package; each conv views
 them as NCHW (channels-last memory) for ``F.conv2d``. Weights use
 PyTorch's layouts (``models/convert.py`` maps the Flax tree onto them).
@@ -50,16 +51,24 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
-        xn = x.to(dtype).permute(0, 3, 1, 2)
-        if self.padding == "SAME":
-            (t, b), (l, r) = (
-                same_pads(x.shape[1], self.kernel[0], self.stride[0]),
-                same_pads(x.shape[2], self.kernel[1], self.stride[1]))
-            if t or b or l or r:
-                xn = F.pad(xn, (l, r, t, b))
-        y = F.conv2d(xn, self.weight.to(dtype), stride=self.stride,
-                     groups=self.groups)
-        return y.permute(0, 2, 3, 1)
+        return conv2d_nhwc(x.to(dtype), self.weight.to(dtype), self.stride,
+                           self.padding, self.groups)
+
+
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1),
+                padding: str = "SAME", groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` on NHWC activations with "VALID" or XLA "SAME"
+    padding; weight (Cout, Cin/groups, kh, kw), both of one dtype."""
+    kh, kw = weight.shape[2:]
+    stride = _pair(stride)
+    xn = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (t, b), (l, r) = (same_pads(x.shape[1], kh, stride[0]),
+                          same_pads(x.shape[2], kw, stride[1]))
+        if t or b or l or r:
+            xn = F.pad(xn, (l, r, t, b))
+    y = F.conv2d(xn, weight, stride=stride, groups=groups)
+    return y.permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.Module):
@@ -94,6 +103,68 @@ def max_pool_same(x: torch.Tensor, window: int = 3,
     if t or b or l or r:
         xn = F.pad(xn, (l, r, t, b), value=float("-inf"))
     return F.max_pool2d(xn, window, stride).permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """``nn.max_pool(padding="VALID")`` on NHWC."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window,
+                        stride).permute(0, 2, 3, 1)
+
+
+def avg_pool_same(x: torch.Tensor, window: int = 3,
+                  stride: int = 1) -> torch.Tensor:
+    """Keras ``AveragePooling2D(padding="same")`` on NHWC: each window's
+    sum over its valid (non-pad) cells divided by their count. With an odd
+    window at stride 1, XLA's SAME split is symmetric, which is what
+    ``F.avg_pool2d(count_include_pad=False)`` pads."""
+    (t, b), (l, r) = (same_pads(x.shape[1], window, stride),
+                      same_pads(x.shape[2], window, stride))
+    if (t, l) != (b, r):
+        raise ValueError(
+            f"avg_pool_same: window {window}, stride {stride} pads "
+            f"asymmetrically ({t}, {b}), ({l}, {r})")
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding=(t, l),
+                     count_include_pad=False)
+    return y.permute(0, 2, 3, 1)
+
+
+class ConvBN(nn.Module):
+    """Conv2D(use_bias=False) + BatchNorm without γ (eps 1e-3) + optional
+    ReLU: the InceptionV3 unit.
+
+    ``kernel_family`` opts the unit into the fused ``pw1x1`` route
+    (``core/kernels.py``): at inference, a 1×1 stride-1 "SAME" unit runs
+    as one kernel launch; every other unit runs the plain body."""
+
+    def __init__(self, cin: int, features: int, kernel, strides=(1, 1),
+                 padding: str = "SAME", act: bool = True,
+                 kernel_family: Optional[str] = None) -> None:
+        super().__init__()
+        self.kernel = _pair(kernel)
+        self.strides = _pair(strides)
+        self.padding = padding
+        self.act = act
+        self.kernel_family = kernel_family
+        self.conv = Conv2d(cin, features, self.kernel, self.strides, padding)
+        self.bn = BatchNorm(features, scale=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fused = self._fused(x)
+        if fused is not None:
+            return fused
+        y = self.bn(self.conv(x))
+        return torch.relu(y) if self.act else y
+
+    def _fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.training or self.kernel_family is None:
+            return None
+        if (self.strides != (1, 1) or self.kernel != (1, 1)
+                or self.padding != "SAME"):
+            return None
+        return kernels.route_pw1x1(
+            x, self.conv.weight, self.bn.weight, self.bn.bias,
+            self.bn.running_mean, self.bn.running_var, self.bn.eps,
+            relu=self.act)
 
 
 class SeparableConvBN(nn.Module):

@@ -11,14 +11,16 @@ sources for :func:`build_featurizer` / :func:`build_predictor`:
   ``models/convert.py`` — how the JAX package's weights come across;
 - a PyTorch state dict, or the path of one saved with ``torch.save``.
 
-Xception is the one model ported so far; the reference's other names
-raise a clear "not yet ported" error.
+Xception and InceptionV3 are ported so far; the reference's other names
+raise a clear "not yet ported" error. InceptionV3 builds its inference
+fast path (``models/inception_fast.py``) unless ``fast=False`` asks for
+the module, as in the reference.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,6 +30,8 @@ from sparkdl_tpu_torch.core.model_function import (
 )
 from sparkdl_tpu_torch.models import layers
 from sparkdl_tpu_torch.models.convert import from_flax_variables
+from sparkdl_tpu_torch.models.inception import InceptionV3
+from sparkdl_tpu_torch.models.inception_fast import inception_v3_fast_apply
 from sparkdl_tpu_torch.models.xception import Xception
 
 # ---------------------------------------------------------------------------
@@ -81,6 +85,8 @@ class ModelSpec:
 
 
 SUPPORTED_MODELS: Dict[str, ModelSpec] = {
+    "InceptionV3": ModelSpec(
+        "InceptionV3", InceptionV3, (299, 299), preprocess_tf_mode, 2048),
     "Xception": ModelSpec(
         "Xception", Xception, (299, 299), preprocess_tf_mode, 2048),
 }
@@ -145,8 +151,25 @@ def _spec_input(spec: ModelSpec) -> TensorSpec:
     return TensorSpec((None, h, w, 3), "float32")
 
 
-def _build(name: str, include_top: bool, weights, seed: int,
-           dtype) -> ModelFunction:
+def _fast_inference_apply(name: str, include_top: bool, dtype
+                          ) -> Optional[Callable]:
+    """Inference-specialized apply for models that have one, else None:
+    InceptionV3's (BN folded, branch 1×1 convs fused), computing in
+    ``dtype`` (None = float32)."""
+    if name != "InceptionV3":
+        return None
+    compute_dtype = torch_dtype(dtype) if dtype is not None else torch.float32
+
+    def apply_fn(module, x):
+        return inception_v3_fast_apply(module, x, include_top=include_top,
+                                       pooling="avg",
+                                       compute_dtype=compute_dtype)
+
+    return apply_fn
+
+
+def _build(name: str, include_top: bool, weights, seed: int, dtype,
+           fast: bool) -> ModelFunction:
     spec = get_model_spec(name)
     if include_top:
         module = spec.builder(include_top=True, classes=spec.classes)
@@ -154,25 +177,35 @@ def _build(name: str, include_top: bool, weights, seed: int,
         module = spec.builder(include_top=False, pooling="avg")
     _resolve_weights(module, name, weights, seed)
     kind = "predict" if include_top else "featurize"
-    mf = ModelFunction.fromModule(module, _spec_input(spec),
-                                  name=f"{name}_{kind}")
-    if dtype is not None and torch_dtype(dtype) != torch.float32:
-        mf = mf.with_compute_dtype(dtype)
-    return mf.with_preprocess(spec.preprocess)
+    fast_apply = _fast_inference_apply(name, include_top, dtype) if fast \
+        else None
+    if fast_apply is not None:
+        # dtype is the fast apply's compute dtype; the weights stay float32
+        mf = ModelFunction.fromFunction(fast_apply, module, _spec_input(spec),
+                                        name=f"{name}_{kind}")
+    else:
+        mf = ModelFunction.fromModule(module, _spec_input(spec),
+                                      name=f"{name}_{kind}")
+        if dtype is not None and torch_dtype(dtype) != torch.float32:
+            mf = mf.with_compute_dtype(dtype)
+    mf = mf.with_preprocess(spec.preprocess)
+    mf.fast_path = fast_apply is not None
+    return mf
 
 
 def build_featurizer(name: str, weights="random", seed: int = 0,
-                     dtype=None) -> ModelFunction:
+                     dtype=None, fast: bool = True) -> ModelFunction:
     """Headless named model as a ModelFunction emitting feature vectors.
 
     Input contract: float RGB [0, 255] NHWC at the model's input size;
     scaling runs on the device. ``dtype`` (None = float32) is the compute
     dtype; the executor applies ``EngineConfig.inference_precision`` on
-    top."""
-    return _build(name, False, weights, seed, dtype)
+    top. ``fast=False`` builds the module apply even where an
+    inference-specialized fast path exists."""
+    return _build(name, False, weights, seed, dtype, fast)
 
 
 def build_predictor(name: str, weights="random", seed: int = 0,
-                    dtype=None) -> ModelFunction:
+                    dtype=None, fast: bool = True) -> ModelFunction:
     """Full named model (softmax probabilities) as a ModelFunction."""
-    return _build(name, True, weights, seed, dtype)
+    return _build(name, True, weights, seed, dtype, fast)

@@ -57,6 +57,32 @@ def test_sep2d_matches_plain(card, shape, dtype, relu_in):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 7, 192, 64), (1, 17, 17, 768, 192),
+                                   (2, 8, 8, 2048, 448), (3, 3, 5, 20, 36),
+                                   (1, 4, 9, 37, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+def test_pw1x1_matches_plain(card, shape, dtype, relu):
+    """InceptionV3's widths, a ragged N, and widths that are not multiples
+    of the 16-byte load (which take the kernel's scalar loads)."""
+    b, h, w, cin, cout = shape
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(b, h, w, cin, generator=gen).to(card, dtype)
+    w2 = (torch.randn(cin, cout, generator=gen) / cin ** 0.5).to(card, dtype)
+    scale = (torch.rand(cout, generator=gen) * 0.5 + 0.5).to(card)
+    shift = (torch.randn(cout, generator=gen) * 0.1).to(card)
+    before = kernels.launches["pw1x1"]
+    y = kernels.pw1x1(x, w2, scale, shift, relu=relu)
+    torch.cuda.synchronize()
+    assert kernels.launches["pw1x1"] == before + 1
+    ref = kernels.plain_pw1x1(x, w2, scale, shift, relu=relu)
+    assert y.dtype == dtype and y.shape == ref.shape
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
+                   else kernels.BF16_TOLERANCE), err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32,
                                       torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -89,6 +115,10 @@ def test_wrappers_check_their_inputs(card):
         kernels.sep2d(x, dw9.cpu(), pw, sc, sh)
     with pytest.raises(TypeError):
         kernels.preproc_resize(x.half(), (2, 2), torch.float32)
+    with pytest.raises(TypeError):
+        kernels.pw1x1(x, pw.bfloat16(), sc, sh)
+    with pytest.raises(ValueError):
+        kernels.pw1x1(x, pw[:4], sc, sh)
 
 
 @pytest.mark.cuda
@@ -103,4 +133,21 @@ def test_xception_features_match_cpu(card):
     kernels.reset_launches()
     gpu = mf.apply_batch(x, batch_size=2, device=card)
     assert kernels.launches["sep2d"] == 34
+    assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+def test_inception_module_path_matches_cpu(card):
+    """A whole InceptionV3 forward on the module path on the card (39
+    pw1x1 launches) against the same weights on the CPU, float32, 75×75:
+    max|Δ| ≤ 1e-3·max|ref|."""
+    from sparkdl_tpu_torch.models.registry import build_featurizer
+
+    mf = build_featurizer("InceptionV3", weights="random", seed=3,
+                          fast=False)
+    x = np.random.default_rng(4).integers(0, 256, (2, 75, 75, 3), np.uint8)
+    cpu = mf.apply_batch(x, batch_size=2, device="cpu")
+    kernels.reset_launches()
+    gpu = mf.apply_batch(x, batch_size=2, device=card)
+    assert kernels.launches["pw1x1"] == 39
     assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()

@@ -13,17 +13,16 @@ reference's unfolded BN, and the resize's sums).
 """
 
 import numpy as np
-import pyarrow as pa
 import pytest
 
 import sparkdl_tpu
 import sparkdl_tpu_torch
-from sparkdl_tpu.image import imageIO as jax_imageIO
 from sparkdl_tpu.models.xception import Xception as JaxXception
 from sparkdl_tpu_torch.core import kernels
 from sparkdl_tpu_torch.engine.dataframe import EngineConfig
-from sparkdl_tpu_torch.image import imageIO
-from tests.torch_port_helpers import headless, max_abs, random_variables
+from tests.torch_port_helpers import (
+    column, frames, headless, max_abs, random_variables,
+)
 
 F32_REL = 1e-3
 
@@ -50,14 +49,6 @@ def cpu_engine():
     EngineConfig.restore(saved)
 
 
-def _frames(arrays, origins):
-    jdf = sparkdl_tpu.DataFrame.fromArrow(pa.table(
-        {"image": jax_imageIO.imageArraysToStructColumn(arrays, origins)}))
-    tdf = sparkdl_tpu_torch.DataFrame.fromColumns(
-        {"image": imageIO.imageArraysToStructColumn(arrays, origins)})
-    return jdf, tdf
-
-
 @pytest.fixture(scope="module")
 def featurizers(variables):
     kw = dict(inputCol="image", outputCol="features", modelName="Xception",
@@ -66,23 +57,18 @@ def featurizers(variables):
             sparkdl_tpu_torch.DeepImageFeaturizer(**kw))
 
 
-def _features(featurizer, frame):
-    return np.stack([np.asarray(r["features"], np.float32)
-                     for r in featurizer.transform(frame).collect()])
-
-
 def test_featurizer_matches_reference(featurizers, images):
-    jdf, tdf = _frames(images, ["a", "b", "c"])
-    ref = _features(featurizers[0], jdf)
+    jdf, tdf = frames(images, ["a", "b", "c"])
+    ref = column(featurizers[0], jdf, "features")
     kernels.reset_launches()
-    ours = _features(featurizers[1], tdf)
+    ours = column(featurizers[1], tdf, "features")
     assert ours.shape == (3, 2048) and np.isfinite(ours).all()
     assert max_abs(ours, ref) <= F32_REL * np.abs(ref).max()
-    assert kernels.launches == {"sep2d": 0, "preproc_resize": 0}
+    assert not any(kernels.launches.values())
 
 
 def test_predictor_matches_reference(variables, images):
-    jdf, tdf = _frames(images, ["a", "b", "c"])
+    jdf, tdf = frames(images, ["a", "b", "c"])
     kw = dict(inputCol="image", outputCol="probs", modelName="Xception",
               weights=variables, batchSize=3)
     ref = np.stack([r["probs"] for r in
@@ -117,6 +103,6 @@ def test_read_images_then_featurize(tmp_path, featurizers, images):
     jrows, trows = jdf.collect(), tdf.collect()
     assert [r["filePath"] for r in trows] == [r["filePath"] for r in jrows]
     assert [r["image"] for r in trows] == [r["image"] for r in jrows]
-    ref = _features(featurizers[0], jdf)
-    ours = _features(featurizers[1], tdf)
+    ref = column(featurizers[0], jdf, "features")
+    ours = column(featurizers[1], tdf, "features")
     assert max_abs(ours, ref) <= F32_REL * np.abs(ref).max()

@@ -40,8 +40,8 @@ def test_no_forbidden_imports_in_source():
 
 
 def test_featurize_on_cpu_loads_no_jax(tmp_path):
-    """A featurize on the CPU in a fresh process leaves no JAX and no
-    ``sparkdl_tpu`` in ``sys.modules``."""
+    """Featurizing with each ported model on the CPU in a fresh process
+    leaves no JAX and no ``sparkdl_tpu`` in ``sys.modules``."""
     script = tmp_path / "probe.py"
     script.write_text(
         "import sys\n"
@@ -55,9 +55,10 @@ def test_featurize_on_cpu_loads_no_jax(tmp_path):
         "        for _ in range(2)]\n"
         "df = s.DataFrame.fromColumns(\n"
         "    {'image': imageIO.imageArraysToStructColumn(imgs, ['a', 'b'])})\n"
-        "rows = s.DeepImageFeaturizer(inputCol='image', outputCol='f',\n"
-        "    modelName='Xception', batchSize=2).transform(df).collect()\n"
-        "assert len(rows) == 2 and len(rows[0]['f']) == 2048\n"
+        "for name in ('Xception', 'InceptionV3'):\n"
+        "    rows = s.DeepImageFeaturizer(inputCol='image', outputCol='f',\n"
+        "        modelName=name, batchSize=2).transform(df).collect()\n"
+        "    assert len(rows) == 2 and len(rows[0]['f']) == 2048\n"
         "top = {m.split('.')[0] for m in sys.modules}\n"
         "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "                    'sparkdl_tpu'}))\n")
@@ -91,6 +92,6 @@ def test_unported_models_say_so():
     import sparkdl_tpu_torch as s
 
     feat = s.DeepImageFeaturizer(inputCol="image", outputCol="f",
-                                 modelName="InceptionV3")
+                                 modelName="ResNet50")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         feat._model_function("featurize")

@@ -7,9 +7,9 @@ kernels in interpret mode and their XLA twins, on the same numpy inputs.
 Tolerances:
 - float32: max|Δ| ≤ 1e-5·max(1, max|ref|) — the sums run in another order
   (and with or without FMA contraction) in the two frameworks;
-- bfloat16 sep2d: max|Δ| ≤ 0.05, the JAX package's ``BF16_TOLERANCE``;
-  the Pallas depthwise rounds each tap to bf16 while the port rounds the
-  f32 sum once;
+- bfloat16 sep2d and pw1x1: max|Δ| ≤ 0.05, the JAX package's
+  ``BF16_TOLERANCE``; the Pallas depthwise rounds each tap to bf16 while
+  the port rounds the f32 sum once, and the XLA twins run BN in bf16;
 - bfloat16 preproc: max|Δ| ≤ 2.0 — the outputs live on the uint8 [0, 255]
   scale, where one bf16 ulp is 1.0 (the JAX package's own preproc bound).
 """
@@ -85,6 +85,35 @@ def test_plain_sep2d_matches_pallas_and_xla(dtype, relu_in):
         assert err <= bound, (err, bound)
 
 
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_pw1x1_matches_pallas_and_xla(dtype, relu):
+    """2×5×7 = 70 rows: ragged against every row block of both kernels."""
+    b, h, w, cin, cout = 2, 5, 7, 16, 24
+    x, _, pw, gamma, beta, mean, var = _sep2d_operands(b, h, w, cin, cout)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    xj, pwj = jnp.asarray(x, jdt), jnp.asarray(pw, jdt)
+    scale, shift = jk._fold_bn(jnp.asarray(gamma), jnp.asarray(beta),
+                               jnp.asarray(mean), jnp.asarray(var), EPS, cout)
+    pallas = jk.pw1x1(xj, pwj.reshape(cin, cout), scale, shift, relu=relu,
+                      interpret=True)
+    twin = jk.xla_pw1x1(xj, pwj, *(jnp.asarray(a, jdt) for a in
+                                   (gamma, beta, mean, var)),
+                        EPS, relu=relu)
+    ours = tk.plain_pw1x1(_t(xj, tdt), _t(pwj.reshape(cin, cout), tdt),
+                          torch.from_numpy(np.array(scale)),
+                          torch.from_numpy(np.array(shift)), relu=relu)
+    assert ours.dtype == tdt and tuple(ours.shape) == (b, h, w, cout)
+    if relu:
+        assert float(ours.float().min()) == 0.0
+    for ref in (pallas, twin):
+        ref = _np32(ref)
+        err = float(np.max(np.abs(_np32(ours) - ref)))
+        bound = _f32_bound(ref) if dtype == "float32" else BF16_ATOL
+        assert err <= bound, (err, bound)
+
+
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("src,dst", [((13, 17), (29, 23)),
                                      ((40, 36), (32, 32))])
@@ -136,13 +165,20 @@ def test_routes_on_cpu_take_the_plain_version_and_never_count():
                            torch.from_numpy(pw.reshape(cin, cout)),
                            scale, shift)
     assert torch.equal(routed, plain)
+    routed = tk.route_pw1x1(torch.from_numpy(x), pw_t, None, be, m, v, EPS,
+                            relu=True)
+    scale, shift = tk._fold_bn(None, be, m, v, EPS)
+    plain = tk.plain_pw1x1(torch.from_numpy(x),
+                           torch.from_numpy(pw.reshape(cin, cout)), scale,
+                           shift, relu=True)
+    assert torch.equal(routed, plain)
     img = torch.from_numpy(
         np.random.default_rng(2).integers(0, 256, (1, 9, 7, 3),
                                           dtype=np.uint8))
     resized = tk.route_preproc(img, (11, 5), torch.float32)
     assert torch.equal(resized, tk.plain_preproc(img, (11, 5),
                                                  torch.float32))
-    assert tk.launches == {"sep2d": 0, "preproc_resize": 0}
+    assert tk.launches == {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -152,3 +188,5 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="not supported"):
         tk.sep2d(x, torch.zeros(9, 3), torch.zeros(3, 4), torch.zeros(4),
                  torch.zeros(4))
+    with pytest.raises(ValueError, match="not supported"):
+        tk.pw1x1(x, torch.zeros(3, 4), torch.zeros(4), torch.zeros(4))

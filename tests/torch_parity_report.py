@@ -5,7 +5,8 @@
 The same comparisons the ``tests/test_torch_*.py`` files assert, with the
 measured max|Δ| printed as JSON lines (``PERF.md`` quotes them): the
 plain kernel versions against the Pallas kernels (interpret mode) and
-their XLA twins, Xception at 75×75, and the featurize slice at 299×299.
+their XLA twins, Xception and InceptionV3 (module and fast path) at
+75×75, and the featurize slices at 299×299.
 """
 
 import json
@@ -21,9 +22,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tests import test_torch_featurizer as feat_tests  # noqa: E402
 from tests import test_torch_kernels as kt  # noqa: E402
-from tests.torch_port_helpers import headless, max_abs, random_variables  # noqa: E402
+from tests.torch_port_helpers import (  # noqa: E402
+    column, frames, headless, max_abs, random_variables,
+)
 
 
 def kernels_report():
@@ -51,6 +53,30 @@ def kernels_report():
                 torch.from_numpy(np.array(shift)), relu_in=relu_in)
             print(json.dumps({
                 "check": "plain_sep2d", "dtype": dtype, "relu_in": relu_in,
+                "vs_pallas": max_abs(kt._np32(ours), kt._np32(pallas)),
+                "vs_xla": max_abs(kt._np32(ours), kt._np32(twin)),
+                "max_abs_ref": float(np.abs(kt._np32(twin)).max())}))
+    b, h, w = 2, 5, 7
+    for dtype in ("float32", "bfloat16"):
+        for relu in (False, True):
+            x, _, pw, gamma, beta, mean, var = kt._sep2d_operands(
+                b, h, w, cin, cout)
+            jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+            xj, pwj = jnp.asarray(x, jdt), jnp.asarray(pw, jdt)
+            scale, shift = kt.jk._fold_bn(*(jnp.asarray(a) for a in
+                                            (gamma, beta, mean, var)),
+                                          kt.EPS, cout)
+            pallas = kt.jk.pw1x1(xj, pwj.reshape(cin, cout), scale, shift,
+                                 relu=relu, interpret=True)
+            twin = kt.jk.xla_pw1x1(xj, pwj, *(jnp.asarray(a, jdt) for a in
+                                              (gamma, beta, mean, var)),
+                                   kt.EPS, relu=relu)
+            ours = kt.tk.plain_pw1x1(
+                kt._t(xj, tdt), kt._t(pwj.reshape(cin, cout), tdt),
+                torch.from_numpy(np.array(scale)),
+                torch.from_numpy(np.array(shift)), relu=relu)
+            print(json.dumps({
+                "check": "plain_pw1x1", "dtype": dtype, "relu": relu,
                 "vs_pallas": max_abs(kt._np32(ours), kt._np32(pallas)),
                 "vs_xla": max_abs(kt._np32(ours), kt._np32(twin)),
                 "max_abs_ref": float(np.abs(kt._np32(twin)).max())}))
@@ -89,6 +115,38 @@ def xception_report():
                       "max_abs_ref": float(np.abs(ref).max())}))
 
 
+def inception_report():
+    from sparkdl_tpu.models.inception import InceptionV3 as JaxInceptionV3
+    from sparkdl_tpu.models.inception_fast import (
+        inception_v3_fast_apply as jax_fast,
+    )
+    from sparkdl_tpu_torch.models.convert import from_flax_variables
+    from sparkdl_tpu_torch.models.inception import InceptionV3
+    from sparkdl_tpu_torch.models.inception_fast import (
+        inception_v3_fast_apply,
+    )
+
+    vs = headless(random_variables(JaxInceptionV3(include_top=True),
+                                   (1, 75, 75, 3), seed=21))
+    x = np.random.default_rng(22).uniform(-1.0, 1.0, size=(2, 75, 75, 3)
+                                          ).astype(np.float32)
+    ref = np.asarray(jax.jit(JaxInceptionV3(include_top=False).apply)(vs, x))
+    ref_fast = np.asarray(jax.jit(lambda v, x: jax_fast(
+        v, x, compute_dtype=jnp.float32))(vs, x))
+    tm = InceptionV3(include_top=False)
+    tm.load_state_dict(from_flax_variables("InceptionV3", vs))
+    with torch.inference_mode():
+        ours = tm.eval()(torch.from_numpy(x)).numpy()
+        fast = inception_v3_fast_apply(tm, torch.from_numpy(x),
+                                       compute_dtype=torch.float32).numpy()
+    print(json.dumps({"check": "inception_module_75x75_f32",
+                      "max_abs": max_abs(ours, ref),
+                      "max_abs_ref": float(np.abs(ref).max())}))
+    print(json.dumps({"check": "inception_fast_75x75_f32",
+                      "max_abs": max_abs(fast, ref_fast),
+                      "max_abs_ref": float(np.abs(ref_fast).max())}))
+
+
 def slice_report():
     import sparkdl_tpu
     import sparkdl_tpu_torch
@@ -97,25 +155,31 @@ def slice_report():
 
     JaxConfig.inference_precision = "float32"
     EngineConfig.device, EngineConfig.inference_precision = "cpu", "float32"
+    from sparkdl_tpu.models.inception import InceptionV3 as JaxInceptionV3
     from sparkdl_tpu.models.xception import Xception as JaxXception
 
-    vs = headless(random_variables(JaxXception(include_top=True),
-                                   (1, 75, 75, 3), seed=11))
-    rng = np.random.default_rng(12)
-    images = [rng.integers(0, 256, size=(64, 80, 3), dtype=np.uint8)
-              for _ in range(3)]
-    jdf, tdf = feat_tests._frames(images, ["a", "b", "c"])
-    kw = dict(inputCol="image", outputCol="features", modelName="Xception",
-              weights=vs, batchSize=3)
-    ref = feat_tests._features(sparkdl_tpu.DeepImageFeaturizer(**kw), jdf)
-    ours = feat_tests._features(sparkdl_tpu_torch.DeepImageFeaturizer(**kw),
-                                tdf)
-    print(json.dumps({"check": "featurizer_64x80_to_299_f32",
-                      "max_abs": max_abs(ours, ref),
-                      "max_abs_ref": float(np.abs(ref).max())}))
+    for name, module, seed, n, size in (
+            ("Xception", JaxXception, 11, 3, (64, 80)),
+            ("InceptionV3", JaxInceptionV3, 21, 2, (40, 48))):
+        vs = headless(random_variables(module(include_top=True),
+                                       (1, 75, 75, 3), seed=seed))
+        rng = np.random.default_rng(seed + 1 if name == "Xception" else 28)
+        images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
+                  for _ in range(n)]
+        jdf, tdf = frames(images, [str(i) for i in range(n)])
+        kw = dict(inputCol="image", outputCol="features", modelName=name,
+                  weights=vs, batchSize=n)
+        ref = column(sparkdl_tpu.DeepImageFeaturizer(**kw), jdf, "features")
+        ours = column(sparkdl_tpu_torch.DeepImageFeaturizer(**kw), tdf,
+                      "features")
+        print(json.dumps({"check": f"featurizer_{name}_{size[0]}x{size[1]}"
+                                   "_to_299_f32",
+                          "max_abs": max_abs(ours, ref),
+                          "max_abs_ref": float(np.abs(ref).max())}))
 
 
 if __name__ == "__main__":
     kernels_report()
     xception_report()
+    inception_report()
     slice_report()

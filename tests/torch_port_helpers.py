@@ -10,6 +10,12 @@ var≠1), so a BN parameter mapped to the wrong place shows.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pyarrow as pa
+
+import sparkdl_tpu
+import sparkdl_tpu_torch
+from sparkdl_tpu.image import imageIO as jax_imageIO
+from sparkdl_tpu_torch.image import imageIO
 
 
 def random_variables(module, input_shape, seed: int = 0):
@@ -44,7 +50,7 @@ def _plain(tree):
 
 
 def headless(variables):
-    """The featurizer's part of a full (include_top) Xception tree."""
+    """The featurizer's part of a full (include_top) model's tree."""
     return {"params": {k: v for k, v in variables["params"].items()
                        if k != "predictions"},
             "batch_stats": variables["batch_stats"]}
@@ -53,3 +59,19 @@ def headless(variables):
 def max_abs(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float32)
                                - np.asarray(b, np.float32))))
+
+
+def frames(arrays, origins):
+    """One image column of ``arrays`` as a frame of each package: the JAX
+    package's and the port's."""
+    jdf = sparkdl_tpu.DataFrame.fromArrow(pa.table(
+        {"image": jax_imageIO.imageArraysToStructColumn(arrays, origins)}))
+    tdf = sparkdl_tpu_torch.DataFrame.fromColumns(
+        {"image": imageIO.imageArraysToStructColumn(arrays, origins)})
+    return jdf, tdf
+
+
+def column(featurizer, frame, name: str) -> np.ndarray:
+    """The vectors of column ``name`` after ``featurizer.transform``."""
+    return np.stack([np.asarray(r[name], np.float32)
+                     for r in featurizer.transform(frame).collect()])
