@@ -6,9 +6,20 @@ Builds the port's CUDA kernels from ``sparkdl_tpu_torch/csrc`` (one nvcc
 per source, in parallel, into ``build/sparkdl_tpu_torch/``), checks each
 kernel against its plain PyTorch version at the shapes the featurize
 paths give it and times both (and the PyTorch library call that computes
-the same function, as a yardstick the port never calls), then drives five
-featurize phases through ``transform(...).collect()``, each on 32 images
-at batch 16 after one warm-up pass:
+the same function, as a yardstick the port never calls).
+
+The probe phase checks the three depthwise probes of
+``sparkdl_tpu_torch/experiments/probe.py`` (``fma9``, ``dw2d``,
+``sep2d_probe``) against their plain versions at the probe's full shape
+(B = 128, all rows, the dead pad rows included; ``fma9`` and ``dw2d`` bit
+for bit, ``sep2d_probe`` within one bf16 ulp), then runs the probe
+script's ``main()``: each probe and its library yardstick timed by
+chaining it on its own output inside CUDA graphs, each graph replay
+counting the launches it holds.
+
+Then it drives five featurize phases through ``transform(...).collect()``
+with ``EngineConfig.pallas_kernels = "force"`` (every eligible site runs
+its kernel), each on 32 images at batch 16 after one warm-up pass:
 
 - ``featurize_resized`` / ``featurize_native``:
   ``DeepImageFeaturizer(modelName="Xception")`` on 256×256 images
@@ -22,6 +33,17 @@ at batch 16 after one warm-up pass:
   ``TorchImageTransformer`` over ``build_featurizer("InceptionV3",
   fast=False)``, the module path, with ``pw1x1`` at its 39 sites per
   forward, on 299×299 images (bf16) and 256×256 images (float32).
+
+Two more phases run the user's default, ``"autotune"``:
+``featurize_native`` and ``inception_module_native`` again, each with a
+fresh verdict store (a temporary ``SPARKDL_COMPILE_CACHE_DIR``). The
+warm-up pass auditions every kernel site against its library twin; the
+phase prints every verdict, and its launches must equal the calls per
+forward of the adopted sites × forwards, the wall time of its warm-up
+pass and the summed time of its auditions. The store check then forgets the
+verdicts in memory (``kernels.reset()``) and repeats the Xception
+autotune phase, which must settle every site from the store with no
+audition.
 
 Each phase is checked against the port's own CPU run of the same weights
 on two images, and the launch counters, set to 0 just before the phase and
@@ -37,8 +59,10 @@ no result line). Exits 2 when CUDA is not available.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +86,9 @@ PW1X1_CASES = [(35, 35, 192, 64, True), (17, 17, 768, 192, True),
 PREPROC_SHAPES = [(256, 256), (512, 384)]
 TARGET = (299, 299)
 PROFILE = "--profile" in sys.argv[1:]
+#: the launch counter of each kernel gate site kind
+COUNTER_OF_SITE = {"sep2d": "sep2d", "pw1x1": "pw1x1", "pw1x1_relu": "pw1x1",
+                   "preproc": "preproc_resize"}
 
 
 def emit(obj) -> None:
@@ -259,6 +286,73 @@ def check_preproc(kernels, dev):
     return rows
 
 
+def check_probes(probe, dev):
+    """Each probe kernel against its plain version at the probe's full
+    shape (B = 128, every row, the dead pad rows included), the plain
+    version timed; then the probe script's ``main()`` (its own check, and
+    the chained timing of the three kernels and the two library
+    yardsticks), with the launches counted from 0 over that run."""
+    v = probe.operands(dev)
+    rest = (v["pw"], v["sc"], v["sh"])
+    cases = {"fma9": (probe.fma9, probe.plain_fma9, (v["k9"],)),
+             "dw2d": (probe.dw2d, probe.plain_dw2d, (v["k9"],)),
+             "sep2d_probe": (probe.sep2d_probe, probe.plain_sep2d_probe,
+                             (v["k9"], *rest))}
+    rows = {}
+    for name, (kernel, plain, args) in cases.items():
+        y = kernel(v["x2"], *args)
+        ref = plain(v["x2"], *args)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        tolerance = ("bit for bit" if name != "sep2d_probe" else
+                     f"|err| <= {probe.SEP_ULP_REL}*|ref| + {probe.SEP_ABS}")
+        assert probe.matches_plain(name, y, ref), \
+            f"{name}: differs from its plain version ({tolerance}); " \
+            f"max|err| {err}"
+        dead = ref.float().reshape(-1, probe.P_PAD, probe.C)[:, probe.P:]
+        rows[name] = {"max_abs_err": err, "tolerance": tolerance,
+                      "dead_rows_max_abs": float(dead.abs().max()),
+                      "plain_ms": timed_ms(lambda: plain(v["x2"], *args),
+                                           iters=5, warmup=1)}
+    del v, y, ref
+    probe.reset_launches()
+    timing = probe.main(dev)
+    launches = dict(probe.launches)
+    rows_per_app = probe.B * probe.P_PAD
+    elems = rows_per_app * probe.C
+    dw_flops = elems * 18
+    pw_flops = rows_per_app * probe.C * probe.C * 2
+    work = {  # (bound ms, bound by, FLOPs per application, library)
+        "fma9": (dw_flops, 2 * elems * 2 + 9 * probe.C * 2, "library_fma9"),
+        "dw2d": (dw_flops, 2 * elems * 2 + 9 * probe.C * 2, "library_dw"),
+        "sep2d_probe": (pw_flops + dw_flops,
+                        (2 * elems + 9 * probe.C + probe.C * probe.C
+                         + 2 * probe.C) * 2, "library_sep")}
+    for name, (flops, nbytes, library) in work.items():
+        ms = timing[name]["us_per_app"] / 1e3
+        if name == "sep2d_probe":  # tensor cores and CUDA cores overlap
+            t_ops = max(pw_flops / H100_FLOPS[torch.bfloat16],
+                        dw_flops / H100_FLOPS[torch.float32])
+        else:  # float32 arithmetic on the CUDA cores
+            t_ops = flops / H100_FLOPS[torch.float32]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        rows[name].update(
+            ms=ms, library_ms=(timing[library]["us_per_app"] / 1e3
+                               if library else None),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            launches=launches[name], us_per_app=ms * 1e3,
+            img_per_s=timing[name]["img_per_s"],
+            gb_per_s=nbytes / (ms * 1e-3) / 1e9,
+            tflops=flops / (ms * 1e-3) / 1e12,
+            shape=[probe.B * probe.P_PAD, probe.C], dtype="bfloat16")
+        emit({"phase": "probe", "kernel": name, **rows[name],
+              "library": library and {k: timing[library][k]
+                                      for k in ("us_per_app", "img_per_s",
+                                                "tflops")}})
+    return rows
+
+
 def featurize(s, model, images, weights, batch_size):
     """The user-facing transformer of one phase and its frame. ``model``
     is (name, "named") for ``DeepImageFeaturizer(modelName=name)``, or
@@ -283,13 +377,48 @@ def featurize(s, model, images, weights, batch_size):
     return feat, df
 
 
+def model_function(s, feat):
+    """The ModelFunction a phase's transformer runs (before the
+    executor's flatten, resize and precision wrappers)."""
+    return (feat._model_function("featurize")
+            if isinstance(feat, s.DeepImageFeaturizer)
+            else feat.getModelFunction())
+
+
 def model_state(s, feat):
     """The float32 weights of a phase's model, on the CPU."""
-    mf = (feat._model_function("featurize")
-          if isinstance(feat, s.DeepImageFeaturizer)
-          else feat.getModelFunction())
     return {k: v.detach().cpu().clone()
-            for k, v in mf.variables.state_dict().items()}
+            for k, v in model_function(s, feat).variables.state_dict().items()}
+
+
+def autotune_expectation(s, kernels, feat, size, dev):
+    """The verdict of every kernel site the phase's model routes through
+    (each must have one) and the launches per forward they predict: the
+    calls per forward of each adopted site. The model is the one the
+    executor ran: flattened, resized if needed, in the configured
+    precision (each wrapper is memoized, so these are the same objects)."""
+    from sparkdl_tpu_torch.core.model_function import torch_dtype
+
+    run = model_function(s, feat).flattened()
+    if tuple(size) != TARGET:
+        run = run.resized(size, TARGET)
+    run = run.with_dtype(s.EngineConfig.inference_precision)
+    x = torch.empty((BATCH, *size, 3),
+                    dtype=torch_dtype(run.input_spec.dtype), device="meta")
+    per_forward, verdicts = {}, []
+    for site, calls in sorted(kernels.collect_sites(run, x,
+                                                    run.variables).items()):
+        v = kernels.verdict_for(site, dev)
+        assert v is not None, f"no verdict for {site}"
+        name = COUNTER_OF_SITE[site.kernel]
+        per_forward[name] = per_forward.get(name, 0) \
+            + (calls if v["adopted"] else 0)
+        verdicts.append({
+            "site": kernels._site_key(site, dev), "calls_per_forward": calls,
+            "kernel_ms": v["kernel_s"] * 1e3, "twin_ms": v["twin_s"] * 1e3,
+            "max_abs_err": v["max_abs_err"], "adopted": v["adopted"],
+            "reason": v["reason"], "audition_s": v["audition_s"]})
+    return per_forward, verdicts
 
 
 def profile_pass(name, feat, df, top: int = 12):
@@ -319,18 +448,29 @@ def profile_pass(name, feat, df, top: int = 12):
                           for k, ms, n in kernels[:top]]})
 
 
-def main_path(s, kernels, name, model, size, per_forward, rel_tol):
-    """Featurize N_IMAGES seeded images of ``size`` on the card (one
-    warm-up pass, then the counted and timed pass), check the launch
-    counts against ``per_forward`` launches per forward, and check two of
-    the features against the port's CPU run of the same weights."""
+def main_path(s, kernels, name, model, size, per_forward, rel_tol,
+              mode="force"):
+    """Featurize N_IMAGES seeded images of ``size`` on the card under the
+    kernel gate's ``mode`` (one warm-up pass, then the counted and timed
+    pass), check the launch counts against ``per_forward`` launches per
+    forward (under "autotune", those its verdicts predict), and check two
+    of the features against the port's CPU run of the same weights."""
     rng = np.random.default_rng(SEED + size[0])
     images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
               for _ in range(N_IMAGES)]
     s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = mode
     feat, df = featurize(s, model, images, "random", BATCH)
-    feat.transform(df).collect()  # warm-up (builds, allocator, cuDNN plans)
+    # warm-up (builds, allocator, cuDNN plans; under "autotune", the
+    # auditions of every site at its first sight)
+    t0 = time.perf_counter()
+    feat.transform(df).collect()
     torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    verdicts = None
+    if mode == "autotune":
+        per_forward, verdicts = autotune_expectation(s, kernels, feat, size,
+                                                     torch.device("cuda"))
     kernels.reset_launches()
     t0 = time.perf_counter()
     rows = feat.transform(df).collect()
@@ -356,11 +496,14 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol):
                          f"{err} > {limit}"
     out = {"phase": name, "model": model[0], "path": model[1],
            "images": N_IMAGES, "source_size": list(size),
-           "batch_size": BATCH,
+           "batch_size": BATCH, "pallas_kernels": mode,
            "precision": s.EngineConfig.inference_precision,
-           "seconds": seconds, "images_per_s": N_IMAGES / seconds,
+           "warmup_s": warmup_s, "seconds": seconds,
+           "images_per_s": N_IMAGES / seconds,
            "launches": counts, "max_abs_err_vs_cpu": err,
            "tolerance": limit, "feature_max_abs": float(np.abs(cpu).max())}
+    if verdicts is not None:
+        out["verdicts"] = verdicts
     emit(out)
     if PROFILE:
         profile_pass(name, feat, df)
@@ -379,6 +522,12 @@ PHASES = [
      {"pw1x1": 39}, BF16_REL),
     ("inception_module_resized", ("InceptionV3", "module"), (256, 256),
      {"pw1x1": 39, "preproc_resize": 1}, F32_REL),
+]
+# (phase, (model, path), source size, tolerance), under "autotune"
+AUTOTUNE_PHASES = [
+    ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL),
+    ("inception_module_native_autotune", ("InceptionV3", "module"), TARGET,
+     BF16_REL),
 ]
 
 
@@ -403,6 +552,7 @@ def main() -> int:
 
     import sparkdl_tpu_torch as s
     from sparkdl_tpu_torch.core import cuda_build, kernels
+    from sparkdl_tpu_torch.experiments import probe
 
     t0 = time.perf_counter()
     per_source = cuda_build.build_all()
@@ -413,16 +563,65 @@ def main() -> int:
           "per_source_s": per_source, "ptxas": ptxas})
 
     dev = torch.device("cuda")
+    s.EngineConfig.pallas_kernels = "force"
     sep_rows = check_sep2d(kernels, dev)
     pw_rows = check_pw1x1(kernels, dev)
     pre_rows = check_preproc(kernels, dev)
+    probe_rows = check_probes(probe, dev)
 
     phases = {name: main_path(s, kernels, name, model, size, per_forward,
                               tol)
               for name, model, size, per_forward, tol in PHASES}
 
-    def summary(name, source, replaces, rows, headline):
-        by_phase = {p: out["launches"][name] for p, out in phases.items()}
+    # The user's default: each phase with a fresh verdict store; the
+    # auditions on the card are counted, and their seconds summed, where
+    # ensure_verdict calls them (the phase's CPU reference run settles
+    # its own CPU sites, which reject without timing anything).
+    auditions = []
+    audition = kernels._audition
+
+    def counted_audition(site, device):
+        verdict = audition(site, device)
+        if torch.device(device).type == "cuda":
+            auditions.append(verdict["audition_s"])
+        return verdict
+
+    kernels._audition = counted_audition
+    stores = {}
+    for name, model, size, tol in AUTOTUNE_PHASES:
+        stores[name] = tempfile.mkdtemp(prefix="sparkdl_verdicts_")
+        os.environ[kernels.COMPILE_CACHE_DIR_ENV] = stores[name]
+        kernels.reset()
+        before = len(auditions)
+        phases[name] = main_path(s, kernels, name, model, size, None, tol,
+                                 mode="autotune")
+        phases[name]["auditions"] = len(auditions) - before
+        phases[name]["audition_s"] = sum(auditions[before:])
+        emit({"phase": f"{name}_first_sight", "auditions":
+              phases[name]["auditions"],
+              "audition_s": phases[name]["audition_s"],
+              "warmup_s": phases[name]["warmup_s"],
+              "seconds_per_pass": phases[name]["seconds"]})
+        assert phases[name]["auditions"] > 0, f"{name}: nothing auditioned"
+    name, model, size, tol = AUTOTUNE_PHASES[0]
+    os.environ[kernels.COMPILE_CACHE_DIR_ENV] = stores[name]
+    kernels.reset()
+    before = len(auditions)
+    again = main_path(s, kernels, f"{name}_from_store", model, size, None,
+                      tol, mode="autotune")
+    settled = len(again["verdicts"])
+    emit({"phase": "verdict_store_check", "store": stores[name],
+          "sites_settled": settled, "auditions": len(auditions) - before,
+          "warmup_s": again["warmup_s"]})
+    assert len(auditions) == before, "the store did not settle every site"
+    assert [v["adopted"] for v in again["verdicts"]] \
+        == [v["adopted"] for v in phases[name]["verdicts"]]
+    kernels._audition = audition
+    del os.environ[kernels.COMPILE_CACHE_DIR_ENV]
+
+    def summary(name, source, replaces, rows, headline, by_phase=None):
+        if by_phase is None:
+            by_phase = {p: out["launches"][name] for p, out in phases.items()}
         launches = sum(by_phase.values())
         assert launches > 0, f"{name} never launched on the main path"
         return {"name": name, "route": "cuda", "source": source,
@@ -432,6 +631,12 @@ def main() -> int:
                                             "bound_ms", "bound_by",
                                             "library_ms", "shape", "dtype")},
                 "kernel_ms": headline["ms"], "shapes": rows}
+
+    def probe_summary(name, line):
+        row = probe_rows[name]
+        return summary(name, "sparkdl_tpu_torch/csrc/probes.cu",
+                       f"experiments/pallas_probe.py:{line}", [row], row,
+                       by_phase={"probe": row["launches"]})
 
     sep_mid = next(r for r in sep_rows
                    if r["shape"][1:] == [19, 19, 728, 728]
@@ -446,6 +651,9 @@ def main() -> int:
                 "sparkdl_tpu/core/kernels.py:586", pre_rows, pre_rows[0]),
         summary("pw1x1", "sparkdl_tpu_torch/csrc/pw1x1.cu",
                 "sparkdl_tpu/core/kernels.py:516", pw_rows, pw_mid),
+        probe_summary("fma9", 80),
+        probe_summary("dw2d", 137),
+        probe_summary("sep2d_probe", 160),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

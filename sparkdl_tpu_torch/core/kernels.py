@@ -1,4 +1,5 @@
-"""The port's hand-written kernels, their plain versions and their routes.
+"""The port's hand-written kernels, their plain versions, their routes and
+the accept-if-faster gate in front of them.
 
 The three Pallas kernels of the JAX package (``sparkdl_tpu/core/kernels.py``)
 that run on a user path are CUDA C++ kernels for Hopper here (``csrc/``,
@@ -20,18 +21,52 @@ PyTorch version (:func:`plain_sep2d`, :func:`plain_pw1x1`,
 on the card. :data:`launches` counts kernel launches, one per wrapper
 call that reached the card.
 
-Models call the ``route_*`` entry points, which follow the JAX package's
-``"force"`` mode: every eligible site routes. The TPU's VMEM budgets
+**The gate.** Models never call the kernels; they call ``route_*``
+(``models/layers.py``, ``ModelFunction.resized``), which returns the
+kernel's result or None, and on None the caller runs its twin: the
+unfused library computation (:func:`twin_sep2d`, :func:`twin_pw1x1`,
+:func:`twin_preproc`) in the reference's op order.
+``EngineConfig.pallas_kernels`` picks the policy, with the JAX package's
+names and meanings:
+
+- ``"autotune"`` (the default): a route runs its kernel only at a
+  :class:`Site` (kernel, model family, full shape, dtype) whose verdict
+  says the kernel beat its twin by at least 5% there (``kernel_s ≤
+  ADOPT_SPEEDUP · twin_s``) within the numeric contract: float32 bit for
+  bit, bf16 within :data:`BF16_TOLERANCE`. :func:`ensure_autotuned`, run
+  by ``ModelFunction.apply_batch`` at the first sight of each input
+  shape, collects the sites abstractly (a pass on meta tensors) and
+  auditions each unsettled one (:func:`_audition`, CUDA-event timings).
+  Verdicts are keyed by the card (name and ``sm_<major><minor>``, or
+  ``cpu``) and persist in ``$SPARKDL_COMPILE_CACHE_DIR/
+  sparkdl_kernel_verdicts.json`` (atomic replace, versioned).
+- ``"force"``: every feasible site routes, no audition.
+- ``"off"``: no site routes and nothing is auditioned.
+
+Feasibility is the kernels' dtypes only: the TPU's VMEM budgets
 (``_sep2d_geometry``, ``_pw1x1_geometry``, ``_preproc_geometry``) are not
-limits of the function and are dropped; the accept-if-faster gate is not
-ported yet.
+limits of the CUDA kernels and are dropped.
+
+One deliberate departure from the reference: its audition turns any
+exception into a rejected verdict (a CPU backend has no Mosaic
+lowering). Here a site on the CPU records a clean rejection (no card, so
+nothing to time), but on the card a kernel that fails to build, launch
+or run raises out of :func:`ensure_verdict`: no failure becomes a quiet
+rejection.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+import json
+import logging
+import os
+import threading
+import time
+from collections import Counter
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,14 +74,31 @@ import torch.nn.functional as F
 
 from sparkdl_tpu_torch.core import cuda_build
 
-#: bf16 numeric contract (max |kernel − plain| per element), the JAX
-#: package's ``BF16_TOLERANCE``.
+logger = logging.getLogger(__name__)
+
+#: bf16 numeric contract (max |kernel − twin| per element a candidate may
+#: show and still be adopted; also the kernel-vs-plain bound), the JAX
+#: package's ``BF16_TOLERANCE``. float32 candidates must match exactly.
 BF16_TOLERANCE = 0.05
+#: Accept-if-faster bar: adopted only when kernel_s <= 0.95 * twin_s.
+ADOPT_SPEEDUP = 0.95
+#: The directory of the verdict store (the JAX package's
+#: ``COMPILE_CACHE_DIR_ENV``, which also places its compile cache there).
+COMPILE_CACHE_DIR_ENV = "SPARKDL_COMPILE_CACHE_DIR"
+_VERDICT_STORE_BASENAME = "sparkdl_kernel_verdicts.json"
+VERDICT_STORE_VERSION = 1
 
 #: Kernel launches on the card since the last :func:`reset_launches`.
 launches: Dict[str, int] = {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+_FLOAT_TYPES = (torch.float32, torch.bfloat16)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "uint8": torch.uint8}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def reset_launches() -> None:
@@ -327,37 +379,500 @@ def _preproc_fn():
     return fn
 
 
+
+
+# ---------------------------------------------------------------------------
+# Twins — the unfused library computations, in the reference's op order
+# ---------------------------------------------------------------------------
+
+
+def _bn_reference(y, gamma, beta, mean, var, eps):
+    """Inference BN in the reference's order, ``(y − mean)·(γ·rsqrt(var +
+    eps)) + β``, NOT the folded affine: a float32 candidate's exactness
+    is judged against this."""
+    mul = torch.rsqrt(var + eps)
+    if gamma is not None:
+        mul = mul * gamma
+    return (y - mean) * mul + beta
+
+
+def twin_sep2d(x, dw_weight, pw_weight, gamma, beta, mean, var, eps,
+               relu_in: bool = False):
+    """Twin of :func:`sep2d`: relu? → grouped conv → 1×1 conv → BN, on
+    NHWC ``x`` with weights (Cin, 1, 3, 3) and (Cout, Cin, 1, 1)."""
+    if relu_in:
+        x = torch.relu(x)
+    t = F.conv2d(x.permute(0, 3, 1, 2), dw_weight, padding=1,
+                 groups=x.shape[-1])
+    y = F.conv2d(t, pw_weight).permute(0, 2, 3, 1)
+    return _bn_reference(y, gamma, beta, mean, var, eps)
+
+
+def twin_pw1x1(x, conv_weight, gamma, beta, mean, var, eps,
+               relu: bool = False):
+    """Twin of :func:`pw1x1`: 1×1 conv → BN → relu?, weight
+    (Cout, Cin, 1, 1)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv_weight).permute(0, 2, 3, 1)
+    y = _bn_reference(y, gamma, beta, mean, var, eps)
+    return torch.relu(y) if relu else y
+
+
+def twin_preproc(x, target_hw: Tuple[int, int], out_dtype):
+    """Twin of :func:`preproc_resize`: cast to ``out_dtype``, then
+    ``F.interpolate`` bilinear (half-pixel centres, no antialias)."""
+    y = F.interpolate(x.to(out_dtype).permute(0, 3, 1, 2),
+                      size=(int(target_hw[0]), int(target_hw[1])),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Sites and verdicts
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, order=True)
+class Site:
+    """One kernel site: which kernel would run, for which model family, at
+    which full launch shape (batch included, so each bucket rung is its
+    own site) and dtype."""
+
+    kernel: str
+    family: str
+    shape: Tuple[int, ...]
+    dtype: str
+
+
+def _backend_tag(device) -> str:
+    """``cpu``, or the card's name and ``sm_<major><minor>``: verdicts
+    taken on one card never answer for another."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    major, minor = torch.cuda.get_device_capability(index)
+    return f"{torch.cuda.get_device_name(index)} sm_{major}{minor}"
+
+
+def _site_key(site: Site, device) -> str:
+    return "|".join((site.kernel, site.family,
+                     "x".join(str(d) for d in site.shape), site.dtype,
+                     _backend_tag(device)))
+
+
+def verdict_store_path() -> Optional[str]:
+    """``$SPARKDL_COMPILE_CACHE_DIR/sparkdl_kernel_verdicts.json``; None
+    when the variable is unset (verdicts then stay in the process)."""
+    cache_dir = os.environ.get(COMPILE_CACHE_DIR_ENV)
+    if not cache_dir:
+        return None
+    return os.path.join(cache_dir, _VERDICT_STORE_BASENAME)
+
+
+_verdicts: Dict[str, Dict[str, Any]] = {}
+_verdicts_loaded = False
+_verdict_lock = threading.Lock()
+# per-site single flight: a second caller of the same site waits on the
+# owner's event (no lock is held across an audition's device work)
+_inflight: Dict[str, threading.Event] = {}
+
+
+def _read_store() -> Dict[str, Dict[str, Any]]:
+    """The store file's verdicts. A corrupt file, another ``version`` or
+    a malformed entry is discarded, never trusted: the worst case is an
+    audition run again."""
+    path = verdict_store_path()
+    if path is None:
+        return {}
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    if not isinstance(doc, dict) \
+            or doc.get("version") != VERDICT_STORE_VERSION:
+        return {}
+    stored = doc.get("verdicts")
+    if not isinstance(stored, dict):
+        return {}
+    return {key: verdict for key, verdict in stored.items()
+            if isinstance(key, str) and isinstance(verdict, dict)
+            and isinstance(verdict.get("adopted"), bool)}
+
+
+def _ensure_loaded() -> None:
+    """Fill the in-memory map from the store file once per process (or
+    after :func:`reset`)."""
+    global _verdicts_loaded
+    if _verdicts_loaded:
+        return
+    stored = _read_store()
+    with _verdict_lock:
+        if _verdicts_loaded:
+            return
+        for key, verdict in stored.items():
+            _verdicts.setdefault(key, verdict)
+        _verdicts_loaded = True
+
+
+def _persist_verdict(key: str, verdict: Dict[str, Any]) -> None:
+    """Merge one verdict into the store file (tmp file + ``os.replace``;
+    concurrent writers race whole files and the last wins: the store is a
+    cache, not a source of truth)."""
+    path = verdict_store_path()
+    if path is None:
+        return
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        doc: Dict[str, Any] = {"version": VERDICT_STORE_VERSION,
+                               "verdicts": {}}
+        try:
+            with open(path) as f:
+                loaded = json.load(f)
+            if isinstance(loaded, dict) \
+                    and loaded.get("version") == VERDICT_STORE_VERSION \
+                    and isinstance(loaded.get("verdicts"), dict):
+                doc = loaded
+        except (OSError, ValueError):
+            pass
+        doc["verdicts"][key] = verdict
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+    except OSError as e:  # persistence is best effort
+        logger.warning("could not persist kernel verdict to %s: %s", path,
+                       e)
+
+
+def verdict_for(site: Site, device) -> Optional[Dict[str, Any]]:
+    """The settled verdict of ``site`` on ``device``'s backend (None:
+    never auditioned there)."""
+    _ensure_loaded()
+    key = _site_key(site, device)
+    with _verdict_lock:
+        return _verdicts.get(key)
+
+
+def verdicts_snapshot() -> Dict[str, Dict[str, Any]]:
+    """Every verdict this process knows, by site key."""
+    _ensure_loaded()
+    with _verdict_lock:
+        return {k: dict(v) for k, v in _verdicts.items()}
+
+
+def reset() -> None:
+    """Forget every in-memory verdict; the store file, if any, is read
+    again at the next lookup."""
+    global _verdicts_loaded
+    with _verdict_lock:
+        _verdicts.clear()
+        _verdicts_loaded = False
+
+
+# ---------------------------------------------------------------------------
+# Modes, collection and routing decisions
+# ---------------------------------------------------------------------------
+
+
+def kernel_mode() -> str:
+    """``EngineConfig.pallas_kernels``, read at each decision."""
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    return EngineConfig.pallas_kernels
+
+
+_collect = threading.local()
+
+
+def _collecting() -> Optional[Counter]:
+    return getattr(_collect, "sites", None)
+
+
+def _decide(site: Site, feasible: bool, device) -> bool:
+    """True: the route runs its kernel. Under a collection scope
+    (:func:`collect_sites`) a feasible site is counted and the twin
+    chosen, so collecting launches no kernel. ``"force"`` routes every
+    feasible site; ``"autotune"`` needs an adopted verdict."""
+    sites = _collecting()
+    if sites is not None:
+        if feasible:
+            sites[site] += 1
+        return False
+    mode = kernel_mode()
+    if mode == "force":
+        return feasible
+    if mode != "autotune" or not feasible:
+        return False
+    verdict = verdict_for(site, device)
+    return bool(verdict is not None and verdict.get("adopted"))
+
+
+class _Calls(torch.nn.Module):
+    """``fn(x)`` with ``variables`` as a submodule, so that
+    ``torch.func.functional_call`` can swap its parameters and buffers."""
+
+    def __init__(self, fn: Callable, variables: torch.nn.Module) -> None:
+        super().__init__()
+        self.variables = variables
+        # not a submodule even when fn is a Module: only ``variables`` is
+        # swapped, once, and restored
+        self.__dict__["_fn"] = fn
+
+    def forward(self, x):
+        return self._fn(x)
+
+
+def _run_on_meta(fn: Callable, x: torch.Tensor, variables) -> None:
+    meta_x = torch.empty_like(x, device="meta")
+    if not isinstance(variables, torch.nn.Module):
+        fn(meta_x)
+        return
+    named = list(variables.named_parameters()) \
+        + list(variables.named_buffers())
+    meta = {f"variables.{name}": t.to("meta") for name, t in named}
+    torch.func.functional_call(_Calls(fn, variables), meta, (meta_x,))
+
+
+def collect_sites(fn: Callable, x: torch.Tensor,
+                  variables=None) -> Counter:
+    """The feasible sites ``fn(x)`` routes through, each with the number
+    of its calls in one forward. ``fn`` runs on meta tensors: ``x``'s
+    shape and dtype, and ``variables`` (the ``nn.Module`` that ``fn``
+    runs, if any) with its parameters and buffers swapped for meta
+    tensors meanwhile, so the module must not be used by another thread
+    during the pass. Every route returns None before it touches a
+    tensor: no kernel launches. An operation with no meta version makes
+    the pass raise."""
+    sites: Counter = Counter()
+    prev = _collecting()
+    _collect.sites = sites
+    try:
+        _run_on_meta(fn, x, variables)
+    finally:
+        _collect.sites = prev
+    return sites
+
+
+def ensure_autotuned(fn: Callable, x: torch.Tensor, model: str = "model",
+                     variables=None) -> Counter:
+    """Settle the verdict of every site ``fn(x)`` routes through, before
+    its first real run (``ModelFunction.apply_batch`` calls this at the
+    first sight of each input shape): :func:`collect_sites`, then
+    :func:`ensure_verdict` for each site on ``x``'s device. Returns the
+    sites with their calls per forward; a no-op outside ``"autotune"``."""
+    if kernel_mode() != "autotune":
+        return Counter()
+    sites = collect_sites(fn, x, variables)
+    logger.debug("kernel sites of %s at %s: %d", model, tuple(x.shape),
+                 len(sites))
+    for site in sorted(sites):
+        ensure_verdict(site, x.device)
+    return sites
+
+
+# ---------------------------------------------------------------------------
+# The audition (accept-if-faster within the numeric contract)
+# ---------------------------------------------------------------------------
+
+
+def _backend_supported(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+_AUDITION_EPS = 1e-3  # keras BN default; verdict-neutral (not keyed)
+
+
+def _build_shootout(site: Site, device):
+    """(kernel_fn, twin_fn, x) at the site's exact shape on ``device``,
+    with the JAX package's synthetic O(1) operands (``default_rng(0)``,
+    drawn in its order and layouts), so the bf16 bound means something."""
+    rng = np.random.default_rng(0)
+
+    def draw(a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a).astype(np.float32)).to(device)
+
+    if site.kernel == "preproc":
+        b, h, w, c, th, tw = site.shape
+        in_dt, out_dt = (_DTYPES[n] for n in site.dtype.split("->"))
+        if in_dt == torch.uint8:
+            x = torch.from_numpy(rng.integers(0, 256, size=(b, h, w, c))
+                                 .astype(np.uint8)).to(device)
+        else:
+            x = draw(rng.normal(size=(b, h, w, c))).to(in_dt)
+        return (lambda a: preproc_resize(a, (th, tw), out_dt),
+                lambda a: twin_preproc(a, (th, tw), out_dt), x)
+    b, h, w, cin, cout = site.shape
+    dt = _DTYPES[site.dtype]
+    x = draw(rng.normal(size=(b, h, w, cin))).to(dt)
+    gamma = draw(np.abs(rng.normal(size=cout)) + 0.5)
+    beta = draw(rng.normal(size=cout) * 0.1)
+    mean = draw(rng.normal(size=cout) * 0.1)
+    var = draw(np.abs(rng.normal(size=cout)) + 1.0)
+    bn = [t.to(dt) for t in (gamma, beta, mean, var)]
+    scale, shift = _fold_bn(gamma, beta, mean, var, _AUDITION_EPS)
+    if site.kernel == "sep2d":
+        dw = rng.normal(size=(3, 3, 1, cin)) * 0.2            # HWIO
+        pw = rng.normal(size=(1, 1, cin, cout)) / np.sqrt(cin)
+        w_dw = draw(dw.transpose(3, 2, 0, 1)).to(dt)         # (Cin,1,3,3)
+        w_pw = draw(pw.transpose(3, 2, 0, 1)).to(dt)         # (Cout,Cin,1,1)
+        dw9 = w_dw.reshape(cin, 9).t().contiguous()
+        pw2 = w_pw.reshape(cout, cin).t().contiguous()
+        return (lambda a: sep2d(a, dw9, pw2, scale, shift),
+                lambda a: twin_sep2d(a, w_dw, w_pw, *bn, _AUDITION_EPS), x)
+    relu = site.kernel == "pw1x1_relu"
+    w4 = draw((rng.normal(size=(1, 1, cin, cout)) / np.sqrt(cin))
+              .transpose(3, 2, 0, 1)).to(dt)
+    w2 = w4.reshape(cout, cin).t().contiguous()
+    return (lambda a: pw1x1(a, w2, scale, shift, relu=relu),
+            lambda a: twin_pw1x1(a, w4, *bn, _AUDITION_EPS, relu=relu), x)
+
+
+def _time_calls(fn: Callable, x: torch.Tensor, repeats: int = 5,
+                inner: int = 3) -> float:
+    """Seconds per call: the best of ``repeats`` means of ``inner``
+    back-to-back calls, from CUDA events on x's device."""
+    best = float("inf")
+    with torch.cuda.device(x.device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(repeats):
+            start.record()
+            for _ in range(inner):
+                fn(x)
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3 / inner)
+    return best
+
+
+def _audition(site: Site, device) -> Dict[str, Any]:
+    """One shootout: both candidates at the site's shape, the numeric
+    contract, both timed, the decision. On the CPU it records a clean
+    rejection; on the card a kernel that cannot build, launch or run
+    raises."""
+    t0 = time.perf_counter()
+    verdict: Dict[str, Any] = {"adopted": False,
+                               "backend": _backend_tag(device)}
+    if not _backend_supported(device):
+        verdict["reason"] = (f"no CUDA device ({device}): the kernel runs "
+                             "only on the card, so there is nothing to time")
+    else:
+        with torch.inference_mode():
+            kernel_fn, twin_fn, x = _build_shootout(site, device)
+            y_twin = twin_fn(x)
+            y_kernel = kernel_fn(x)
+            if y_kernel.shape != y_twin.shape:
+                raise RuntimeError(f"{site}: kernel shape {y_kernel.shape} "
+                                   f"!= twin shape {y_twin.shape}")
+            a, b = y_kernel.float().cpu(), y_twin.float().cpu()
+            err = float((a - b).abs().max()) if a.numel() else 0.0
+            if y_twin.dtype == torch.float32:
+                numeric_ok = torch.equal(a, b)
+                contract = "fp32-exact"
+            else:
+                numeric_ok = err <= BF16_TOLERANCE
+                contract = f"max-abs<={BF16_TOLERANCE}"
+            twin_s = _time_calls(twin_fn, x)
+            kernel_s = _time_calls(kernel_fn, x)
+        verdict.update(max_abs_err=err, twin_s=twin_s, kernel_s=kernel_s)
+        if not numeric_ok:
+            verdict["reason"] = (f"numeric contract violated ({contract}, "
+                                 f"err={err:.3g})")
+        elif kernel_s > ADOPT_SPEEDUP * twin_s:
+            verdict["reason"] = (f"not faster (kernel {kernel_s * 1e6:.0f}us"
+                                 f" vs twin {twin_s * 1e6:.0f}us, needs <= "
+                                 f"{ADOPT_SPEEDUP:.2f}x)")
+        else:
+            verdict["adopted"] = True
+            verdict["reason"] = (f"{twin_s / max(kernel_s, 1e-12):.2f}x "
+                                 "speedup, numerics in contract")
+    verdict["audition_s"] = time.perf_counter() - t0
+    logger.info("kernel audition %s: %s — %s", _site_key(site, device),
+                "ADOPTED" if verdict["adopted"] else "rejected",
+                verdict["reason"])
+    return verdict
+
+
+def ensure_verdict(site: Site, device) -> Dict[str, Any]:
+    """The settled verdict of ``site`` on ``device``, auditioning it once
+    if it never was there. Single flight per site: a concurrent caller
+    of the same site waits for the owner's verdict; if the owner's
+    audition raises, the exception reaches the owner's caller and a
+    waiter tries again itself."""
+    key = _site_key(site, device)
+    while True:
+        found = verdict_for(site, device)
+        if found is not None:
+            return found
+        with _verdict_lock:
+            event = _inflight.get(key)
+            owner = event is None
+            if owner:
+                event = threading.Event()
+                _inflight[key] = event
+        if not owner:
+            event.wait()
+            continue  # the owner settled (or failed): read again
+        try:
+            verdict = _audition(site, device)
+            with _verdict_lock:
+                _verdicts[key] = verdict
+            _persist_verdict(key, verdict)
+            return verdict
+        finally:
+            with _verdict_lock:
+                _inflight.pop(key, None)
+            event.set()
+
+
 # ---------------------------------------------------------------------------
 # Routes — the only entry points models use
 # ---------------------------------------------------------------------------
 
 
 def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
-                bn_var, eps: float, *, relu_in: bool = False):
-    """The fused sepconv body for one site. Weights are in the port's
-    layout: depthwise (Cin, 1, 3, 3), pointwise (Cout, Cin, 1, 1); they
-    are cast to x's type as the JAX route does."""
-    cin = x.shape[-1]
+                bn_var, eps: float, *, family: str):
+    """The fused sepconv body for one site, or None (the caller runs its
+    twin). Weights are in the port's layout: depthwise (Cin, 1, 3, 3),
+    pointwise (Cout, Cin, 1, 1); they are cast to x's type as the JAX
+    route does."""
+    b, h, w, cin = x.shape
     cout = pw_weight.shape[0]
+    site = Site("sep2d", family, (b, h, w, cin, cout), _dtype_name(x.dtype))
+    if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
+        return None
     dw9 = dw_weight.reshape(cin, 9).t().to(x.dtype).contiguous()
     pw2 = pw_weight.reshape(cout, cin).t().to(x.dtype).contiguous()
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
-    return sep2d(x.contiguous(), dw9, pw2, scale, shift, relu_in=relu_in)
+    return sep2d(x.contiguous(), dw9, pw2, scale, shift)
 
 
 def route_pw1x1(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
-                eps: float, *, relu: bool):
-    """The fused 1×1 ConvBN body for one site. The conv weight is in the
-    port's layout, (Cout, Cin, 1, 1); it is cast to x's type as the JAX
-    route does."""
-    cin = x.shape[-1]
+                eps: float, *, relu: bool, family: str):
+    """The fused 1×1 ConvBN body for one site, or None. The conv weight is
+    in the port's layout, (Cout, Cin, 1, 1); it is cast to x's type as the
+    JAX route does."""
+    b, h, w, cin = x.shape
     cout = conv_weight.shape[0]
+    site = Site("pw1x1_relu" if relu else "pw1x1", family,
+                (b, h, w, cin, cout), _dtype_name(x.dtype))
+    if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
+        return None
     w2 = conv_weight.reshape(cout, cin).t().to(x.dtype).contiguous()
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return pw1x1(x.contiguous(), w2, scale, shift, relu=relu)
 
 
-def route_preproc(x, target_hw: Tuple[int, int], out_dtype):
-    """The fused cast + resize prologue for one resize."""
-    return preproc_resize(x.contiguous(), target_hw, out_dtype)
-
+def route_preproc(x, target_hw: Tuple[int, int], out_dtype, *,
+                  family: str):
+    """The fused cast + resize prologue for one resize, or None."""
+    b, h, w, c = x.shape
+    th, tw = int(target_hw[0]), int(target_hw[1])
+    site = Site("preproc", family, (b, h, w, c, th, tw),
+                f"{_dtype_name(x.dtype)}->{_dtype_name(out_dtype)}")
+    feasible = x.dtype in _DTYPE_CODES and out_dtype in _FLOAT_TYPES
+    if not _decide(site, feasible, x.device):
+        return None
+    return preproc_resize(x.contiguous(), (th, tw), out_dtype)

@@ -55,6 +55,14 @@ class ModelFunction:
     #: (``models/*_fast.py``); set after construction by the registry.
     fast_path = False
 
+    #: True when running this model can consult a kernel route
+    #: (``core/kernels.py``): set by :meth:`fromModule` (the layers' kernel
+    #: families) and :meth:`resized` (the preproc route), carried by every
+    #: wrapper. Gates the autotune pass of :meth:`apply_batch`, which runs
+    #: the body once more on meta tensors: an arbitrary ``fromFunction``
+    #: callable has no routes and is not run twice.
+    kernel_routable = False
+
     def __init__(self, apply_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                  variables: Any, input_spec: TensorSpec,
                  name: str = "model") -> None:
@@ -65,6 +73,7 @@ class ModelFunction:
         self._flat_cache: Optional["ModelFunction"] = None
         self._resize_cache: Dict[Tuple, "ModelFunction"] = {}
         self._precision_cache: Dict[str, "ModelFunction"] = {}
+        self._autotuned_shapes: set = set()
 
     @classmethod
     def fromFunction(cls, fn: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -79,8 +88,10 @@ class ModelFunction:
                    name: Optional[str] = None) -> "ModelFunction":
         """From an ``nn.Module`` run in eval mode (the ``fromFlax`` analog)."""
         module.eval()
-        return cls(lambda m, x: m(x), module, input_spec,
-                   name=name or type(module).__name__)
+        out = cls(lambda m, x: m(x), module, input_spec,
+                  name=name or type(module).__name__)
+        out.kernel_routable = True
+        return out
 
     # -- composition ---------------------------------------------------------
 
@@ -93,8 +104,10 @@ class ModelFunction:
         def fn(vs, x):
             return apply_fn(vs, pre(x))
 
-        return ModelFunction(fn, self.variables,
-                             input_spec or self.input_spec, name=self.name)
+        out = ModelFunction(fn, self.variables,
+                            input_spec or self.input_spec, name=self.name)
+        out.kernel_routable = self.kernel_routable
+        return out
 
     def with_postprocess(self, post: Callable[[torch.Tensor], torch.Tensor]
                          ) -> "ModelFunction":
@@ -103,8 +116,10 @@ class ModelFunction:
         def fn(vs, x):
             return post(apply_fn(vs, x))
 
-        return ModelFunction(fn, self.variables, self.input_spec,
-                             name=self.name)
+        out = ModelFunction(fn, self.variables, self.input_spec,
+                            name=self.name)
+        out.kernel_routable = self.kernel_routable
+        return out
 
     def with_compute_dtype(self, dtype) -> "ModelFunction":
         """Run in ``dtype``: float weights cast once here (on a copy of the
@@ -112,7 +127,9 @@ class ModelFunction:
         float32 — ``sparkdl_tpu``'s ``with_compute_dtype``. A wrapper that
         casts inside its own body (``resized`` casts to its spec's float32)
         then runs the layers after it in float32 with weights rounded to
-        ``dtype``, as the reference does."""
+        ``dtype``, as the reference does. Unlike the reference, the wrapper
+        keeps :attr:`kernel_routable`: the reference drops it here, so its
+        default bf16 precision never auditions a kernel."""
         dtype = torch_dtype(dtype)
         apply_fn = self.apply_fn
         variables = self.variables
@@ -122,7 +139,9 @@ class ModelFunction:
         def fn(vs, x):
             return apply_fn(vs, x.to(dtype)).float()
 
-        return ModelFunction(fn, variables, self.input_spec, name=self.name)
+        out = ModelFunction(fn, variables, self.input_spec, name=self.name)
+        out.kernel_routable = self.kernel_routable
+        return out
 
     def with_dtype(self, precision: str) -> "ModelFunction":
         """The precision knob (``EngineConfig.inference_precision`` applies
@@ -153,7 +172,9 @@ class ModelFunction:
         """Model preceded by an ON-DEVICE bilinear resize from (H, W)
         inputs — the ``preproc_resize`` site. The input is cast to the
         spec's dtype and resized (half-pixel centres, no antialias) by
-        ``kernels.route_preproc``. Memoized per (src, target)."""
+        ``kernels.route_preproc`` where the kernel gate routes the site,
+        else by its twin (cast + ``F.interpolate``), the reference's XLA
+        pair. Memoized per (src, target)."""
         target = (tuple(target_size) if target_size is not None
                   else self.input_spec.spatial_size())
         if target is None or tuple(src_size) == target:
@@ -162,15 +183,22 @@ class ModelFunction:
         if key not in self._resize_cache:
             th, tw = target
             out_dtype = torch_dtype(self.input_spec.dtype)
+            family = self.name
 
             def pre(x):
-                return kernels.route_preproc(x, (th, tw), out_dtype)
+                fused = kernels.route_preproc(x, (th, tw), out_dtype,
+                                              family=family)
+                if fused is not None:
+                    return fused
+                return kernels.twin_preproc(x, (th, tw), out_dtype)
 
             spec = TensorSpec((None, int(src_size[0]), int(src_size[1]),
                                self.input_spec.shape[3]),
                               self.input_spec.dtype)
-            self._resize_cache[key] = self.with_preprocess(pre,
-                                                           input_spec=spec)
+            wrapped = self.with_preprocess(pre, input_spec=spec)
+            # pre() consults route_preproc whatever the parent's body holds
+            wrapped.kernel_routable = True
+            self._resize_cache[key] = wrapped
         return self._resize_cache[key]
 
     # -- execution -----------------------------------------------------------
@@ -197,13 +225,27 @@ class ModelFunction:
         Each chunk is uploaded with one host-to-device copy from a pinned
         buffer (``core.batching.run_batched``) and cast on the device to
         the spec dtype before the body runs, as the JAX package's compiled
-        program does."""
+        program does. At the first sight of a chunk's (shape, dtype,
+        device), a kernel-routable model settles its kernel verdicts first
+        (``kernels.ensure_autotuned``: under ``"autotune"``, an abstract
+        pass and at most one audition per new site), so the chunk runs
+        against decided sites."""
         device = torch.device(device)
         array = self.stage_inputs(array)
         self.to(device)
         spec_dtype = torch_dtype(self.input_spec.dtype)
-        return batching.run_batched(lambda x: self(x.to(spec_dtype)), array,
-                                    batch_size, device)
+
+        def run(x):
+            x = x.to(spec_dtype)
+            key = (tuple(x.shape), x.dtype, x.device)
+            if (self.kernel_routable and key not in self._autotuned_shapes
+                    and kernels.kernel_mode() == "autotune"):
+                kernels.ensure_autotuned(self, x, model=self.name,
+                                         variables=self.variables)
+                self._autotuned_shapes.add(key)
+            return self(x)
+
+        return batching.run_batched(run, array, batch_size, device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_fn(self.variables, x)

@@ -33,13 +33,24 @@ class EngineConfig:
     # Where models run. "cuda" is the default; without a card, transform
     # raises rather than silently running on the CPU. Tests set "cpu".
     device: str = "cuda"
+    # The kernel gate (core/kernels.py), the JAX package's knob and values.
+    # "autotune" (the default): a hand-written kernel runs at a site
+    # (kernel, model family, shape, dtype) only after it beat its library
+    # twin there by >= 5% within the numeric contract (float32 bit for
+    # bit, bf16 <= 0.05); sites are auditioned on the card at the first
+    # sight of each input shape, and the verdicts persist in
+    # $SPARKDL_COMPILE_CACHE_DIR. "force": every feasible site runs its
+    # kernel, no audition. "off": no kernel runs, nothing is auditioned.
+    pallas_kernels: str = "autotune"
 
     _PRECISIONS = ("float32", "bfloat16")
+    _KERNEL_MODES = ("off", "autotune", "force")
 
     @classmethod
     def snapshot(cls) -> Dict[str, Any]:
         return {k: getattr(cls, k) for k in
-                ("inference_precision", "fused_preprocess", "device")}
+                ("inference_precision", "fused_preprocess", "device",
+                 "pallas_kernels")}
 
     @classmethod
     def restore(cls, saved: Dict[str, Any]) -> None:
@@ -52,6 +63,10 @@ class EngineConfig:
             raise ValueError(
                 f"EngineConfig.inference_precision must be one of "
                 f"{cls._PRECISIONS}, got {cls.inference_precision!r}")
+        if cls.pallas_kernels not in cls._KERNEL_MODES:
+            raise ValueError(
+                f"EngineConfig.pallas_kernels must be one of "
+                f"{cls._KERNEL_MODES}, got {cls.pallas_kernels!r}")
 
 
 # ---------------------------------------------------------------------------

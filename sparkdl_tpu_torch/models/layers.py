@@ -134,7 +134,8 @@ class ConvBN(nn.Module):
 
     ``kernel_family`` opts the unit into the fused ``pw1x1`` route
     (``core/kernels.py``): at inference, a 1×1 stride-1 "SAME" unit runs
-    as one kernel launch; every other unit runs the plain body."""
+    as one kernel launch where the kernel gate routes its site; every
+    other unit runs the plain body."""
 
     def __init__(self, cin: int, features: int, kernel, strides=(1, 1),
                  padding: str = "SAME", act: bool = True,
@@ -164,7 +165,7 @@ class ConvBN(nn.Module):
         return kernels.route_pw1x1(
             x, self.conv.weight, self.bn.weight, self.bn.bias,
             self.bn.running_mean, self.bn.running_var, self.bn.eps,
-            relu=self.act)
+            relu=self.act, family=self.kernel_family)
 
 
 class SeparableConvBN(nn.Module):
@@ -173,7 +174,8 @@ class SeparableConvBN(nn.Module):
 
     ``kernel_family`` opts the unit into the fused ``sep2d`` route
     (``core/kernels.py``): at inference, a 3×3 stride-1 unit runs as one
-    kernel launch; otherwise the plain body runs."""
+    kernel launch where the kernel gate routes its site; otherwise the
+    plain body runs."""
 
     def __init__(self, cin: int, features: int, kernel=(3, 3),
                  strides=(1, 1), bn_eps: float = KERAS_BN_EPS,
@@ -201,7 +203,7 @@ class SeparableConvBN(nn.Module):
         return kernels.route_sep2d(
             x, self.depthwise.weight, self.pointwise.weight, self.bn.weight,
             self.bn.bias, self.bn.running_mean, self.bn.running_var,
-            self.bn.eps)
+            self.bn.eps, family=self.kernel_family)
 
 
 class Dense(nn.Module):

@@ -121,8 +121,16 @@ def test_wrappers_check_their_inputs(card):
         kernels.pw1x1(x, pw[:4], sc, sh)
 
 
+@pytest.fixture
+def force_routes(monkeypatch):
+    """Every feasible kernel site routes, with no audition."""
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "force")
+
+
 @pytest.mark.cuda
-def test_xception_features_match_cpu(card):
+def test_xception_features_match_cpu(card, force_routes):
     """A whole Xception forward on the card (34 sep2d launches) against
     the same weights on the CPU, float32, 75×75: max|Δ| ≤ 1e-3·max|ref|."""
     from sparkdl_tpu_torch.models.registry import build_featurizer
@@ -137,7 +145,7 @@ def test_xception_features_match_cpu(card):
 
 
 @pytest.mark.cuda
-def test_inception_module_path_matches_cpu(card):
+def test_inception_module_path_matches_cpu(card, force_routes):
     """A whole InceptionV3 forward on the module path on the card (39
     pw1x1 launches) against the same weights on the CPU, float32, 75×75:
     max|Δ| ≤ 1e-3·max|ref|."""
@@ -151,3 +159,60 @@ def test_inception_module_path_matches_cpu(card):
     gpu = mf.apply_batch(x, batch_size=2, device=card)
     assert kernels.launches["pw1x1"] == 39
     assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fma9", "dw2d", "sep2d_probe"])
+@pytest.mark.parametrize("b", [2, 128])
+def test_probe_kernel_matches_plain_on_all_rows(card, name, b):
+    """Each probe kernel against its plain version on every row, the dead
+    pad rows included: ``fma9`` and ``dw2d`` bit for bit, ``sep2d_probe``
+    within one bf16 ulp of |ref| + 1e-3 (``probe.matches_plain``)."""
+    from sparkdl_tpu_torch.experiments import probe
+
+    v = probe.operands(card, b=b, seed=1)
+    args = [v["k9"]]
+    if name == "sep2d_probe":
+        args += [v["pw"], v["sc"], v["sh"]]
+    before = probe.launches[name]
+    y = getattr(probe, name)(v["x2"], *args)
+    torch.cuda.synchronize()
+    assert probe.launches[name] == before + 1
+    ref = getattr(probe, f"plain_{name}")(v["x2"], *args)
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+    err = float((y.float() - ref.float()).abs().max())
+    assert probe.matches_plain(name, y, ref), err
+    if name == "dw2d":  # the dead rows read the image's last live row
+        dead = ref.float().reshape(b, probe.P_PAD, probe.C)[:, probe.P:]
+        assert float(dead.abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", [
+    kernels.Site("sep2d", "unit", (2, 19, 19, 728, 728), "bfloat16"),
+    kernels.Site("pw1x1_relu", "unit", (2, 8, 8, 256, 64), "bfloat16"),
+    kernels.Site("preproc", "unit", (2, 40, 48, 3, 75, 75),
+                 "float32->float32"),
+], ids=lambda s: s.kernel)
+def test_audition_on_the_card_times_both(card, site, monkeypatch):
+    monkeypatch.delenv(kernels.COMPILE_CACHE_DIR_ENV, raising=False)
+    kernels.reset()
+    verdict = kernels.ensure_verdict(site, card)
+    assert verdict["kernel_s"] > 0 and verdict["twin_s"] > 0
+    assert verdict["backend"].endswith("sm_90"), verdict
+    assert isinstance(verdict["adopted"], bool) and verdict["reason"]
+    assert kernels.verdict_for(site, card) is verdict
+    kernels.reset()
+
+
+@pytest.mark.cuda
+def test_failing_kernel_raises_out_of_ensure_verdict(card, monkeypatch):
+    """A launch the library refuses (an unknown dtype code) raises out of
+    the audition: no failure on the card becomes a rejection."""
+    monkeypatch.delenv(kernels.COMPILE_CACHE_DIR_ENV, raising=False)
+    monkeypatch.setitem(kernels._DTYPE_CODES, torch.bfloat16, 7)
+    kernels.reset()
+    site = kernels.Site("pw1x1", "unit", (2, 8, 8, 64, 64), "bfloat16")
+    with pytest.raises(RuntimeError, match="pw1x1 kernel launch failed"):
+        kernels.ensure_verdict(site, card)
+    assert kernels.verdict_for(site, card) is None

@@ -41,10 +41,12 @@ def images():
 
 
 @pytest.fixture(autouse=True)
-def cpu_engine():
+def cpu_engine(monkeypatch):
     saved = EngineConfig.snapshot()
     EngineConfig.device = "cpu"
     EngineConfig.inference_precision = "float32"
+    # every feasible kernel site routes (to its plain version on the CPU)
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "force")
     yield
     EngineConfig.restore(saved)
 

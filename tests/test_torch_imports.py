@@ -24,6 +24,7 @@ def test_no_forbidden_imports_in_source():
     files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    assert ROOT / "sparkdl_tpu_torch" / "experiments" / "probe.py" in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -150,7 +150,10 @@ def test_resize_taps_reproduce_the_matrix():
         np.testing.assert_array_equal(rebuilt, m)
 
 
-def test_routes_on_cpu_take_the_plain_version_and_never_count():
+def test_routes_on_cpu_take_the_plain_version_and_never_count(monkeypatch):
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "force")
     tk.reset_launches()
     b, h, w, cin, cout = 2, 5, 6, 8, 12
     x, dw, pw, gamma, beta, mean, var = _sep2d_operands(b, h, w, cin, cout)
@@ -158,7 +161,7 @@ def test_routes_on_cpu_take_the_plain_version_and_never_count():
     pw_t = torch.from_numpy(pw.transpose(3, 2, 0, 1).copy())   # (O,I,1,1)
     g, be, m, v = (torch.from_numpy(a) for a in (gamma, beta, mean, var))
     routed = tk.route_sep2d(torch.from_numpy(x), dw_t, pw_t, g, be, m, v,
-                            EPS)
+                            EPS, family="unit")
     scale, shift = tk._fold_bn(g, be, m, v, EPS)
     plain = tk.plain_sep2d(torch.from_numpy(x),
                            torch.from_numpy(dw.reshape(9, cin)),
@@ -166,7 +169,7 @@ def test_routes_on_cpu_take_the_plain_version_and_never_count():
                            scale, shift)
     assert torch.equal(routed, plain)
     routed = tk.route_pw1x1(torch.from_numpy(x), pw_t, None, be, m, v, EPS,
-                            relu=True)
+                            relu=True, family="unit")
     scale, shift = tk._fold_bn(None, be, m, v, EPS)
     plain = tk.plain_pw1x1(torch.from_numpy(x),
                            torch.from_numpy(pw.reshape(cin, cout)), scale,
@@ -175,7 +178,7 @@ def test_routes_on_cpu_take_the_plain_version_and_never_count():
     img = torch.from_numpy(
         np.random.default_rng(2).integers(0, 256, (1, 9, 7, 3),
                                           dtype=np.uint8))
-    resized = tk.route_preproc(img, (11, 5), torch.float32)
+    resized = tk.route_preproc(img, (11, 5), torch.float32, family="unit")
     assert torch.equal(resized, tk.plain_preproc(img, (11, 5),
                                                  torch.float32))
     assert tk.launches == {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}

@@ -37,6 +37,13 @@ def cpu_engine():
     EngineConfig.restore(saved)
 
 
+@pytest.fixture
+def force_routes(monkeypatch):
+    """Every feasible kernel site routes (on the CPU, to the kernel's
+    plain version), with no audition and no collection pass."""
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "force")
+
+
 def _port_sep(variables, cin, cout, family="xception"):
     m = SeparableConvBN(cin, cout, kernel_family=family)
     m.load_state_dict(from_flax_variables("sep", variables))
@@ -44,7 +51,7 @@ def _port_sep(variables, cin, cout, family="xception"):
 
 
 @pytest.mark.parametrize("routed", [True, False])
-def test_separable_conv_bn_matches_flax(routed):
+def test_separable_conv_bn_matches_flax(routed, force_routes):
     cin, cout = 16, 24
     jm = JaxSeparableConvBN(cout)
     vs = random_variables(jm, (1, 7, 9, cin), seed=3)
@@ -75,7 +82,7 @@ def xception_pair():
     return jm, vs, tm.eval()
 
 
-def test_xception_full_width_matches_flax(xception_pair):
+def test_xception_full_width_matches_flax(xception_pair, force_routes):
     """All 36 conv layers at full width, 75×75 (there the 18→9 pool pads
     asymmetrically), batch 2, float32: features and softmax."""
     jm, vs, tm = xception_pair
@@ -97,7 +104,7 @@ def test_xception_full_width_matches_flax(xception_pair):
     assert max_abs(probs, ref_probs) <= 1e-3 * np.abs(ref_probs).max()
 
 
-def test_bf16_flow_at_one_layer(cpu_engine):
+def test_bf16_flow_at_one_layer(cpu_engine, force_routes):
     """``with_dtype("bfloat16")`` in both packages: without a resize the
     layer runs in bf16; behind ``resized`` (whose cast brings the input
     back to the spec's float32) it runs in float32 with bf16-rounded

@@ -5,8 +5,12 @@
 The same comparisons the ``tests/test_torch_*.py`` files assert, with the
 measured max|Δ| printed as JSON lines (``PERF.md`` quotes them): the
 plain kernel versions against the Pallas kernels (interpret mode) and
-their XLA twins, Xception and InceptionV3 (module and fast path) at
-75×75, and the featurize slices at 299×299.
+their XLA twins, the plain probes against the Pallas probes, the kernel
+gate's twins against the XLA twins, Xception and InceptionV3 (module and
+fast path) at 75×75, and the featurize slices at 299×299 (in ``"force"``,
+as the tests run them). Last, the gate's bf16 contract at real site
+shapes: how far the bf16 twin lies from the plain version (the kernel's
+arithmetic, rounded once), on the audition's own operands.
 """
 
 import json
@@ -95,6 +99,83 @@ def kernels_report():
                     jnp.asarray(x), dst, out)))}))
 
 
+def probes_report():
+    from jax.experimental.pallas import tpu as pltpu
+
+    import experiments.pallas_probe as jp
+    from tests import test_torch_probe as pt
+
+    inputs = pt.inputs.__wrapped__()
+    jp.GRID = 1
+    x2 = jp.pad_rows(inputs["x"])
+    for name, extra in (("fma9", ()), ("dw2d", ()),
+                        ("sep2d_probe", ("pw", "sc", "sh"))):
+        args = [inputs["k9"]] + [inputs[k] for k in extra]
+        with pltpu.force_tpu_interpret_mode():
+            ref = getattr(jp, "sep2d" if name == "sep2d_probe" else name)(
+                pt._jax(x2), *(pt._jax(a) for a in args))
+        ref = np.asarray(jnp.asarray(ref, jnp.float32))
+        ours = getattr(pt.tp, f"plain_{name}")(
+            pt._torch(x2), *(pt._torch(a) for a in args)).float().numpy()
+        print(json.dumps({"check": f"plain_{name}_vs_pallas_all_rows",
+                          "max_abs": max_abs(ours, ref),
+                          "max_abs_ref": float(np.abs(ref).max())}))
+
+
+def twins_report():
+    from tests import test_torch_autotune as at
+
+    x, dw, pw, gamma, beta, mean, var = at._operands(2, 7, 9, 16, 24)
+    bn = (gamma, beta, mean, var)
+    w_pw = at._t(pw.transpose(3, 2, 0, 1))
+    ref = np.asarray(kt.jk.xla_sep2d(x, dw, pw, *bn, at.EPS))
+    ours = kt.tk.twin_sep2d(at._t(x), at._t(dw.transpose(3, 2, 0, 1)), w_pw,
+                            *(at._t(a) for a in bn), at.EPS).numpy()
+    print(json.dumps({"check": "twin_sep2d_vs_xla_f32",
+                      "max_abs": max_abs(ours, ref),
+                      "max_abs_ref": float(np.abs(ref).max())}))
+    ref = np.asarray(kt.jk.xla_pw1x1(x, pw, *bn, at.EPS, relu=True))
+    ours = kt.tk.twin_pw1x1(at._t(x), w_pw, *(at._t(a) for a in bn), at.EPS,
+                            relu=True).numpy()
+    print(json.dumps({"check": "twin_pw1x1_vs_xla_f32",
+                      "max_abs": max_abs(ours, ref),
+                      "max_abs_ref": float(np.abs(ref).max())}))
+    img = np.random.default_rng(1).integers(0, 256, (2, 40, 36, 3), np.uint8)
+    ref = np.asarray(kt.jk.xla_preproc(jnp.asarray(img), (32, 32),
+                                       "float32"))
+    ours = kt.tk.twin_preproc(torch.from_numpy(img), (32, 32),
+                              torch.float32).numpy()
+    print(json.dumps({"check": "twin_preproc_vs_xla_f32",
+                      "max_abs": max_abs(ours, ref),
+                      "max_abs_ref": float(np.abs(ref).max())}))
+
+
+def gate_contract_report():
+    """bf16 sites of the card's autotune phases, on the audition's
+    operands (both packages draw the same ones): max|plain − twin| for
+    the port's twin and for the JAX package's XLA twin (jitted on the
+    CPU), against the contract's 0.05."""
+    tk, jk = kt.tk, kt.jk
+    for site in (tk.Site("sep2d", "xception", (16, 19, 19, 728, 728),
+                         "bfloat16"),
+                 tk.Site("pw1x1_relu", "inception", (16, 35, 35, 192, 64),
+                         "bfloat16"),
+                 tk.Site("pw1x1_relu", "inception", (16, 17, 17, 768, 192),
+                         "bfloat16")):
+        kernel_fn, twin_fn, x = tk._build_shootout(site, torch.device("cpu"))
+        with torch.inference_mode():
+            plain, twin = kernel_fn(x).float(), twin_fn(x).float()
+        _, xla_fn, xj = jk._build_shootout(jk.Site(site.kernel, site.family,
+                                                   site.shape, site.dtype))
+        xla = np.asarray(jnp.asarray(jax.jit(xla_fn)(xj), jnp.float32))
+        print(json.dumps({"check": "bf16_contract_plain_vs_twin",
+                          "site": tk._site_key(site, "cpu"),
+                          "max_abs": float((plain - twin).abs().max()),
+                          "max_abs_vs_xla_twin": max_abs(plain.numpy(), xla),
+                          "max_abs_twin": float(twin.abs().max()),
+                          "contract": tk.BF16_TOLERANCE}))
+
+
 def xception_report():
     from sparkdl_tpu.models.xception import Xception as JaxXception
     from sparkdl_tpu_torch.models.convert import from_flax_variables
@@ -155,6 +236,7 @@ def slice_report():
 
     JaxConfig.inference_precision = "float32"
     EngineConfig.device, EngineConfig.inference_precision = "cpu", "float32"
+    EngineConfig.pallas_kernels = "force"
     from sparkdl_tpu.models.inception import InceptionV3 as JaxInceptionV3
     from sparkdl_tpu.models.xception import Xception as JaxXception
 
@@ -180,6 +262,9 @@ def slice_report():
 
 if __name__ == "__main__":
     kernels_report()
+    probes_report()
+    twins_report()
+    gate_contract_report()
     xception_report()
     inception_report()
     slice_report()
