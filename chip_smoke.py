@@ -3,10 +3,13 @@
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``sparkdl_tpu_torch/csrc`` (one nvcc
-per source, in parallel, into ``build/sparkdl_tpu_torch/``), checks each
-kernel against its plain PyTorch version at the shapes the featurize
-paths give it and times both (and the PyTorch library call that computes
-the same function, as a yardstick the port never calls).
+per source, in parallel, into ``build/sparkdl_tpu_torch/``) and counts the
+``HGMMA`` instructions in each library's SASS (``cuobjdump -sass``): the
+tensor-core bodies of ``sep2d`` and ``pw1x1`` must have some. Then it
+checks each kernel against its plain PyTorch version at the shapes the
+featurize paths give it and times both (and the PyTorch library call that
+computes the same function, as a yardstick the port never calls); each
+``sep2d``/``pw1x1`` row names its launch plan and the body that ran.
 
 The probe phase checks the three depthwise probes of
 ``sparkdl_tpu_torch/experiments/probe.py`` (``fma9``, ``dw2d``,
@@ -34,16 +37,22 @@ its kernel), each on 32 images at batch 16 after one warm-up pass:
   fast=False)``, the module path, with ``pw1x1`` at its 39 sites per
   forward, on 299×299 images (bf16) and 256×256 images (float32).
 
-Two more phases run the user's default, ``"autotune"``:
-``featurize_native`` and ``inception_module_native`` again, each with a
-fresh verdict store (a temporary ``SPARKDL_COMPILE_CACHE_DIR``). The
-warm-up pass auditions every kernel site against its library twin; the
-phase prints every verdict, and its launches must equal the calls per
-forward of the adopted sites × forwards, the wall time of its warm-up
-pass and the summed time of its auditions. The store check then forgets the
-verdicts in memory (``kernels.reset()``) and repeats the Xception
-autotune phase, which must settle every site from the store with no
-audition.
+Each phase also counts its launches by body
+(``kernels.launches_by_body``): every bf16 ``sep2d``/``pw1x1`` launch must
+have taken the tensor-core body.
+
+Four more phases run the user's default gate, ``"autotune"``, each with a
+fresh verdict store (a temporary ``SPARKDL_COMPILE_CACHE_DIR``):
+``featurize_native`` and ``inception_module_native`` in the default bf16
+precision, which, as in the reference, audition and launch nothing; and
+the same two in float32 (``EngineConfig.inference_precision``), whose
+warm-up pass auditions every kernel site against its library twin. Each
+phase prints every verdict, its launches must equal the calls per forward
+of the adopted sites × forwards, and its ``*_first_sight`` line gives the
+wall time of its warm-up pass and the summed time of its auditions. The
+store check then forgets the verdicts in memory (``kernels.reset()``) and
+repeats the float32 Xception autotune phase, which must settle every site
+from the store with no audition.
 
 Each phase is checked against the port's own CPU run of the same weights
 on two images, and the launch counters, set to 0 just before the phase and
@@ -77,7 +86,7 @@ F32_KERNEL_REL = 1e-5  # float32 kernel tolerance, relative to max(1, |ref|)
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core peak
               torch.float32: 67e12}     # float32 outside the tensor cores
-SEP2D_SHAPES = [(147, 147, 64, 128), (19, 19, 728, 728),
+SEP2D_SHAPES = [(147, 147, 64, 128), (37, 37, 256, 728), (19, 19, 728, 728),
                 (10, 10, 1536, 2048)]
 # InceptionV3's 1×1 sites at 35×35, 17×17 and 8×8 (widest of each grid);
 # the last entry of each case is ``relu``
@@ -145,6 +154,39 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
                                        else "bytes")
 
 
+def launched_body(kernels, name, fn):
+    """``fn()``'s result and the one body of kernel ``name`` it launched
+    (the per-body counters before and after)."""
+    before = dict(kernels.launches_by_body[name])
+    out = fn()
+    torch.cuda.synchronize()
+    ran = [b for b, n in kernels.launches_by_body[name].items()
+           if n != before[b]]
+    assert len(ran) == 1, f"{name}: bodies launched {ran}"
+    return out, ran[0]
+
+
+def plan_row(plan) -> dict:
+    return {"body": plan.body, "tile": [plan.bm, plan.bn],
+            "stages": plan.stages, "splits": plan.splits,
+            "grid": list(plan.grid), "blocks": plan.blocks,
+            "smem": plan.smem, "note": plan.note}
+
+
+def sass_hgmma(name) -> int:
+    """HGMMA instructions in the SASS of the library built from
+    ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
+    import shutil
+
+    from sparkdl_tpu_torch.core import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def check_sep2d(kernels, dev):
     """sep2d against plain_sep2d and the library's depthwise → 1×1 conv →
     affine, at the main path's first, middle-flow and last shapes."""
@@ -156,11 +198,13 @@ def check_sep2d(kernels, dev):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dtype)
             dw9 = (torch.randn(9, cin, generator=gen) * 0.2).to(dev, dtype)
-            pw = (torch.randn(cin, cout, generator=gen)
-                  / cin ** 0.5).to(dev, dtype)
+            # (Cin, Cout) as the transpose of (Cout, Cin): the routes' layout
+            pw = (torch.randn(cout, cin, generator=gen)
+                  / cin ** 0.5).to(dev, dtype).t()
             scale = (torch.rand(cout, generator=gen) + 0.5).to(dev)
             shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
-            y = kernels.sep2d(x, dw9, pw, scale, shift)
+            y, body = launched_body(kernels, "sep2d", lambda: kernels.sep2d(
+                x, dw9, pw, scale, shift))
             ref = kernels.plain_sep2d(x, dw9, pw, scale, shift)
             torch.cuda.synchronize()
             err = float((y.float() - ref.float()).abs().max())
@@ -184,9 +228,11 @@ def check_sep2d(kernels, dev):
             nbytes = (pos * (cin + cout) + 9 * cin + cin * cout) * item \
                 + 2 * cout * 4
             b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            plan = kernels.plan_sep2d(BATCH, h, w, cin, cout, dtype)
             rows.append({
                 "shape": [BATCH, h, w, cin, cout],
                 "dtype": str(dtype).replace("torch.", ""),
+                "body": body, "plan": plan_row(plan),
                 "max_abs_err": err, "tolerance": limit,
                 **timings(lambda: kernels.sep2d(x, dw9, pw, scale, shift),
                           lambda: kernels.plain_sep2d(x, dw9, pw, scale,
@@ -206,12 +252,13 @@ def check_pw1x1(kernels, dev):
     for h, w, cin, cout, relu in PW1X1_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dtype)
-            w2 = (torch.randn(cin, cout, generator=gen)
-                  / cin ** 0.5).to(dev, dtype)
+            w2 = (torch.randn(cout, cin, generator=gen)
+                  / cin ** 0.5).to(dev, dtype).t()
             # scale < 1 keeps |y| under 8, where one bf16 ulp is below 0.05
             scale = (torch.rand(cout, generator=gen) * 0.5 + 0.5).to(dev)
             shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
-            y = kernels.pw1x1(x, w2, scale, shift, relu=relu)
+            y, body = launched_body(kernels, "pw1x1", lambda: kernels.pw1x1(
+                x, w2, scale, shift, relu=relu))
             ref = kernels.plain_pw1x1(x, w2, scale, shift, relu=relu)
             torch.cuda.synchronize()
             err = float((y.float() - ref.float()).abs().max())
@@ -231,9 +278,11 @@ def check_pw1x1(kernels, dev):
             flops = 2 * n * cin * cout
             nbytes = (n * (cin + cout) + cin * cout) * item + 2 * cout * 4
             b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            plan = kernels.plan_pw1x1(n, cin, cout, dtype)
             rows.append({
                 "shape": [BATCH, h, w, cin, cout], "relu": relu,
                 "dtype": str(dtype).replace("torch.", ""),
+                "body": body, "plan": plan_row(plan),
                 "max_abs_err": err, "tolerance": limit,
                 **timings(lambda: kernels.pw1x1(x, w2, scale, shift,
                                                 relu=relu),
@@ -403,9 +452,11 @@ def autotune_expectation(s, kernels, feat, size, dev):
     if tuple(size) != TARGET:
         run = run.resized(size, TARGET)
     run = run.with_dtype(s.EngineConfig.inference_precision)
+    per_forward, verdicts = {}, []
+    if not run.kernel_routable:  # bf16, as in the reference: no site
+        return per_forward, verdicts
     x = torch.empty((BATCH, *size, 3),
                     dtype=torch_dtype(run.input_spec.dtype), device="meta")
-    per_forward, verdicts = {}, []
     for site, calls in sorted(kernels.collect_sites(run, x,
                                                     run.variables).items()):
         v = kernels.verdict_for(site, dev)
@@ -449,12 +500,16 @@ def profile_pass(name, feat, df, top: int = 12):
 
 
 def main_path(s, kernels, name, model, size, per_forward, rel_tol,
-              mode="force"):
+              mode="force", precision="bfloat16"):
     """Featurize N_IMAGES seeded images of ``size`` on the card under the
-    kernel gate's ``mode`` (one warm-up pass, then the counted and timed
-    pass), check the launch counts against ``per_forward`` launches per
-    forward (under "autotune", those its verdicts predict), and check two
-    of the features against the port's CPU run of the same weights."""
+    kernel gate's ``mode`` and ``EngineConfig.inference_precision`` (one
+    warm-up pass, then the counted and timed pass), check the launch
+    counts against ``per_forward`` launches per forward (under
+    "autotune", those its verdicts predict) and the bodies they took
+    (every bf16 launch of sep2d and pw1x1 on the tensor-core body), and
+    check two of the features against the port's CPU run of the same
+    weights."""
+    s.EngineConfig.inference_precision = precision
     rng = np.random.default_rng(SEED + size[0])
     images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
               for _ in range(N_IMAGES)]
@@ -477,6 +532,15 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.launches)
+    by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
+    for kernel, bodies in by_body.items():
+        assert sum(bodies.values()) == counts[kernel], (name, by_body)
+        # the network's dtype: bf16 only when no resize brings it back
+        # to float32 (ROADMAP Queue 3)
+        if precision == "bfloat16" and tuple(size) == TARGET:
+            assert bodies["wgmma"] == counts[kernel], \
+                f"{name}: bf16 {kernel} launches off the tensor-core " \
+                f"body: {bodies}"
     gpu = np.stack([np.asarray(r["features"], np.float32) for r in rows])
     assert gpu.shape == (N_IMAGES, 2048), gpu.shape
     assert np.isfinite(gpu).all(), "non-finite features"
@@ -500,7 +564,8 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
            "precision": s.EngineConfig.inference_precision,
            "warmup_s": warmup_s, "seconds": seconds,
            "images_per_s": N_IMAGES / seconds,
-           "launches": counts, "max_abs_err_vs_cpu": err,
+           "launches": counts, "launches_by_body": by_body,
+           "max_abs_err_vs_cpu": err,
            "tolerance": limit, "feature_max_abs": float(np.abs(cpu).max())}
     if verdicts is not None:
         out["verdicts"] = verdicts
@@ -523,11 +588,18 @@ PHASES = [
     ("inception_module_resized", ("InceptionV3", "module"), (256, 256),
      {"pw1x1": 39, "preproc_resize": 1}, F32_REL),
 ]
-# (phase, (model, path), source size, tolerance), under "autotune"
+# (phase, (model, path), source size, tolerance, precision), under
+# "autotune": bf16 (the default) auditions nothing, as in the reference;
+# float32 exercises the gate on the card
 AUTOTUNE_PHASES = [
-    ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL),
+    ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL,
+     "bfloat16"),
     ("inception_module_native_autotune", ("InceptionV3", "module"), TARGET,
-     BF16_REL),
+     BF16_REL, "bfloat16"),
+    ("featurize_native_autotune_f32", ("Xception", "named"), TARGET, F32_REL,
+     "float32"),
+    ("inception_module_native_autotune_f32", ("InceptionV3", "module"),
+     TARGET, F32_REL, "float32"),
 ]
 
 
@@ -559,8 +631,11 @@ def main() -> int:
     ptxas = [line.strip() for n in per_source
              for line in cuda_build.build_log(n).splitlines()
              if "registers" in line or "spill" in line]
+    hgmma = {n: sass_hgmma(n) for n in per_source}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": per_source, "ptxas": ptxas})
+          "per_source_s": per_source, "sass_hgmma": hgmma, "ptxas": ptxas})
+    assert hgmma["sep2d"] > 0 and hgmma["pw1x1"] > 0, \
+        f"no HGMMA in the tensor-core kernels' SASS: {hgmma}"
 
     dev = torch.device("cuda")
     s.EngineConfig.pallas_kernels = "force"
@@ -588,13 +663,13 @@ def main() -> int:
 
     kernels._audition = counted_audition
     stores = {}
-    for name, model, size, tol in AUTOTUNE_PHASES:
+    for name, model, size, tol, precision in AUTOTUNE_PHASES:
         stores[name] = tempfile.mkdtemp(prefix="sparkdl_verdicts_")
         os.environ[kernels.COMPILE_CACHE_DIR_ENV] = stores[name]
         kernels.reset()
         before = len(auditions)
         phases[name] = main_path(s, kernels, name, model, size, None, tol,
-                                 mode="autotune")
+                                 mode="autotune", precision=precision)
         phases[name]["auditions"] = len(auditions) - before
         phases[name]["audition_s"] = sum(auditions[before:])
         emit({"phase": f"{name}_first_sight", "auditions":
@@ -602,31 +677,44 @@ def main() -> int:
               "audition_s": phases[name]["audition_s"],
               "warmup_s": phases[name]["warmup_s"],
               "seconds_per_pass": phases[name]["seconds"]})
-        assert phases[name]["auditions"] > 0, f"{name}: nothing auditioned"
-    name, model, size, tol = AUTOTUNE_PHASES[0]
+        if precision == "bfloat16":
+            assert phases[name]["auditions"] == 0 \
+                and not any(phases[name]["launches"].values()), \
+                f"{name}: bf16 auditioned or launched a kernel"
+        else:
+            assert phases[name]["auditions"] > 0, \
+                f"{name}: nothing auditioned"
+    name, model, size, tol, precision = AUTOTUNE_PHASES[2]
     os.environ[kernels.COMPILE_CACHE_DIR_ENV] = stores[name]
     kernels.reset()
     before = len(auditions)
     again = main_path(s, kernels, f"{name}_from_store", model, size, None,
-                      tol, mode="autotune")
+                      tol, mode="autotune", precision=precision)
     settled = len(again["verdicts"])
     emit({"phase": "verdict_store_check", "store": stores[name],
           "sites_settled": settled, "auditions": len(auditions) - before,
           "warmup_s": again["warmup_s"]})
-    assert len(auditions) == before, "the store did not settle every site"
+    assert settled > 0 and len(auditions) == before, \
+        "the store did not settle every site"
     assert [v["adopted"] for v in again["verdicts"]] \
         == [v["adopted"] for v in phases[name]["verdicts"]]
     kernels._audition = audition
     del os.environ[kernels.COMPILE_CACHE_DIR_ENV]
+    s.EngineConfig.inference_precision = "bfloat16"
 
     def summary(name, source, replaces, rows, headline, by_phase=None):
         if by_phase is None:
             by_phase = {p: out["launches"][name] for p, out in phases.items()}
         launches = sum(by_phase.values())
         assert launches > 0, f"{name} never launched on the main path"
+        by_body = {}
+        for out in phases.values():
+            for body, n in out["launches_by_body"].get(name, {}).items():
+                by_body[body] = by_body.get(body, 0) + n
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_by_phase": by_phase,
+                "launches_by_body": by_body or None,
                 **{k: headline[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms", "shape", "dtype")},

@@ -96,6 +96,12 @@ def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, float]:
     return {n: build_seconds[n] for n in names}
 
 
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lies (built or
+    not)."""
+    return _library_path(name)
+
+
 def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills)
     for the library built from ``csrc/<name>.cu``."""

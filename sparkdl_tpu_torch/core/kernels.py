@@ -19,7 +19,15 @@ Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version (:func:`plain_sep2d`, :func:`plain_pw1x1`,
 :func:`plain_preproc`) only for a tensor on the CPU; there is no fallback
 on the card. :data:`launches` counts kernel launches, one per wrapper
-call that reached the card.
+call that reached the card, and :data:`launches_by_body` the same by the
+body that ran.
+
+**Launch plans.** :func:`plan_sep2d` and :func:`plan_pw1x1` choose, from
+a call's shape and dtype alone, the body (bf16 on the Hopper tensor-core
+mainloop of ``csrc/wgmma_bf16.cuh`` wherever TMA can stride the rows,
+else a SIMT or ``mma.sync`` body), its tile, its ring and its split of
+K. The C launchers check the plan they are given and refuse one they
+cannot run; the CPU tests hold the plans at every main-path site.
 
 **The gate.** Models never call the kernels; they call ``route_*``
 (``models/layers.py``, ``ModelFunction.resized``), which returns the
@@ -90,6 +98,11 @@ VERDICT_STORE_VERSION = 1
 
 #: Kernel launches on the card since the last :func:`reset_launches`.
 launches: Dict[str, int] = {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
+#: The same launches by the body that ran (:func:`plan_sep2d`,
+#: :func:`plan_pw1x1`): ``"wgmma"`` is the Hopper tensor-core mainloop.
+launches_by_body: Dict[str, Dict[str, int]] = {
+    "sep2d": {"wgmma": 0, "simt": 0},
+    "pw1x1": {"wgmma": 0, "mma": 0, "simt": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
@@ -104,6 +117,9 @@ def _dtype_name(dtype: torch.dtype) -> str:
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for bodies in launches_by_body.values():
+        for body in bodies:
+            bodies[body] = 0
 
 
 def _on_card(x: torch.Tensor, kernel: str) -> bool:
@@ -134,6 +150,180 @@ def _raise_on_error(err: int, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Launch plans — the body, tile and split of K for each (shape, dtype)
+# ---------------------------------------------------------------------------
+
+#: Streaming multiprocessors of the card the plans are made for (H100).
+SMS = 132
+#: Shared memory one block may use on Hopper, in bytes.
+SMEM_LIMIT = 232448
+_BODY_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
+_KCHUNK = 64          # K per stage of the tensor-core mainloop
+_ROW_BYTES = 128      # one K chunk of bf16
+_TILE_ALIGN = 1024
+_MAX_STAGES = 4
+_MAX_HALO_SLOTS = 4
+#: (halo slots, stages) of the sep2d ring, in the order tried: the halo
+#: loads' latency first (each refill has slots - 1 chunks to land), then
+#: the depth of the ring.
+_SEP2D_RINGS = ((4, 4), (4, 3), (3, 4), (3, 3), (4, 2), (3, 2), (2, 4),
+                (2, 3), (2, 2))
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: the ``body`` (``"wgmma"``, ``"mma"`` or
+    ``"simt"``), a block's ``bm`` rows × ``bn`` output channels, the
+    ``stages`` of its ring, K walked in ``chunks`` chunks of ``chunk``
+    channels and cut into ``splits`` shares (``k_ranges``: each share's
+    chunks, ``[begin, end)``, as the kernels compute them), the ``grid``
+    of blocks and the shared memory a block takes. ``note`` says why a
+    grid stays under one wave. ``halo_slots``: the x halos a
+    :func:`sep2d` block keeps in flight."""
+
+    body: str
+    bm: int
+    bn: int
+    stages: int
+    chunk: int
+    chunks: int
+    splits: int
+    grid: Tuple[int, int, int]
+    smem: int
+    note: str = ""
+    halo_slots: int = 0
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def k_ranges(self) -> Tuple[Tuple[int, int], ...]:
+        n, s = self.chunks, self.splits
+        return tuple((z * n // s, (z + 1) * n // s) for z in range(s))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fit_width(cout: int, widths: Tuple[int, ...]) -> int:
+    """The tile width that pads Cout least (the wider on a tie)."""
+    return min(widths, key=lambda bn: (_cdiv(cout, bn) * bn, -bn))
+
+
+def _split_k(tiles: int, chunks: int) -> int:
+    """Shares of K that bring ``tiles`` blocks to a full wave, keeping at
+    least two chunks a share."""
+    if tiles >= SMS or chunks < 4:
+        return 1
+    return max(1, min(_cdiv(SMS, tiles), chunks // 2, 64))
+
+
+def sep2d_halo(w: int) -> Tuple[int, int, int]:
+    """The halo of a 64-position tile of :func:`sep2d`'s tensor-core body
+    at image width ``w``: (TMA boxes, rows a box, bytes), the 64 rows and
+    the ``w + 1`` before and after, boxes of at most 256 rows."""
+    rows = 64 + 2 * w + 2
+    boxes = _cdiv(rows, 256)
+    box_rows = _cdiv(rows, boxes)
+    return boxes, box_rows, boxes * box_rows * _ROW_BYTES
+
+
+def _sep2d_smem(bn: int, stages: int, halo_slots: int, halo_bytes: int):
+    epilogue = 2 * 64 * (bn // 2 + 8) * 2  # two warpgroups' staging rows
+    return (_TILE_ALIGN + stages * (64 * _ROW_BYTES + bn * _ROW_BYTES)
+            + halo_slots * halo_bytes + epilogue
+            + (2 * _MAX_STAGES + _MAX_HALO_SLOTS) * 8)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_sep2d(b: int, h: int, w: int, cin: int, cout: int, dtype,
+               aligned: bool = True) -> Plan:
+    """The launch plan of :func:`sep2d`. bf16 whose rows TMA can stride
+    (Cin a multiple of 8, 16-byte aligned operands) takes the tensor-core
+    body: tiles of 64 positions × one output tile up to 256 channels wide
+    (so a position tile's depthwise runs ceil(Cout / 256) times at most),
+    the most halo slots (up to four), then the deepest ring (up to four
+    stages) that fit in shared memory; ``grid`` counts the tiles, which
+    persistent blocks, one per SM, walk in turn. Everything else takes
+    the SIMT body (128 × 128 tiles, K in chunks of 32, one block each)."""
+    positions = b * h * w
+    dtype = _plan_dtype(dtype)
+    if dtype == torch.bfloat16 and cin % 8 == 0 and aligned:
+        bn = 64 if cout <= 64 else 128 if cout <= 128 else 256
+        chunks = _cdiv(cin, _KCHUNK)
+        halo_bytes = sep2d_halo(w)[2]
+        for halo_slots, stages in _SEP2D_RINGS:
+            smem = _sep2d_smem(bn, stages, halo_slots, halo_bytes)
+            if smem <= SMEM_LIMIT:
+                grid = (_cdiv(positions, 64), _cdiv(cout, bn), 1)
+                tiles = grid[0] * grid[1]
+                note = ("" if tiles >= SMS else
+                        f"{positions} positions make {tiles} tiles of 64 "
+                        f"x {bn}; K is not split, the depthwise would run "
+                        "once per share")
+                return Plan("wgmma", 64, bn, stages, _KCHUNK, chunks, 1,
+                            grid, smem, note, halo_slots)
+    chunks = _cdiv(cin, 32)
+    grid = (_cdiv(positions, 128), _cdiv(cout, 128), 1)
+    smem = ((128 + 2 * w + 2) * 32 + 2 * 32 * 132 + 128) * 4
+    note = ("" if grid[0] * grid[1] >= SMS else
+            f"{positions} positions make {grid[0] * grid[1]} tiles of "
+            "128 x 128; the SIMT body does not split K")
+    return Plan("simt", 128, 128, 1, 32, chunks, 1, grid, smem, note)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_pw1x1(rows: int, cin: int, cout: int, dtype,
+               aligned: bool = True) -> Plan:
+    """The launch plan of :func:`pw1x1`. bf16 whose rows TMA can stride
+    takes the tensor-core body: 64 rows a block, the tile width of 32,
+    48, 64 or 128 channels that pads Cout least, a ring of 2-4 stages.
+    Other bf16 takes the ``mma.sync`` body (64 × 64), float32 the SIMT
+    body (128 × 64). The tensor-core and SIMT bodies split K where their
+    tiles are under one wave."""
+    dtype = _plan_dtype(dtype)
+    if dtype == torch.float32:
+        body, bm, bn, chunk = "simt", 128, 64, 16
+    elif cin % 8 == 0 and aligned:
+        body, bm, chunk = "wgmma", 64, _KCHUNK
+        bn = _fit_width(cout, (32, 48, 64, 128))
+    else:
+        body, bm, bn, chunk = "mma", 64, 64, 32
+    chunks = _cdiv(cin, chunk)
+    tiles = _cdiv(rows, bm) * _cdiv(cout, bn)
+    splits = 1 if body == "mma" else _split_k(tiles, chunks)
+    stages, smem = 1, 0
+    if body == "wgmma":
+        stages = min(_MAX_STAGES, max(2, _cdiv(chunks, splits)))
+        smem = (_TILE_ALIGN + stages * (bm + bn) * _ROW_BYTES
+                + 2 * _MAX_STAGES * 8)
+    note = ""
+    if tiles * splits < SMS:
+        note = (f"{tiles} tiles of {bm} x {bn}, and {chunks} K chunks of "
+                f"{chunk} allow {splits} shares of at least two chunks")
+    return Plan(body, bm, bn, stages, chunk, chunks, splits,
+                (_cdiv(rows, bm), _cdiv(cout, bn), splits), smem, note)
+
+
+def _plan_dtype(dtype) -> torch.dtype:
+    return _DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _weight_nk(pw: torch.Tensor) -> torch.Tensor:
+    """The (Cout, Cin) contiguous layout the kernels read, from a logical
+    (Cin, Cout) weight: free when ``pw`` is the transpose of such a
+    tensor (as the routes pass it), one copy otherwise."""
+    w = pw.t()
+    return w if w.is_contiguous() else w.contiguous()
+
+
+# ---------------------------------------------------------------------------
 # sep2d
 # ---------------------------------------------------------------------------
 
@@ -160,7 +350,9 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
 
     ``dw9`` is the depthwise kernel as (9, Cin) tap-major and ``pw`` is
     (Cin, Cout), both in x's type; ``scale``/``shift`` are the folded BN
-    affine, float32, (Cout,) or (1, Cout)."""
+    affine, float32, (Cout,) or (1, Cout). The kernels read ``pw`` as
+    (Cout, Cin): pass the transpose of a contiguous (Cout, Cin) tensor to
+    spare the copy. :func:`plan_sep2d` picks the body."""
     if not _on_card(x, "sep2d"):
         return plain_sep2d(x, dw9, pw, scale, shift, relu_in=relu_in)
     if x.dim() != 4:
@@ -171,29 +363,34 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
         raise TypeError(f"sep2d: x must be float32 or bfloat16, got {x.dtype}")
     _check(x, "x", x.device, x.dtype, (b, h, w, cin))
     _check(dw9, "dw9", x.device, x.dtype, (9, cin))
-    _check(pw, "pw", x.device, x.dtype, (cin, cout))
+    w_nk = _weight_nk(pw)
+    _check(w_nk, "pw (as Cout x Cin)", x.device, x.dtype, (cout, cin))
     scale, shift = scale.reshape(cout), shift.reshape(cout)
     _check(scale, "scale", x.device, torch.float32, (cout,))
     _check(shift, "shift", x.device, torch.float32, (cout,))
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = plan_sep2d(b, h, w, cin, cout, x.dtype,
+                      aligned=_aligned(x, dw9, w_nk))
     fn = _sep2d_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dw9.data_ptr(), pw.data_ptr(),
+        err = fn(x.data_ptr(), dw9.data_ptr(), w_nk.data_ptr(),
                  scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
                  b, h, w, cin, cout, int(relu_in), _DTYPE_CODES[x.dtype],
-                 stream)
+                 _BODY_CODES[plan.body], plan.bn, plan.stages,
+                 plan.halo_slots, stream)
     _raise_on_error(err, "sep2d")
     launches["sep2d"] += 1
+    launches_by_body["sep2d"][plan.body] += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _sep2d_fn():
     fn = cuda_build.library("sep2d").sparkdl_sep2d
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -231,7 +428,11 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
     (float32 or bfloat16).
 
     ``w2`` is (Cin, Cout) in x's type; ``scale``/``shift`` are the folded
-    BN affine, float32, (Cout,) or (1, Cout)."""
+    BN affine, float32, (Cout,) or (1, Cout). The kernels read ``w2`` as
+    (Cout, Cin): pass the transpose of a contiguous (Cout, Cin) tensor to
+    spare the copy. :func:`plan_pw1x1` picks the body and the split of K;
+    a split K sums its shares in a float32 workspace and a second launch
+    reduces them (both count as this call's one launch)."""
     if not _on_card(x, "pw1x1"):
         return plain_pw1x1(x, w2, scale, shift, relu=relu)
     if x.dim() != 4:
@@ -241,29 +442,37 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pw1x1: x must be float32 or bfloat16, got {x.dtype}")
     _check(x, "x", x.device, x.dtype, (b, h, w, cin))
-    _check(w2, "w2", x.device, x.dtype, (cin, cout))
+    w_nk = _weight_nk(w2)
+    _check(w_nk, "w2 (as Cout x Cin)", x.device, x.dtype, (cout, cin))
     scale, shift = scale.reshape(cout), shift.reshape(cout)
     _check(scale, "scale", x.device, torch.float32, (cout,))
     _check(shift, "shift", x.device, torch.float32, (cout,))
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    rows = b * h * w
+    plan = plan_pw1x1(rows, cin, cout, x.dtype, aligned=_aligned(x, w_nk))
+    ws = (torch.empty((plan.splits, rows, cout), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
     fn = _pw1x1_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w2.data_ptr(), scale.data_ptr(),
-                 shift.data_ptr(), out.data_ptr(), b * h * w, cin, cout,
-                 int(relu), _DTYPE_CODES[x.dtype], stream)
+        err = fn(x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), out.data_ptr(),
+                 ws.data_ptr() if ws is not None else None, rows, cin, cout,
+                 int(relu), _DTYPE_CODES[x.dtype], _BODY_CODES[plan.body],
+                 plan.bn, plan.stages, plan.splits, stream)
     _raise_on_error(err, "pw1x1")
     launches["pw1x1"] += 1
+    launches_by_body["pw1x1"][plan.body] += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _pw1x1_fn():
     fn = cuda_build.library("pw1x1").sparkdl_pw1x1
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -718,13 +927,13 @@ def _build_shootout(site: Site, device):
         w_dw = draw(dw.transpose(3, 2, 0, 1)).to(dt)         # (Cin,1,3,3)
         w_pw = draw(pw.transpose(3, 2, 0, 1)).to(dt)         # (Cout,Cin,1,1)
         dw9 = w_dw.reshape(cin, 9).t().contiguous()
-        pw2 = w_pw.reshape(cout, cin).t().contiguous()
+        pw2 = w_pw.reshape(cout, cin).t()  # the routes' no-copy layout
         return (lambda a: sep2d(a, dw9, pw2, scale, shift),
                 lambda a: twin_sep2d(a, w_dw, w_pw, *bn, _AUDITION_EPS), x)
     relu = site.kernel == "pw1x1_relu"
     w4 = draw((rng.normal(size=(1, 1, cin, cout)) / np.sqrt(cin))
               .transpose(3, 2, 0, 1)).to(dt)
-    w2 = w4.reshape(cout, cin).t().contiguous()
+    w2 = w4.reshape(cout, cin).t()  # the routes' no-copy layout
     return (lambda a: pw1x1(a, w2, scale, shift, relu=relu),
             lambda a: twin_pw1x1(a, w4, *bn, _AUDITION_EPS, relu=relu), x)
 
@@ -844,7 +1053,8 @@ def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
     if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
         return None
     dw9 = dw_weight.reshape(cin, 9).t().to(x.dtype).contiguous()
-    pw2 = pw_weight.reshape(cout, cin).t().to(x.dtype).contiguous()
+    # (Cin, Cout) as the transpose of the conv's own (Cout, Cin): no copy
+    pw2 = pw_weight.reshape(cout, cin).to(x.dtype).contiguous().t()
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return sep2d(x.contiguous(), dw9, pw2, scale, shift)
 
@@ -860,7 +1070,8 @@ def route_pw1x1(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
                 (b, h, w, cin, cout), _dtype_name(x.dtype))
     if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
         return None
-    w2 = conv_weight.reshape(cout, cin).t().to(x.dtype).contiguous()
+    # (Cin, Cout) as the transpose of the conv's own (Cout, Cin): no copy
+    w2 = conv_weight.reshape(cout, cin).to(x.dtype).contiguous().t()
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return pw1x1(x.contiguous(), w2, scale, shift, relu=relu)
 

@@ -127,9 +127,9 @@ class ModelFunction:
         float32 — ``sparkdl_tpu``'s ``with_compute_dtype``. A wrapper that
         casts inside its own body (``resized`` casts to its spec's float32)
         then runs the layers after it in float32 with weights rounded to
-        ``dtype``, as the reference does. Unlike the reference, the wrapper
-        keeps :attr:`kernel_routable`: the reference drops it here, so its
-        default bf16 precision never auditions a kernel."""
+        ``dtype``, as the reference does. The result is not
+        :attr:`kernel_routable`, as in the reference: under the default
+        bf16 precision no site is collected, auditioned or routed."""
         dtype = torch_dtype(dtype)
         apply_fn = self.apply_fn
         variables = self.variables
@@ -139,9 +139,7 @@ class ModelFunction:
         def fn(vs, x):
             return apply_fn(vs, x.to(dtype)).float()
 
-        out = ModelFunction(fn, variables, self.input_spec, name=self.name)
-        out.kernel_routable = self.kernel_routable
-        return out
+        return ModelFunction(fn, variables, self.input_spec, name=self.name)
 
     def with_dtype(self, precision: str) -> "ModelFunction":
         """The precision knob (``EngineConfig.inference_precision`` applies

@@ -1,7 +1,8 @@
 // pw1x1: a 1x1 stride-1 conv as one GEMM with the folded-BN epilogue
-// fused: out[n, c] = relu?(sum_k x[n, k] * w[k, c] * scale[c] + shift[c]),
-// x the (N, Cin) row-major view of an NHWC activation, w (Cin, Cout),
-// float32 accumulation, float32 affine, stored in x's type (float32/bf16).
+// fused: out[m, n] = relu?(sum_k x[m, k] * w[n, k] * scale[n] + shift[n]),
+// x the (M, Cin) row-major view of an NHWC activation, w (Cout, Cin) (the
+// conv weight's own layout, K contiguous), float32 accumulation, float32
+// affine, stored in x's type (float32/bf16).
 //
 // Replaces the Pallas kernel sparkdl_tpu/core/kernels.py::pw1x1 (body
 // _pw1x1_kernel), which runs the product on the MXU over row blocks of the
@@ -13,30 +14,50 @@
 // ~295 FLOP/byte ridge: those sites are bound by their bytes; the 8x8
 // 2048->448 site (~367) is bound by its operations. In float32 every site
 // (24-184 FLOP/byte) is far above the ~20 FLOP/byte ridge of the CUDA
-// cores: bound by operations.
+// cores: bound by operations. At 8x8 the whole product is small (M =
+// 1,024 rows at B = 16), so the tile grid alone does not fill 132 SMs.
 //
-// Design, simple and right first. Blocks tile (rows, output channels) and
-// walk Cin in chunks staged in shared memory with 16-byte loads where the
-// row widths and pointers allow it, zero-filling past every ragged edge
-// (N, Cin and Cout), so no padding is needed on the host. The epilogue
-// applies y*scale + shift in float32 (no FMA contraction, as the plain
-// version rounds the product and the sum apart), then ReLU, then stores.
-// - float32: SIMT FMAs on the CUDA cores, a 128 x 64 tile per block, an
+// Three bodies; the plan (core/kernels.py::plan_pw1x1) picks one, its
+// tile width and its split of K, and this launcher checks the plan:
+// - wgmma (bf16, Cin a multiple of 8): the Hopper mainloop of
+//   wgmma_bf16.cuh. A block owns 64 rows x BN channels (BN 32, 48, 64 or
+//   128, fitted to Cout). One producer warp keeps TMA loads of 64 x 64 x
+//   tiles and BN x 64 w tiles in flight through a ring of 2-4 stages;
+//   one consumer warpgroup runs wgmma m64nBNk16 on each stage as it
+//   lands. TMA zero-fills past every ragged edge (rows, Cin, Cout).
+// - mma (bf16 whose Cin TMA cannot stride): warp-level mma.sync m16n8k16
+//   on 64 x 64 tiles, one stage, scalar loads with zero fill.
+// - simt (float32): float32 FMAs on the CUDA cores, 128 x 64 tiles, an
 //   8 x 4 register tile per thread. TF32 tensor cores would miss the
 //   float32 contract of 1e-5 relative.
-// - bf16: warp-level tensor cores (mma.sync m16n8k16, float32
-//   accumulators), a 64 x 64 tile per block of four warps, each warp a
-//   32 x 32 tile. Fragments are read from shared memory with 32-bit
-//   (x, k-contiguous) and 16-bit (w, n-contiguous) loads on padded rows
-//   that keep each warp's reads free of bank conflicts.
-// Left for a later wgmma/TMA redesign: no overlap of the global loads with
-// the product (one stage), no ldmatrix, and tiles of 64 output channels
-// even where Cout is 32 or 48.
+// Split-K (wgmma and simt): where the tile grid is under one wave, block
+// z of `splits` sums its share of the K chunks into a float32 workspace
+// (splits, M, Cout); a second launch adds the shares in split order and
+// applies the epilogue. Epilogue: y*scale + shift in float32 (no FMA
+// contraction, as the plain version rounds the product and the sum
+// apart), then ReLU, then the store.
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
+
+enum Body { SIMT = 0, MMA = 1, WGMMA = 2 };
+
+// K chunks [begin, end) of split z of `splits` over `chunks` chunks; the
+// plan computes the same ranges.
+__device__ __forceinline__ void split_range(int chunks, int splits, int z,
+                                            int* begin, int* end) {
+  *begin = static_cast<int>(static_cast<long long>(z) * chunks / splits);
+  *end = static_cast<int>(static_cast<long long>(z + 1) * chunks / splits);
+}
+
+__device__ __forceinline__ float affine(float acc, const float* scale,
+                                        const float* shift, int n, int relu) {
+  float y = __fadd_rn(__fmul_rn(acc, scale[n]), shift[n]);
+  return relu ? fmaxf(y, 0.f) : y;
+}
 
 // ---------------------------------------------------------------------------
 // float32: SIMT
@@ -48,7 +69,7 @@ constexpr int BM = 128;      // rows per block
 constexpr int BN = 64;       // output channels per block
 constexpr int BK = 16;       // input channels per stage
 constexpr int THREADS = 256; // 16 x 16 threads, each 8 rows x 4 channels
-constexpr int APAD = 4;      // keeps As rows 16-byte aligned
+constexpr int APAD = 4;      // keeps the rows 16-byte aligned
 
 // Four consecutive values of row `row` from column `col` of a row-major
 // (rows, cols) matrix, zero outside it.
@@ -75,24 +96,27 @@ template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 pw1x1_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ scale, const float* __restrict__ shift,
-             float* __restrict__ out, long long N, int Cin, int Cout,
-             int relu) {
+             float* __restrict__ out, float* __restrict__ ws, long long N,
+             int Cin, int Cout, int relu, int splits) {
   __shared__ __align__(16) float As[BK][BM + APAD];  // x chunk, k-major
-  __shared__ __align__(16) float Bs[BK][BN];         // w chunk
+  __shared__ __align__(16) float Bs[BK][BN + APAD];  // w chunk, k-major
 
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // channels tx*4 .. tx*4+3
   const int ty = tid / 16;  // rows ty*8 .. ty*8+7
+  int kb, ke;
+  split_range((Cin + BK - 1) / BK, splits, blockIdx.z, &kb, &ke);
   float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < Cin; k0 += BK) {
-    // x: BM rows x BK channels = 512 quads, two per thread, stored k-major
+  for (int kc = kb; kc < ke; ++kc) {
+    const int k0 = kc * BK;
+    // x: BM rows x BK channels = 512 quads, two per thread
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int q = tid + i * THREADS;
@@ -103,14 +127,14 @@ pw1x1_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) As[kq + j][r] = v[j];
     }
-    // w: BK rows x BN channels = 256 quads, one per thread
+    // w: BN rows x BK channels = 256 quads, one per thread
     {
-      const int r = tid / (BN / 4);
-      const int c = (tid % (BN / 4)) * 4;
+      const int r = tid / (BK / 4);
+      const int kq = (tid % (BK / 4)) * 4;
       float v[4];
-      load4<VEC>(w, k0 + r, n0 + c, Cin, Cout, v);
-      *reinterpret_cast<float4*>(&Bs[r][c]) = make_float4(v[0], v[1], v[2],
-                                                          v[3]);
+      load4<VEC>(w, n0 + r, k0 + kq, Cout, Cin, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Bs[kq + j][r] = v[j];
     }
     __syncthreads();
 #pragma unroll
@@ -128,19 +152,19 @@ pw1x1_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
   }
 
+  float* part = ws + static_cast<long long>(blockIdx.z) * N * Cout;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + tx * 4 + j;
     if (n >= Cout) continue;
-    const float sc = scale[n];
-    const float sh = shift[n];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const long long m = m0 + ty * 8 + i;
       if (m >= N) continue;
-      float y = __fadd_rn(__fmul_rn(acc[i][j], sc), sh);
-      if (relu) y = fmaxf(y, 0.f);
-      out[m * Cout + n] = y;
+      if (splits > 1)
+        part[m * Cout + n] = acc[i][j];
+      else
+        out[m * Cout + n] = affine(acc[i][j], scale, shift, n, relu);
     }
   }
 }
@@ -148,21 +172,19 @@ pw1x1_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16: warp-level tensor cores (mma.sync)
+// bf16, any Cin: warp-level tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
-namespace bf16 {
+namespace mma {
 
 constexpr int BM = 64;       // rows per block
 constexpr int BN = 64;       // output channels per block
 constexpr int BK = 32;       // input channels per stage (two k16 steps)
 constexpr int THREADS = 128; // four warps, 2 x 2, each 32 rows x 32 channels
-constexpr int APAD = 8;      // As rows of 40 values: 80 bytes, 20 banks apart
-constexpr int BPAD = 8;      // Bs rows of 72 values: 144 bytes, 4 banks apart
+constexpr int PAD = 8;       // rows of 40 values: 80 bytes, 20 banks apart
 
 using sparkdl::copy8;
 using sparkdl::mma16816;
-using sparkdl::pack;
 
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
@@ -170,8 +192,8 @@ pw1x1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
              const float* __restrict__ scale, const float* __restrict__ shift,
              __nv_bfloat16* __restrict__ out, long long N, int Cin, int Cout,
              int relu) {
-  __shared__ __align__(16) uint16_t As[BM][BK + APAD];  // x chunk, k fastest
-  __shared__ __align__(16) uint16_t Bs[BK][BN + BPAD];  // w chunk, n fastest
+  __shared__ __align__(16) uint16_t As[BM][BK + PAD];  // x chunk, k fastest
+  __shared__ __align__(16) uint16_t Bs[BN][BK + PAD];  // w chunk, k fastest
 
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
@@ -191,26 +213,24 @@ pw1x1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
 
   for (int k0 = 0; k0 < Cin; k0 += BK) {
-    // x: 64 rows x 32 channels = 256 octets; w: 32 x 64 = 256 octets.
+    // x: 64 rows x 32 channels = 256 octets; w: the same.
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int q = tid + i * THREADS;
-      const int ar = q / (BK / 8);
-      const int ak = (q % (BK / 8)) * 8;
-      copy8<VEC>(x, m0 + ar, k0 + ak, N, Cin, &As[ar][ak]);
-      const int br = q / (BN / 8);
-      const int bn = (q % (BN / 8)) * 8;
-      copy8<VEC>(w, k0 + br, n0 + bn, Cin, Cout, &Bs[br][bn]);
+      const int r = q / (BK / 8);
+      const int k = (q % (BK / 8)) * 8;
+      copy8<VEC>(x, m0 + r, k0 + k, N, Cin, &As[r][k]);
+      copy8<VEC>(w, n0 + r, k0 + k, Cout, Cin, &Bs[r][k]);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[2][4];
       uint32_t b[4][2];
+      const int c = kk + 2 * t;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const int r = wm + mi * 16 + g;
-        const int c = kk + 2 * t;
         a[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][c]);
         a[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c]);
         a[mi][2] = *reinterpret_cast<const uint32_t*>(&As[r][c + 8]);
@@ -219,9 +239,8 @@ pw1x1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int n = wn + ni * 8 + g;
-        const int k = kk + 2 * t;
-        b[ni][0] = pack(Bs[k][n], Bs[k + 1][n]);
-        b[ni][1] = pack(Bs[k + 8][n], Bs[k + 9][n]);
+        b[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][c]);
+        b[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[n][c + 8]);
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -238,92 +257,290 @@ pw1x1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
     for (int e = 0; e < 2; ++e) {
       const int n = n0 + wn + ni * 8 + 2 * t + e;
       if (n >= Cout) continue;
-      const float sc = scale[n];
-      const float sh = shift[n];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const long long m = m0 + wm + mi * 16 + g + h * 8;
           if (m >= N) continue;
-          float y = __fadd_rn(__fmul_rn(acc[mi][ni][2 * h + e], sc), sh);
-          if (relu) y = fmaxf(y, 0.f);
-          sparkdl::store_f(out + m * Cout + n, y);
+          sparkdl::store_f(out + m * Cout + n,
+                           affine(acc[mi][ni][2 * h + e], scale, shift, n,
+                                  relu));
         }
       }
     }
   }
 }
 
-}  // namespace bf16
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// bf16, Cin a multiple of 8: the Hopper mainloop (TMA + wgmma)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+namespace hp = sparkdl::hopper;
+
+constexpr int BM = 64;              // rows per block: one consumer warpgroup
+constexpr int THREADS = 128 + 32;   // the consumers, then the producer warp
+constexpr int MAX_STAGES = 4;
+constexpr int A_BYTES = BM * hp::ROW_BYTES;
+
+template <int BN>
+constexpr int smem_bytes(int stages) {
+  return hp::TILE_ALIGN + stages * (A_BYTES + BN * hp::ROW_BYTES) +
+         2 * MAX_STAGES * 8;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS)
+pw1x1_kernel(const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap wmap,
+             const float* __restrict__ scale, const float* __restrict__ shift,
+             __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+             long long N, int Cin, int Cout, int relu, int stages,
+             int splits) {
+  constexpr int B_BYTES = BN * hp::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + hp::TILE_ALIGN - 1) &
+      ~static_cast<uintptr_t>(hp::TILE_ALIGN - 1));
+  uint8_t* a_tiles = smem;
+  uint8_t* b_tiles = smem + stages * A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_tiles + stages * B_BYTES);
+  uint64_t* empty = full + MAX_STAGES;
+
+  const int tid = threadIdx.x;
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;
+  int kb, ke;
+  split_range((Cin + hp::KCHUNK - 1) / hp::KCHUNK, splits, blockIdx.z, &kb,
+              &ke);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 128);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // producer warp: one thread issues every load
+    if (tid == 128) {
+      for (int c = kb, i = 0; c < ke; ++c, ++i) {
+        const int s = i % stages;
+        hp::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        hp::mbar_arrive_tx(&full[s], A_BYTES + B_BYTES);
+        hp::tma_load_2d(a_tiles + s * A_BYTES, &xmap, c * hp::KCHUNK,
+                        static_cast<int>(m0), &full[s]);
+        hp::tma_load_2d(b_tiles + s * B_BYTES, &wmap, c * hp::KCHUNK, n0,
+                        &full[s]);
+      }
+    }
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int c = kb, i = 0; c < ke; ++c, ++i) {
+    const int s = i % stages;
+    hp::mbar_wait(&full[s], (i / stages) & 1);
+    hp::mma_stage<BN>(acc, hp::smem_addr(a_tiles + s * A_BYTES),
+                      hp::smem_addr(b_tiles + s * B_BYTES));
+    hp::mbar_arrive(&empty[s]);
+  }
+
+  float* part = ws + static_cast<long long>(blockIdx.z) * N * Cout;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long m = m0 + hp::frag_row(tid, e);
+      const int n = n0 + hp::frag_col(tid, j, e);
+      if (m >= N || n >= Cout) continue;
+      if (splits > 1)
+        part[m * Cout + n] = acc[4 * j + e];
+      else
+        sparkdl::store_f(out + m * Cout + n,
+                         affine(acc[4 * j + e], scale, shift, n, relu));
+    }
+  }
+}
+
+template <int BN>
+int launch(const void* x, const void* w, const float* scale,
+           const float* shift, void* out, float* ws, long long N, int Cin,
+           int Cout, int relu, int stages, int splits, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!hp::encode_bf16_2d(&xmap, x, N, Cin, BM, hp::KCHUNK, true) ||
+      !hp::encode_bf16_2d(&wmap, w, Cout, Cin, BN, hp::KCHUNK, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes<BN>(stages);
+  static int allowed = 0;  // this instantiation's raised smem limit
+  if (smem > allowed) {
+    const int err = hp::allow_smem(pw1x1_kernel<BN>, smem);
+    if (err != 0) return err;
+    allowed = smem;
+  }
+  dim3 grid(static_cast<unsigned>((N + BM - 1) / BM), (Cout + BN - 1) / BN,
+            splits);
+  pw1x1_kernel<BN><<<grid, THREADS, smem, stream>>>(
+      xmap, wmap, scale, shift, static_cast<__nv_bfloat16*>(out), ws, N, Cin,
+      Cout, relu, stages, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Split-K: the shares summed in split order, then the epilogue
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+splitk_reduce(const float* __restrict__ ws, const float* __restrict__ scale,
+              const float* __restrict__ shift, T* __restrict__ out,
+              long long total, int Cout, int splits, int relu) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += stride) {
+    float s = ws[i];
+    for (int z = 1; z < splits; ++z) s += ws[z * total + i];
+    sparkdl::store_f(out + i,
+                     affine(s, scale, shift, static_cast<int>(i % Cout),
+                            relu));
+  }
+}
+
+template <typename T>
+int reduce(const float* ws, const float* scale, const float* shift,
+           void* out, long long N, int Cout, int splits, int relu,
+           cudaStream_t stream) {
+  const long long total = N * Cout;
+  const long long blocks = (total + 255) / 256;
+  splitk_reduce<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                     256, 0, stream>>>(ws, scale, shift,
+                                       static_cast<T*>(out), total, Cout,
+                                       splits, relu);
+  return static_cast<int>(cudaGetLastError());
+}
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int BM, int BN>
-bool grid_for(long long N, int Cout, dim3* grid) {
-  const long long blocks = (N + BM - 1) / BM;
-  if (blocks > 0x7fffffffLL) return false;
-  *grid = dim3(static_cast<unsigned>(blocks), (Cout + BN - 1) / BN);
-  return true;
-}
-
 int launch_f32(const void* x, const void* w, const float* scale,
-               const float* shift, void* out, long long N, int Cin, int Cout,
-               int relu, cudaStream_t stream) {
-  dim3 grid;
-  if (!grid_for<f32::BM, f32::BN>(N, Cout, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = Cin % 4 == 0 && Cout % 4 == 0 && aligned16(x) &&
-                   aligned16(w);
+               const float* shift, void* out, float* ws, long long N,
+               int Cin, int Cout, int relu, int splits,
+               cudaStream_t stream) {
+  const long long blocks = (N + f32::BM - 1) / f32::BM;
+  const bool vec = Cin % 4 == 0 && aligned16(x) && aligned16(w);
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
+  dim3 grid(static_cast<unsigned>(blocks), (Cout + f32::BN - 1) / f32::BN,
+            splits);
   if (vec)
     f32::pw1x1_kernel<true><<<grid, f32::THREADS, 0, stream>>>(
-        xf, wf, scale, shift, of, N, Cin, Cout, relu);
+        xf, wf, scale, shift, of, ws, N, Cin, Cout, relu, splits);
   else
     f32::pw1x1_kernel<false><<<grid, f32::THREADS, 0, stream>>>(
-        xf, wf, scale, shift, of, N, Cin, Cout, relu);
+        xf, wf, scale, shift, of, ws, N, Cin, Cout, relu, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const void* x, const void* w, const float* scale,
-                const float* shift, void* out, long long N, int Cin, int Cout,
-                int relu, cudaStream_t stream) {
-  dim3 grid;
-  if (!grid_for<bf16::BM, bf16::BN>(N, Cout, &grid))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && aligned16(x) &&
-                   aligned16(w);
+int launch_mma(const void* x, const void* w, const float* scale,
+               const float* shift, void* out, long long N, int Cin, int Cout,
+               int relu, cudaStream_t stream) {
+  const long long blocks = (N + mma::BM - 1) / mma::BM;
+  const bool vec = Cin % 8 == 0 && aligned16(x) && aligned16(w);
   const uint16_t* xb = static_cast<const uint16_t*>(x);
   const uint16_t* wb = static_cast<const uint16_t*>(w);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  dim3 grid(static_cast<unsigned>(blocks), (Cout + mma::BN - 1) / mma::BN);
   if (vec)
-    bf16::pw1x1_kernel<true><<<grid, bf16::THREADS, 0, stream>>>(
+    mma::pw1x1_kernel<true><<<grid, mma::THREADS, 0, stream>>>(
         xb, wb, scale, shift, ob, N, Cin, Cout, relu);
   else
-    bf16::pw1x1_kernel<false><<<grid, bf16::THREADS, 0, stream>>>(
+    mma::pw1x1_kernel<false><<<grid, mma::THREADS, 0, stream>>>(
         xb, wb, scale, shift, ob, N, Cin, Cout, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgmma(const void* x, const void* w, const float* scale,
+                 const float* shift, void* out, float* ws, long long N,
+                 int Cin, int Cout, int relu, int bn, int stages, int splits,
+                 cudaStream_t stream) {
+  switch (bn) {
+    case 32: return tc::launch<32>(x, w, scale, shift, out, ws, N, Cin, Cout,
+                                   relu, stages, splits, stream);
+    case 48: return tc::launch<48>(x, w, scale, shift, out, ws, N, Cin, Cout,
+                                   relu, stages, splits, stream);
+    case 64: return tc::launch<64>(x, w, scale, shift, out, ws, N, Cin, Cout,
+                                   relu, stages, splits, stream);
+    case 128: return tc::launch<128>(x, w, scale, shift, out, ws, N, Cin,
+                                     Cout, relu, stages, splits, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan, checked: a body this launcher has for the dtype, its tile
+// width, stages and splits in range, a workspace where K is split.
+bool plan_ok(long long N, int Cin, int Cout, int dtype, int body, int bn,
+             int stages, int splits, const void* x, const void* w,
+             const void* ws) {
+  if (N <= 0 || Cin <= 0 || Cout <= 0 || splits < 1 || splits > 64)
+    return false;
+  if ((splits > 1) != (ws != nullptr)) return false;
+  if (body == SIMT)
+    return dtype == 0 && bn == f32::BN &&
+           (N + f32::BM - 1) / f32::BM <= 0x7fffffffLL &&
+           splits <= (Cin + f32::BK - 1) / f32::BK;
+  if (body == MMA)
+    return dtype == 1 && bn == mma::BN && splits == 1 &&
+           (N + mma::BM - 1) / mma::BM <= 0x7fffffffLL;
+  if (body == WGMMA)
+    return dtype == 1 && Cin % 8 == 0 && aligned16(x) && aligned16(w) &&
+           (bn == 32 || bn == 48 || bn == 64 || bn == 128) && stages >= 2 &&
+           stages <= tc::MAX_STAGES && N <= 0x7fffffffLL &&
+           splits <= (Cin + sparkdl::hopper::KCHUNK - 1) /
+                         sparkdl::hopper::KCHUNK;
+  return false;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x is (N, Cin), w (Cin, Cout), both in
-// dtype; scale and shift (Cout,) float32; out (N, Cout) in dtype. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. x is (N, Cin), w (Cout, Cin), both in
+// dtype; scale and shift (Cout,) float32; out (N, Cout) in dtype. body, bn,
+// stages, splits: the launch plan (core/kernels.py::plan_pw1x1); ws a
+// float32 (splits, N, Cout) workspace when splits > 1, else null. Returns
+// cudaErrorInvalidValue for a plan it cannot run, else cudaGetLastError()
+// after the launches (0 = launched).
 extern "C" int sparkdl_pw1x1(const void* x, const void* w, const void* scale,
-                             const void* shift, void* out, long long N,
-                             int Cin, int Cout, int relu, int dtype,
-                             void* stream) {
+                             const void* shift, void* out, void* ws,
+                             long long N, int Cin, int Cout, int relu,
+                             int dtype, int body, int bn, int stages,
+                             int splits, void* stream) {
+  if (!plan_ok(N, Cin, Cout, dtype, body, bn, stages, splits, x, w, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
-  if (dtype == 0)
-    return launch_f32(x, w, sc, sh, out, N, Cin, Cout, relu, s);
-  if (dtype == 1)
-    return launch_bf16(x, w, sc, sh, out, N, Cin, Cout, relu, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* part = static_cast<float*>(ws);
+  int err;
+  if (body == SIMT)
+    err = launch_f32(x, w, sc, sh, out, part, N, Cin, Cout, relu, splits, s);
+  else if (body == MMA)
+    err = launch_mma(x, w, sc, sh, out, N, Cin, Cout, relu, s);
+  else
+    err = launch_wgmma(x, w, sc, sh, out, part, N, Cin, Cout, relu, bn,
+                       stages, splits, s);
+  if (err != 0 || splits == 1) return err;
+  return dtype == 0 ? reduce<float>(part, sc, sh, out, N, Cout, splits, relu,
+                                    s)
+                    : reduce<__nv_bfloat16>(part, sc, sh, out, N, Cout,
+                                            splits, relu, s);
 }

@@ -354,10 +354,63 @@ def test_kernel_routable_rides_along_the_wrappers():
     assert routable.kernel_routable and not plain.kernel_routable
     for wrapped in (routable.with_preprocess(lambda x: x),
                     routable.with_postprocess(lambda y: y),
-                    routable.with_dtype("bfloat16"), routable.flattened(),
-                    plain.resized((2, 2))):
+                    routable.flattened(), plain.resized((2, 2))):
         assert wrapped.kernel_routable
     assert not plain.flattened().kernel_routable
+    # the reference's with_compute_dtype drops the flag: bf16 never
+    # auditions
+    assert not routable.with_dtype("bfloat16").kernel_routable
+
+
+@pytest.mark.parametrize("wrap", ["bare", "flattened", "resized"])
+def test_bf16_variant_is_not_kernel_routable_in_either_package(wrap):
+    """The same one-unit model in both packages: routable in float32,
+    not routable once ``with_dtype("bfloat16")`` wraps it, in the
+    reference and in the port alike."""
+    from sparkdl_tpu.core.model_function import ModelFunction as JaxMF
+    from sparkdl_tpu.core.model_function import TensorSpec as JaxSpec
+    from sparkdl_tpu.models.layers import SeparableConvBN as JaxSep
+    from sparkdl_tpu_torch.models.convert import from_flax_variables
+    from tests.torch_port_helpers import random_variables
+
+    cin, cout = 3, 8
+    jm = JaxSep(cout, kernel_family="xception")
+    vs = random_variables(jm, (1, 6, 6, cin), seed=6)
+    tm = layers.SeparableConvBN(cin, cout, kernel_family="xception")
+    tm.load_state_dict(from_flax_variables("sep", vs))
+    models = [JaxMF.fromFlax(jm, vs, JaxSpec((None, 6, 6, cin)),
+                             train=False),
+              ModelFunction.fromModule(tm.eval(), TensorSpec((None, 6, 6,
+                                                              cin)))]
+    for mf in models:
+        if wrap == "flattened":
+            mf = mf.flattened()
+        elif wrap == "resized":
+            mf = mf.resized((4, 5))
+        assert mf.kernel_routable, (type(mf).__module__, wrap)
+        assert not mf.with_dtype("bfloat16").kernel_routable, \
+            (type(mf).__module__, wrap)
+
+
+def test_bf16_featurize_under_autotune_records_no_verdict(xception):
+    """The default precision (bf16) under the default gate ("autotune")
+    collects, auditions and routes nothing, as in the reference; float32
+    settles every site."""
+    from sparkdl_tpu_torch.core import executor
+
+    x = np.random.default_rng(4).integers(0, 256, (2, 75, 75, 3), np.uint8)
+    EngineConfig.pallas_kernels = "autotune"
+    EngineConfig.inference_precision = "bfloat16"
+    feats = executor.execute(xception, x, batch_size=2)
+    assert feats.shape == (2, 2048) and np.isfinite(feats).all()
+    assert kernels.verdicts_snapshot() == {}
+    assert kernels.launches["sep2d"] == 0
+    # float32 at a shape no other test has shown this model
+    EngineConfig.inference_precision = "float32"
+    executor.execute(xception, x[:, :71, :71], batch_size=2)
+    snap = kernels.verdicts_snapshot()
+    assert snap and all(k.startswith("sep2d|") and "|float32|cpu" in k
+                        for k in snap), snap
 
 
 # ---------------------------------------------------------------------------

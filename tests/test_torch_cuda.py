@@ -82,6 +82,125 @@ def test_pw1x1_matches_plain(card, shape, dtype, relu):
                    else kernels.BF16_TOLERANCE), err
 
 
+#: Xception's ten sep2d site shapes at 299×299 (H×W, Cin, Cout); the
+#: model applies its ReLUs outside the route, so relu_in is off at all.
+XCEPTION_SEP2D_SITES = [(147, 64, 128), (147, 128, 128), (74, 128, 256),
+                        (74, 256, 256), (37, 256, 728), (37, 728, 728),
+                        (19, 728, 728), (19, 728, 1024), (10, 1024, 1536),
+                        (10, 1536, 2048)]
+#: InceptionV3's eighteen 1×1 pw1x1 site shapes at 299×299 (H×W, Cin,
+#: Cout); every one applies ReLU.
+INCEPTION_PW1X1_SITES = [(35, 192, 32), (35, 192, 48), (35, 192, 64),
+                         (35, 256, 48), (35, 256, 64), (35, 288, 48),
+                         (35, 288, 64), (17, 768, 128), (17, 768, 160),
+                         (17, 768, 192), (8, 1280, 192), (8, 1280, 320),
+                         (8, 1280, 384), (8, 1280, 448), (8, 2048, 192),
+                         (8, 2048, 320), (8, 2048, 384), (8, 2048, 448)]
+BATCH = 16  # the featurize path's batch: the plans of the main path
+
+
+def _sep2d_case(card, b, h, w, cin, cout, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, cin, generator=gen).to(card, dtype)
+    dw9 = (torch.randn(9, cin, generator=gen) * 0.2).to(card, dtype)
+    # (Cin, Cout) as the transpose of (Cout, Cin), the routes' layout
+    pw = (torch.randn(cout, cin, generator=gen) / cin ** 0.5).to(
+        card, dtype).t()
+    scale = (torch.rand(cout, generator=gen) + 0.5).to(card)
+    shift = (torch.randn(cout, generator=gen) * 0.1).to(card)
+    return x, dw9, pw, scale, shift
+
+
+def _launched_body(kernel, fn):
+    before = dict(kernels.launches_by_body[kernel])
+    out = fn()
+    torch.cuda.synchronize()
+    ran = [b for b, n in kernels.launches_by_body[kernel].items()
+           if n != before[b]]
+    assert len(ran) == 1 and \
+        kernels.launches_by_body[kernel][ran[0]] == before[ran[0]] + 1
+    return out, ran[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", XCEPTION_SEP2D_SITES,
+                         ids=lambda s: "%dx%d_%d_%d" % (s[0], s[0], *s[1:]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sep2d_at_xception_sites(card, site, dtype):
+    """Each Xception site at batch 16: the kernel against its plain
+    version, and the body its plan launched (the tensor-core body for
+    every bf16 site)."""
+    hw, cin, cout = site
+    args = _sep2d_case(card, BATCH, hw, hw, cin, cout, dtype)
+    y, body = _launched_body("sep2d", lambda: kernels.sep2d(*args))
+    assert body == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert body == kernels.plan_sep2d(BATCH, hw, hw, cin, cout, dtype).body
+    ref = kernels.plain_sep2d(*args)
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
+                   else kernels.BF16_TOLERANCE), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sep2d_ragged_cin_takes_the_simt_body(card, dtype):
+    """Cin = 20: rows TMA cannot stride, so bf16 too takes the SIMT body."""
+    args = _sep2d_case(card, 2, 6, 5, 20, 24, dtype, seed=5)
+    y, body = _launched_body("sep2d", lambda: kernels.sep2d(
+        *args, relu_in=True))
+    assert body == "simt"
+    ref = kernels.plain_sep2d(*args, relu_in=True)
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
+                   else kernels.BF16_TOLERANCE), err
+
+
+def _pw1x1_case(card, b, h, w, cin, cout, dtype, seed=2):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, cin, generator=gen).to(card, dtype)
+    w2 = (torch.randn(cout, cin, generator=gen) / cin ** 0.5).to(
+        card, dtype).t()
+    scale = (torch.rand(cout, generator=gen) * 0.5 + 0.5).to(card)
+    shift = (torch.randn(cout, generator=gen) * 0.1).to(card)
+    return x, w2, scale, shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", INCEPTION_PW1X1_SITES,
+                         ids=lambda s: "%dx%d_%d_%d" % (s[0], s[0], *s[1:]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pw1x1_at_inception_sites(card, site, dtype):
+    """Each InceptionV3 1×1 site at batch 16 with its ReLU: the kernel
+    against its plain version, and the body its plan launched."""
+    hw, cin, cout = site
+    x, w2, scale, shift = _pw1x1_case(card, BATCH, hw, hw, cin, cout, dtype)
+    y, body = _launched_body("pw1x1", lambda: kernels.pw1x1(
+        x, w2, scale, shift, relu=True))
+    assert body == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    ref = kernels.plain_pw1x1(x, w2, scale, shift, relu=True)
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
+                   else kernels.BF16_TOLERANCE), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pw1x1_split_k(card, dtype):
+    """8×8 2048→448 at batch 16: 112 (bf16) or 56 (float32) tiles, so the
+    plan splits K; the shares reduce to the plain version's result."""
+    plan = kernels.plan_pw1x1(BATCH * 64, 2048, 448, dtype)
+    assert plan.splits > 1 and plan.blocks >= kernels.SMS
+    x, w2, scale, shift = _pw1x1_case(card, BATCH, 8, 8, 2048, 448, dtype,
+                                      seed=9)
+    y, body = _launched_body("pw1x1", lambda: kernels.pw1x1(
+        x, w2, scale, shift, relu=False))
+    assert body == plan.body
+    ref = kernels.plain_pw1x1(x, w2, scale, shift, relu=False)
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
+                   else kernels.BF16_TOLERANCE), err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32,
                                       torch.bfloat16])
