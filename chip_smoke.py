@@ -14,11 +14,16 @@ computes the same function, as a yardstick the port never calls); each
 The probe phase checks the three depthwise probes of
 ``sparkdl_tpu_torch/experiments/probe.py`` (``fma9``, ``dw2d``,
 ``sep2d_probe``) against their plain versions at the probe's full shape
-(B = 128, all rows, the dead pad rows included; ``fma9`` and ``dw2d`` bit
-for bit, ``sep2d_probe`` within one bf16 ulp), then runs the probe
-script's ``main()``: each probe and its library yardstick timed by
-chaining it on its own output inside CUDA graphs, each graph replay
-counting the launches it holds.
+(B = 128, all rows, the dead pad rows included) and at a ragged batch of
+3 images (``fma9`` and ``dw2d`` bit for bit, ``sep2d_probe`` within one
+bf16 ulp); prints the launch plans of ``dw2d`` and ``sep2d_probe``
+(``probe_plan`` lines: tile, rings, cluster, blocks, shared memory,
+depthwise recompute factor, pw bytes a call) beside their kernels'
+registers and spills from ``ptxas -v`` and the ``HGMMA`` count of
+``sep2d_probe``'s SASS (> 0); then runs the probe script's ``main()``:
+each probe and its library yardstick timed by chaining it on its own
+output inside CUDA graphs, each graph replay counting the launches it
+holds.
 
 Then it drives five featurize phases through ``transform(...).collect()``
 with ``EngineConfig.pallas_kernels = "force"`` (every eligible site runs
@@ -176,6 +181,12 @@ def plan_row(plan) -> dict:
 def sass_hgmma(name) -> int:
     """HGMMA instructions in the SASS of the library built from
     ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
+    return sum(sass_hgmma_by_function(name).values())
+
+
+def sass_hgmma_by_function(name) -> dict:
+    """HGMMA instructions by kernel (mangled name) in the SASS of the
+    library built from ``csrc/<name>.cu``."""
     import shutil
 
     from sparkdl_tpu_torch.core import cuda_build
@@ -184,7 +195,49 @@ def sass_hgmma(name) -> int:
     sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    counts, function = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1].strip()
+            counts.setdefault(function, 0)
+        elif "HGMMA" in line and function is not None:
+            counts[function] += 1
+    return counts
+
+
+def ptxas_by_function(name) -> dict:
+    """Registers, spills and stack of each kernel (mangled name) in the
+    library built from ``csrc/<name>.cu``, from ``nvcc -Xptxas -v``."""
+    import re
+
+    from sparkdl_tpu_torch.core import cuda_build
+
+    out, function = {}, None
+    for line in cuda_build.build_log(name).splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            function = entry.group(1)
+            out[function] = {}
+            continue
+        if function is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[function].update(stack=int(spill.group(1)),
+                                 spill_stores=int(spill.group(2)),
+                                 spill_loads=int(spill.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[function]["registers"] = int(used.group(1))
+    return out
+
+
+def one_function(table: dict, part: str):
+    """The entry of ``table`` whose mangled name holds ``part``."""
+    found = [v for k, v in table.items() if part in k]
+    assert len(found) == 1, f"{part}: {len(found)} kernels match"
+    return found[0]
 
 
 def check_sep2d(kernels, dev):
@@ -337,18 +390,47 @@ def check_preproc(kernels, dev):
 
 def check_probes(probe, dev):
     """Each probe kernel against its plain version at the probe's full
-    shape (B = 128, every row, the dead pad rows included), the plain
-    version timed; then the probe script's ``main()`` (its own check, and
-    the chained timing of the three kernels and the two library
-    yardsticks), with the launches counted from 0 over that run."""
+    shape (B = 128, every row, the dead pad rows included) and at a ragged
+    batch (b = 3: 1,104 rows, not a whole number of 128-row tiles), the
+    plain version timed; the launch plans of ``dw2d`` and
+    ``sep2d_probe`` with their kernels' registers and spills (``ptxas
+    -v``) and the ``HGMMA`` count of ``sep2d_probe``'s SASS; then the
+    probe script's ``main()`` (its own check, and the chained timing of
+    the three kernels and the two library yardsticks), with the launches
+    counted from 0 over that run."""
+    def cases(v):
+        rest = (v["pw"], v["sc"], v["sh"])
+        return {"fma9": (probe.fma9, probe.plain_fma9, (v["k9"],)),
+                "dw2d": (probe.dw2d, probe.plain_dw2d, (v["k9"],)),
+                "sep2d_probe": (probe.sep2d_probe, probe.plain_sep2d_probe,
+                                (v["k9"], *rest))}
+
+    ragged = {}
+    v = probe.operands(dev, b=3, seed=SEED + 4)
+    for name, (kernel, plain, args) in cases(v).items():
+        y, ref = kernel(v["x2"], *args), plain(v["x2"], *args)
+        torch.cuda.synchronize()
+        assert probe.matches_plain(name, y, ref), \
+            f"{name}: differs from its plain version at b = 3"
+        ragged[name] = float((y.float() - ref.float()).abs().max())
+    del v
+    ptxas = ptxas_by_function("probes")
+    hgmma = sass_hgmma_by_function("probes")
+    full_rows = probe.B * probe.P_PAD
+    plans = {"dw2d": probe.plan_dw2d(full_rows),
+             "sep2d_probe": probe.plan_sep2d_probe(full_rows)}
+    kernel_of = {"dw2d": "dw2d_kernel",  # mangled-name parts
+                 "sep2d_probe":
+                 f"sep2d_probe_kernelILi{plans['sep2d_probe'].cluster}E"}
+    sep_hgmma = one_function(hgmma, kernel_of["sep2d_probe"])
+    assert sep_hgmma > 0, "no HGMMA in sep2d_probe's SASS"
+    for name, plan in plans.items():
+        emit({"phase": "probe_plan", "kernel": name, "plan": plan.row(),
+              "ptxas": one_function(ptxas, kernel_of[name]),
+              "sass_hgmma": one_function(hgmma, kernel_of[name])})
     v = probe.operands(dev)
-    rest = (v["pw"], v["sc"], v["sh"])
-    cases = {"fma9": (probe.fma9, probe.plain_fma9, (v["k9"],)),
-             "dw2d": (probe.dw2d, probe.plain_dw2d, (v["k9"],)),
-             "sep2d_probe": (probe.sep2d_probe, probe.plain_sep2d_probe,
-                             (v["k9"], *rest))}
     rows = {}
-    for name, (kernel, plain, args) in cases.items():
+    for name, (kernel, plain, args) in cases(v).items():
         y = kernel(v["x2"], *args)
         ref = plain(v["x2"], *args)
         torch.cuda.synchronize()
@@ -360,6 +442,7 @@ def check_probes(probe, dev):
             f"max|err| {err}"
         dead = ref.float().reshape(-1, probe.P_PAD, probe.C)[:, probe.P:]
         rows[name] = {"max_abs_err": err, "tolerance": tolerance,
+                      "ragged_b3_max_abs_err": ragged[name],
                       "dead_rows_max_abs": float(dead.abs().max()),
                       "plain_ms": timed_ms(lambda: plain(v["x2"], *args),
                                            iters=5, warmup=1)}
@@ -377,6 +460,10 @@ def check_probes(probe, dev):
         "sep2d_probe": (pw_flops + dw_flops,
                         (2 * elems + 9 * probe.C + probe.C * probe.C
                          + 2 * probe.C) * 2, "library_sep")}
+    for name, plan in plans.items():
+        rows[name].update(plan=plan.row(),
+                          ptxas=one_function(ptxas, kernel_of[name]),
+                          sass_hgmma=one_function(hgmma, kernel_of[name]))
     for name, (flops, nbytes, library) in work.items():
         ms = timing[name]["us_per_app"] / 1e3
         if name == "sep2d_probe":  # tensor cores and CUDA cores overlap
@@ -722,9 +809,12 @@ def main() -> int:
 
     def probe_summary(name, line):
         row = probe_rows[name]
-        return summary(name, "sparkdl_tpu_torch/csrc/probes.cu",
-                       f"experiments/pallas_probe.py:{line}", [row], row,
-                       by_phase={"probe": row["launches"]})
+        out = summary(name, "sparkdl_tpu_torch/csrc/probes.cu",
+                      f"experiments/pallas_probe.py:{line}", [row], row,
+                      by_phase={"probe": row["launches"]})
+        out.update({k: row[k] for k in ("plan", "ptxas", "sass_hgmma")
+                    if k in row})
+        return out
 
     sep_mid = next(r for r in sep_rows
                    if r["shape"][1:] == [19, 19, 728, 728]

@@ -1,11 +1,14 @@
-// The Hopper tensor-core mainloop shared by sep2d.cu and pw1x1.cu, in raw
-// PTX: warpgroup matrix multiply (wgmma.mma_async m64nNk16, bf16 inputs,
-// float32 accumulators in registers) reading both operands from shared
-// memory through 128-byte-swizzled, K-major matrix descriptors; the
-// mbarriers of a ring of stages; TMA tile loads from a CUtensorMap passed
-// as a __grid_constant__ kernel parameter; and the host-side encoding of
-// those maps through the driver entry point that the runtime hands out
-// (no -lcuda: the libraries stay plain nvcc -shared objects).
+// The Hopper tensor-core mainloop shared by sep2d.cu, pw1x1.cu and
+// probes.cu, in raw PTX: warpgroup matrix multiply (wgmma.mma_async
+// m64nNk16, bf16 inputs, float32 accumulators in registers) reading both
+// operands from shared memory through 128-byte-swizzled matrix
+// descriptors, K-major (and, for probes.cu, an MN-major B through the
+// transpose bit); the mbarriers of a ring of stages; TMA tile loads from a
+// CUtensorMap passed as a __grid_constant__ kernel parameter, plain or
+// multicast to the blocks of a cluster, with the cluster's rank, barrier
+// and remote mbarrier arrivals; and the host-side encoding of those maps
+// through the driver entry point that the runtime hands out (no -lcuda:
+// the libraries stay plain nvcc -shared objects).
 //
 // Layout of every operand tile: R rows of 64 bf16 (128 bytes), rows of a
 // group of eight 128 bytes apart, groups 1024 bytes apart, the sixteen-byte
@@ -143,6 +146,47 @@ __device__ __forceinline__ void mma_stage(float* d, uint32_t a, uint32_t b) {
   fence_regs<N / 2>(d);
 }
 
+// B stored MN-major (N contiguous), as TMA loads with
+// CU_TENSOR_MAP_SWIZZLE_128B of 64-wide boxes of a row-major (K, N) matrix
+// write it: slabs of 64 N columns, each K rows of 128 bytes (chunk j of
+// row r at j ^ (r % 8)), `slab` bytes apart. In the descriptor the leading
+// offset steps along N from slab to slab, and the stride offset along K
+// from one 8-row group to the next (1024 bytes).
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr,
+                                                  uint32_t slab) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((slab >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(TILE_ALIGN >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// D(64 x 256) += A(64 x 16, K-major) * B(16 x 256, MN-major): the
+// transpose-B form of m64n256k16.
+__device__ __forceinline__ void wgmma_k16_mn256(float* d, uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // Accumulator fragment of thread t of the warpgroup: for each 8-column
 // slice j, d[4j + e] sits at row 16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2)
 // and column 8 * j + 2 * (t % 4) + e % 2.
@@ -195,6 +239,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One try of mbar_wait: whether the phase of parity `parity` has completed.
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Generic-proxy writes to shared memory made visible to the async proxy
 // (wgmma, TMA) before a barrier hands them over.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -204,6 +262,39 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier over `threads` threads (a multiple of 32) with id `id` (1-15).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster arrives and waits: shared
+// memory (and its mbarriers) of each block is live for the others from
+// here on.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// One arrival on the mbarrier at `bar`'s offset in block `rank` of the
+// cluster (this block included), with the default (CTA-scope) release:
+// a cluster-scope release would first wait for every earlier store of the
+// thread, the epilogue's included, to reach the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -220,6 +311,23 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
       "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The box of `map` at (inner, outer) into shared `dst` of every block of
+// the cluster in `mask` (bit i: rank i), each completing on the mbarrier
+// at `bar`'s offset in that block.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      int inner, int outer,
+                                                      uint64_t* bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
+      "r"(smem_addr(bar)), "h"(mask)
       : "memory");
 }
 

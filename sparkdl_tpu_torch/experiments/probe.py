@@ -14,7 +14,12 @@ probes are hand-written CUDA kernels here (``csrc/probes.cu``):
 
 Beside each wrapper is its plain PyTorch version (:func:`plain_fma9`,
 :func:`plain_dw2d`, :func:`plain_sep2d_probe`), which a wrapper takes only
-for a CPU tensor, and :data:`launches` counts the kernels' launches. The
+for a CPU tensor, and :data:`launches` counts the kernels' launches.
+:func:`plan_dw2d` and :func:`plan_sep2d_probe` are the launch plans of
+the two kernels that stage their halos by TMA (tiles, rings, cluster,
+blocks, shared memory, how often a depthwise value is computed, pw bytes
+a call); the C launchers check them, and :func:`tile_walk` lists the
+tiles a block walks. The
 plain versions and the kernels round alike: each tap's product and each
 partial sum in float32, in tap order, without FMA contraction, rounded to
 bf16 once. :func:`library_fma9` (one ``einsum``), :func:`library_dw` and
@@ -39,14 +44,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import time
-from typing import Callable, Dict
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sparkdl_tpu_torch.core import cuda_build
-from sparkdl_tpu_torch.core.kernels import _check, _on_card, _raise_on_error
+from sparkdl_tpu_torch.core.kernels import (SMEM_LIMIT, SMS, _check,
+                                            _on_card, _raise_on_error)
 
 B, H, W, C = 128, 19, 19, 728
 P = H * W                 # 361 positions per image
@@ -159,6 +166,154 @@ def matches_plain(name: str, y: torch.Tensor, ref: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# Launch plans
+# ---------------------------------------------------------------------------
+
+CHUNK = 64            # channels a tile or depthwise chunk holds (128 bytes)
+ROW_BYTES = CHUNK * 2
+TILE_ALIGN = 1024
+TMA_BOX_MAX = 256     # rows of one TMA box
+#: Shared memory one SM holds for its blocks, in bytes.
+SM_SMEM = 233472
+_DW_BM, _DW_SLOTS, _DW_BLOCKS_PER_SM = 128, 3, 2
+_SEP_BM, _SEP_BN, _SEP_CLUSTER = 64, 256, 2
+_SEP_MAX_A_SLOTS, _SEP_MAX_STAGES, _SEP_MAX_HALO_SLOTS = 16, 4, 4
+#: (A slots, pw stages, halo slots) of sep2d_probe, in the order tried.
+SEP_RINGS = ((12, 3, 2), (16, 2, 2), (12, 2, 3), (12, 2, 2))
+
+
+@dataclass(frozen=True)
+class ProbePlan:
+    """How one :func:`dw2d` or :func:`sep2d_probe` call runs.
+
+    ``bm`` rows × ``bn`` channels a tile (for ``sep2d_probe``, ``bn``
+    output channels a pass over the resident depthwise), input channels in
+    ``chunks`` chunks of ``chunk``, ``passes`` passes over the output
+    channels; ``row_tiles`` row tiles, ``tiles`` tiles walked (for
+    ``sep2d_probe`` the row tiles rounded up to whole clusters: a tile past
+    the last row is computed, never stored). Each TMA halo box holds
+    ``halo_rows`` rows (the tile and ``W + 1`` on each side), ``halo_slots``
+    in flight; ``a_slots`` depthwise chunks resident and ``stages`` pw
+    stages (``sep2d_probe``). ``blocks`` persistent blocks in clusters of
+    ``cluster``, ``blocks_per_sm`` a SM, ``smem`` bytes each.
+    ``recompute``: how often the depthwise of one (row, channel) is
+    computed; ``pw_bytes``: pw bytes read from L2 per call;
+    ``row_stride``: bytes between rows in the TMA tensor maps."""
+
+    body: str
+    bm: int
+    bn: int
+    chunk: int
+    chunks: int
+    passes: int
+    row_tiles: int
+    tiles: int
+    halo_rows: int
+    halo_slots: int
+    a_slots: int
+    stages: int
+    cluster: int
+    blocks: int
+    blocks_per_sm: int
+    smem: int
+    recompute: int
+    pw_bytes: int
+    row_stride: int
+
+    def row(self) -> Dict[str, object]:
+        """The plan as a JSON row."""
+        return {"body": self.body, "tile": [self.bm, self.bn],
+                "chunks": self.chunks, "passes": self.passes,
+                "row_tiles": self.row_tiles, "tiles": self.tiles,
+                "halo_rows": self.halo_rows, "halo_slots": self.halo_slots,
+                "a_slots": self.a_slots, "stages": self.stages,
+                "cluster": self.cluster, "blocks": self.blocks,
+                "blocks_per_sm": self.blocks_per_sm, "smem": self.smem,
+                "recompute": self.recompute, "pw_bytes": self.pw_bytes,
+                "row_stride": self.row_stride}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_dw2d(rows: int, c: int = C) -> ProbePlan:
+    """:func:`dw2d`'s plan: tiles of 128 rows × 64 channels, the chunks
+    of a row tile neighbours in the walk, a halo of 128 + 2·(W + 1) rows
+    staged by one TMA load, three halos in flight, two persistent blocks
+    a SM."""
+    chunks = _cdiv(c, CHUNK)
+    row_tiles = _cdiv(rows, _DW_BM)
+    tiles = row_tiles * chunks
+    halo_rows = _DW_BM + 2 * (W + 1)
+    smem = TILE_ALIGN + _DW_SLOTS * halo_rows * ROW_BYTES
+    return ProbePlan("tma_halo", _DW_BM, CHUNK, CHUNK, chunks, 1, row_tiles,
+                     tiles, halo_rows, _DW_SLOTS, 0, 0, 1,
+                     min(tiles, _DW_BLOCKS_PER_SM * SMS), _DW_BLOCKS_PER_SM,
+                     smem, 1, 0, c * 2)
+
+
+def sep2d_probe_smem(a_slots: int, stages: int, halo_slots: int,
+                     c: int = C) -> int:
+    """Shared memory of a :func:`sep2d_probe` block: the A slots (64 rows
+    × 64 channels), the pw stages (64 × 256), halos, the affine's scale
+    and shift as float, and the barriers, as ``csrc/probes.cu`` lays them
+    out."""
+    halo = (_SEP_BM + 2 * (W + 1)) * ROW_BYTES
+    affine = 2 * _cdiv(c, _SEP_BN) * _SEP_BN * 4
+    barriers = (2 * _SEP_MAX_STAGES + 2 * _SEP_MAX_A_SLOTS
+                + _SEP_MAX_HALO_SLOTS) * 8
+    return (TILE_ALIGN + a_slots * _SEP_BM * ROW_BYTES
+            + stages * _SEP_BN * ROW_BYTES + halo_slots * halo
+            + affine + barriers)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_sep2d_probe(rows: int, c: int = C,
+                     ring: Optional[Tuple[int, int, int]] = None
+                     ) -> ProbePlan:
+    """:func:`sep2d_probe`'s plan: 64-row tiles whose depthwise (all
+    ``c`` input channels, in chunks of 64) stays resident while a
+    consumer warpgroup walks the output channels in passes of 256, so it
+    is computed once per (row, channel); the first ring of
+    :data:`SEP_RINGS` (or ``ring``) that fits one block a SM; clusters of
+    two blocks that share each pw stage by TMA multicast, so L2 serves pw
+    once per pair of row tiles."""
+    chunks = _cdiv(c, CHUNK)
+    row_tiles = _cdiv(rows, _SEP_BM)
+    groups = _cdiv(row_tiles, _SEP_CLUSTER)
+    for a_slots, stages, halo_slots in ((ring,) if ring else SEP_RINGS):
+        smem = sep2d_probe_smem(a_slots, stages, halo_slots, c)
+        if a_slots >= chunks and smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"sep2d_probe: no ring fits C = {c}")
+    blocks = min(groups, SMS // _SEP_CLUSTER) * _SEP_CLUSTER
+    return ProbePlan("wgmma", _SEP_BM, _SEP_BN, CHUNK, chunks,
+                     _cdiv(c, _SEP_BN), row_tiles, groups * _SEP_CLUSTER,
+                     _SEP_BM + 2 * (W + 1), halo_slots, a_slots, stages,
+                     _SEP_CLUSTER, blocks, 1, smem,
+                     1 if a_slots >= chunks else _cdiv(c, _SEP_BN),
+                     groups * c * c * 2, c * 2)
+
+
+def tile_walk(plan: ProbePlan, block: int):
+    """The tiles ``block`` walks, in order, as the kernels compute them:
+    ``(first row, first channel)`` for :func:`dw2d` (the chunks of a row
+    tile one after another), ``(first row, 0)`` for :func:`sep2d_probe`
+    (all channels; the cluster's blocks take consecutive row tiles)."""
+    if plan.body == "tma_halo":
+        return [((t // plan.chunks) * plan.bm, (t % plan.chunks) * plan.chunk)
+                for t in range(block, plan.tiles, plan.blocks)]
+    cid, rank = divmod(block, plan.cluster)
+    clusters = plan.blocks // plan.cluster
+    groups = plan.tiles // plan.cluster
+    return [((g * plan.cluster + rank) * plan.bm, 0)
+            for g in range(cid, groups, clusters)]
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -166,9 +321,9 @@ _ARGTYPES = {
     "sparkdl_fma9": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                              ctypes.c_void_p],
     "sparkdl_dw2d": [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "sparkdl_sep2d_probe": [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 
 
@@ -226,7 +381,10 @@ def dw2d(x2d: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     if not _on_card(x2d, "dw2d"):
         return plain_dw2d(x2d, k9)
     _check_probe(x2d, k9, "dw2d")
-    return _launch("dw2d", x2d, (x2d, k9), (x2d.shape[0], C, P_PAD, H, W))
+    plan = plan_dw2d(x2d.shape[0])
+    return _launch("dw2d", x2d, (x2d, k9),
+                   (x2d.shape[0], C, P_PAD, H, W, plan.bm, plan.halo_slots,
+                    plan.blocks))
 
 
 def sep2d_probe(x2d, k9, pw, sc, sh) -> torch.Tensor:
@@ -240,8 +398,10 @@ def sep2d_probe(x2d, k9, pw, sc, sh) -> torch.Tensor:
     sc, sh = sc.reshape(C), sh.reshape(C)
     _check(sc, "sc", x2d.device, torch.bfloat16, (C,))
     _check(sh, "sh", x2d.device, torch.bfloat16, (C,))
+    plan = plan_sep2d_probe(x2d.shape[0])
     return _launch("sep2d_probe", x2d, (x2d, k9, pw, sc, sh),
-                   (x2d.shape[0], C, P_PAD, H, W))
+                   (x2d.shape[0], C, P_PAD, H, W, plan.a_slots, plan.stages,
+                    plan.halo_slots, plan.cluster, plan.blocks))
 
 
 # ---------------------------------------------------------------------------

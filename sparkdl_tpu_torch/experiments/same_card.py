@@ -1,0 +1,94 @@
+"""Kernel times of two checkouts of the repo on one card, taken in turns.
+
+    python -m sparkdl_tpu_torch.experiments.same_card OTHER [--json PATH]
+
+``OTHER`` is another checkout (for instance the parent commit, unpacked
+with ``git archive``). In the order OTHER, this, this, OTHER, a child
+process per turn imports that checkout's ``chip_smoke.py`` and port,
+builds its kernels into its own ``build/`` and runs the kernel checks
+(``check_sep2d``, ``check_pw1x1``, ``check_preproc``: each kernel against
+its plain version at its path's shapes, CUDA-event ms) and the probe
+script's ``main()`` (the three probes and their yardsticks, µs per
+application chained in CUDA graphs). Turns in this order put a drift of
+the card's clocks on both checkouts alike. Prints one JSON row per
+(kernel, shape, dtype, relu) with the four times, in turn order; needs
+the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List
+
+#: run in the checkout's root, which comes first on sys.path
+_CHILD = """
+import json, sys
+import torch
+import chip_smoke as cs
+import sparkdl_tpu_torch as s
+from sparkdl_tpu_torch.core import cuda_build, kernels
+from sparkdl_tpu_torch.experiments import probe
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cuda_build.build_all()
+dev = torch.device("cuda")
+s.EngineConfig.pallas_kernels = "force"
+cs.check_sep2d(kernels, dev)
+cs.check_pw1x1(kernels, dev)
+cs.check_preproc(kernels, dev)
+times = probe.main(dev)
+print(json.dumps({"phase": "probe_main", "us_per_app": {
+    k: v["us_per_app"] for k, v in times.items()}}), flush=True)
+"""
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def run_turn(checkout: Path) -> Dict[str, float]:
+    """The kernel times of one checkout: ``{row key: ms}``."""
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=checkout,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"
+                           + proc.stderr[-3000:])
+    times = {}
+    for line in proc.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        row = json.loads(line)
+        if row.get("phase") == "kernel_check":
+            key = [row["kernel"], row["shape"], row["dtype"],
+                   row.get("relu")]
+            times[json.dumps(key)] = row["ms"]
+        elif row.get("phase") == "probe_main":
+            for name, us in row["us_per_app"].items():
+                times[json.dumps(["probe", name])] = us / 1e3
+    return times
+
+
+def main(other: Path) -> List[dict]:
+    turns = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    results = [run_turn(path) for _, path in turns]
+    rows = []
+    for key in results[0]:
+        rows.append({"key": json.loads(key),
+                     "ms": {f"{i}_{label}": results[i].get(key)
+                            for i, (label, _) in enumerate(turns)}})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("other", type=Path, help="the other checkout")
+    parser.add_argument("--json", help="also write the rows to this file")
+    args = parser.parse_args()
+    out = main(args.other.resolve())
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)

@@ -282,11 +282,13 @@ def test_inception_module_path_matches_cpu(card, force_routes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fma9", "dw2d", "sep2d_probe"])
-@pytest.mark.parametrize("b", [2, 128])
+@pytest.mark.parametrize("b", [1, 2, 3, 128])
 def test_probe_kernel_matches_plain_on_all_rows(card, name, b):
     """Each probe kernel against its plain version on every row, the dead
     pad rows included: ``fma9`` and ``dw2d`` bit for bit, ``sep2d_probe``
-    within one bf16 ulp of |ref| + 1e-3 (``probe.matches_plain``)."""
+    within one bf16 ulp of |ref| + 1e-3 (``probe.matches_plain``). b = 1
+    and 3 leave the last 128-row tile of ``dw2d`` and the last cluster of
+    64-row tiles of ``sep2d_probe`` ragged."""
     from sparkdl_tpu_torch.experiments import probe
 
     v = probe.operands(card, b=b, seed=1)
@@ -304,6 +306,64 @@ def test_probe_kernel_matches_plain_on_all_rows(card, name, b):
     if name == "dw2d":  # the dead rows read the image's last live row
         dead = ref.float().reshape(b, probe.P_PAD, probe.C)[:, probe.P:]
         assert float(dead.abs().max()) > 0.0
+
+
+def _poisoned(t: torch.Tensor, extra: int = 4096) -> torch.Tensor:
+    """A copy of ``t`` at the front of a buffer whose remaining ``extra``
+    elements are NaN: a kernel that reads past the tensor's end picks up
+    NaN."""
+    buf = torch.full((t.numel() + extra,), float("nan"), dtype=t.dtype,
+                     device=t.device)
+    view = buf[:t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_sep2d_probe_zeroes_the_k_tail(card, b):
+    """728 = 11 x 64 + 24 input channels: the last K chunk is zero past
+    channel 728 on both operands (the producers write zeros into A, TMA
+    zero-fills pw's rows), so NaN behind every input and in the memory
+    the output takes reaches no output; every output is written."""
+    from sparkdl_tpu_torch.experiments import probe
+
+    v = probe.operands(card, b=b, seed=2)
+    args = [_poisoned(v[k]) for k in ("x2", "k9", "pw", "sc", "sh")]
+    ref = probe.plain_sep2d_probe(*args)
+    # the output's block comes from the allocator's cache: fill it with
+    # NaN first
+    torch.cuda.synchronize()
+    torch.full_like(ref, float("nan"))
+    y = probe.sep2d_probe(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all())
+    assert probe.matches_plain("sep2d_probe", y, ref), \
+        float((y.float() - ref.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fma9", "dw2d", "sep2d_probe"])
+def test_probe_wrapper_launches_one_kernel(card, name):
+    """One wrapper call runs exactly one kernel on the card (its own: no
+    copy of pw, no fill of the output), as the device's profiler counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_tpu_torch.experiments import probe
+
+    v = probe.operands(card, b=2, seed=3)
+    args = [v["x2"], v["k9"]]
+    if name == "sep2d_probe":
+        args += [v["pw"], v["sc"], v["sh"]]
+    fn = getattr(probe, name)
+    fn(*args)  # builds and warms up outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ran) == 1 and f"{name}_kernel" in ran[0], ran
 
 
 @pytest.mark.cuda
