@@ -44,14 +44,21 @@ its kernel), each on 32 images at batch 16 after one warm-up pass:
 
 Each phase also counts its launches by body
 (``kernels.launches_by_body``): every bf16 ``sep2d``/``pw1x1`` launch must
-have taken the tensor-core body.
+have taken the tensor-core body, every float32 one the float32 SIMT
+mainloop (``simt_f32``, ``csrc/simt_f32.cuh``). The float32 kernel-check
+rows print that body's plan (tile, layout, producers, units, ``waves``,
+last-round ``fill``, depthwise ``recompute``) and its kernel's registers
+and spills from ``ptxas -v``.
 
-Four more phases run the user's default gate, ``"autotune"``, each with a
+Five more phases run the user's default gate, ``"autotune"``, each with a
 fresh verdict store (a temporary ``SPARKDL_COMPILE_CACHE_DIR``):
 ``featurize_native`` and ``inception_module_native`` in the default bf16
-precision, which, as in the reference, audition and launch nothing; and
-the same two in float32 (``EngineConfig.inference_precision``), whose
-warm-up pass auditions every kernel site against its library twin. Each
+precision, which, as in the reference, audition and launch nothing; the
+same two in float32 (``EngineConfig.inference_precision``), whose
+warm-up pass auditions every kernel site against its library twin; and
+Xception's module built with ``dtype="bfloat16"`` under the float32
+precision, which, as the reference's, stays kernel-routable and
+auditions its bf16 sites. Each
 phase prints every verdict, its launches must equal the calls per forward
 of the adopted sites × forwards, and its ``*_first_sight`` line gives the
 wall time of its warm-up pass and the summed time of its auditions. The
@@ -63,8 +70,8 @@ Each phase is checked against the port's own CPU run of the same weights
 on two images, and the launch counters, set to 0 just before the phase and
 read just after, show that it went through exactly the kernels it should.
 ``--profile`` adds device times from ``torch.profiler`` beside each event
-time, and one profiled pass per phase: device time by kernel and the
-device's idle share.
+time, and one profiled pass per phase: device time by kernel, the device
+time of each of the port's kernels by body, and the device's idle share.
 
 Prints one JSON object per phase; the line before the last is the kernels
 summary and the card's ``name, power.limit``; the last line is the
@@ -172,10 +179,29 @@ def launched_body(kernels, name, fn):
 
 
 def plan_row(plan) -> dict:
-    return {"body": plan.body, "tile": [plan.bm, plan.bn],
-            "stages": plan.stages, "splits": plan.splits,
-            "grid": list(plan.grid), "blocks": plan.blocks,
-            "smem": plan.smem, "note": plan.note}
+    row = {"body": plan.body, "tile": [plan.bm, plan.bn],
+           "stages": plan.stages, "splits": plan.splits,
+           "grid": list(plan.grid), "blocks": plan.blocks,
+           "smem": plan.smem, "note": plan.note}
+    if plan.body == "simt_f32":
+        row.update(layout=plan.layout, producers=plan.producers,
+                   units=plan.units, groups=plan.groups, waves=plan.waves,
+                   fill=plan.fill, recompute=plan.recompute)
+    return row
+
+
+def f32_ptxas(name, plan) -> dict:
+    """Registers and spills of the float32 mainloop kernel ``plan`` runs
+    in the library built from ``csrc/<name>.cu``."""
+    part = f"mainloopILi{plan.bn // 8}ELb{int(name == 'sep2d')}E"
+    return one_function(ptxas_by_function(name), part)
+
+
+def f32_layout(w, dtype):
+    """The weight as the routes hand it to the body of ``dtype``: the
+    float32 body's (Cin, Cout) contiguous, made once per weight; the
+    tensor-core bodies' transposed (Cout, Cin)."""
+    return w.contiguous() if dtype == torch.float32 else w
 
 
 def sass_hgmma(name) -> int:
@@ -251,9 +277,9 @@ def check_sep2d(kernels, dev):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dtype)
             dw9 = (torch.randn(9, cin, generator=gen) * 0.2).to(dev, dtype)
-            # (Cin, Cout) as the transpose of (Cout, Cin): the routes' layout
-            pw = (torch.randn(cout, cin, generator=gen)
-                  / cin ** 0.5).to(dev, dtype).t()
+            # (Cin, Cout) as the routes hand it to the body of dtype
+            pw = f32_layout((torch.randn(cout, cin, generator=gen)
+                             / cin ** 0.5).to(dev, dtype).t(), dtype)
             scale = (torch.rand(cout, generator=gen) + 0.5).to(dev)
             shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
             y, body = launched_body(kernels, "sep2d", lambda: kernels.sep2d(
@@ -282,10 +308,14 @@ def check_sep2d(kernels, dev):
                 + 2 * cout * 4
             b_ms, b_by = bound_ms(flops, nbytes, dtype)
             plan = kernels.plan_sep2d(BATCH, h, w, cin, cout, dtype)
+            assert body == plan.body == ("simt_f32" if dtype == torch.float32
+                                         else "wgmma"), (body, plan.body)
             rows.append({
                 "shape": [BATCH, h, w, cin, cout],
                 "dtype": str(dtype).replace("torch.", ""),
                 "body": body, "plan": plan_row(plan),
+                **({"ptxas": f32_ptxas("sep2d", plan)}
+                   if body == "simt_f32" else {}),
                 "max_abs_err": err, "tolerance": limit,
                 **timings(lambda: kernels.sep2d(x, dw9, pw, scale, shift),
                           lambda: kernels.plain_sep2d(x, dw9, pw, scale,
@@ -305,8 +335,8 @@ def check_pw1x1(kernels, dev):
     for h, w, cin, cout, relu in PW1X1_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dtype)
-            w2 = (torch.randn(cout, cin, generator=gen)
-                  / cin ** 0.5).to(dev, dtype).t()
+            w2 = f32_layout((torch.randn(cout, cin, generator=gen)
+                             / cin ** 0.5).to(dev, dtype).t(), dtype)
             # scale < 1 keeps |y| under 8, where one bf16 ulp is below 0.05
             scale = (torch.rand(cout, generator=gen) * 0.5 + 0.5).to(dev)
             shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
@@ -332,10 +362,14 @@ def check_pw1x1(kernels, dev):
             nbytes = (n * (cin + cout) + cin * cout) * item + 2 * cout * 4
             b_ms, b_by = bound_ms(flops, nbytes, dtype)
             plan = kernels.plan_pw1x1(n, cin, cout, dtype)
+            assert body == plan.body == ("simt_f32" if dtype == torch.float32
+                                         else "wgmma"), (body, plan.body)
             rows.append({
                 "shape": [BATCH, h, w, cin, cout], "relu": relu,
                 "dtype": str(dtype).replace("torch.", ""),
                 "body": body, "plan": plan_row(plan),
+                **({"ptxas": f32_ptxas("pw1x1", plan)}
+                   if body == "simt_f32" else {}),
                 "max_abs_err": err, "tolerance": limit,
                 **timings(lambda: kernels.pw1x1(x, w2, scale, shift,
                                                 relu=relu),
@@ -493,7 +527,9 @@ def featurize(s, model, images, weights, batch_size):
     """The user-facing transformer of one phase and its frame. ``model``
     is (name, "named") for ``DeepImageFeaturizer(modelName=name)``, or
     (name, "module") for ``TorchImageTransformer`` over
-    ``build_featurizer(name, fast=False)``."""
+    ``build_featurizer(name, fast=False)`` (``"module_bf16"``: built with
+    ``dtype="bfloat16"``, every layer computing in bf16 as the
+    reference's Flax ``dtype``)."""
     from sparkdl_tpu_torch.image import imageIO
     from sparkdl_tpu_torch.models import registry
 
@@ -505,10 +541,11 @@ def featurize(s, model, images, weights, batch_size):
                                      modelName=name, weights=weights,
                                      batchSize=batch_size)
     else:
+        dtype = "bfloat16" if path == "module_bf16" else None
         feat = s.TorchImageTransformer(
             inputCol="image", outputCol="features", outputMode="vector",
             modelFunction=registry.build_featurizer(name, weights=weights,
-                                                    fast=False),
+                                                    fast=False, dtype=dtype),
             batchSize=batch_size)
     return feat, df
 
@@ -578,12 +615,40 @@ def profile_pass(name, feat, df, top: int = 12):
                and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
     kernels.sort(key=lambda k: -k[1])
+    port = {}
+    for key, ms, n in kernels:
+        body = port_kernel(key)
+        if body is not None:
+            entry = port.setdefault(body, {"ms": 0.0, "calls": 0})
+            entry["ms"] += ms
+            entry["calls"] += n
+    for entry in port.values():
+        entry["share"] = entry["ms"] / busy_ms
     emit({"phase": f"{name}_profile", "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+          "port_kernels": port,
           "top_kernels": [{"name": k[:90], "ms": ms, "calls": n,
                            "share": ms / busy_ms}
                           for k, ms, n in kernels[:top]]})
+
+
+def port_kernel(key: str):
+    """``kernel/body`` of one of the port's kernels from its profiler
+    name, else None."""
+    if "simt32::mainloop" in key:
+        return ("sep2d" if ", true>" in key else "pw1x1") + "/simt_f32"
+    for kernel, bodies in (("sep2d", (("tc::", "wgmma"),
+                                      ("simt::", "simt_bf16"))),
+                           ("pw1x1", (("tc::", "wgmma"), ("mma::", "mma"),
+                                      ("splitk_reduce", "wgmma")))):
+        if f"{kernel}_kernel" in key or (kernel == "pw1x1"
+                                         and "splitk_reduce" in key):
+            body = next((b for part, b in bodies if part in key), "other")
+            return f"{kernel}/{body}"
+    if "preproc_resize" in key:
+        return "preproc_resize"
+    return None
 
 
 def main_path(s, kernels, name, model, size, per_forward, rel_tol,
@@ -622,12 +687,20 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
     for kernel, bodies in by_body.items():
         assert sum(bodies.values()) == counts[kernel], (name, by_body)
-        # the network's dtype: bf16 only when no resize brings it back
-        # to float32 (ROADMAP Queue 3)
-        if precision == "bfloat16" and tuple(size) == TARGET:
+        # the network's dtype: bf16 when built so, or under the bf16
+        # precision when no resize brings it back to float32 (ROADMAP
+        # Queue 3)
+        if kernel not in ("sep2d", "pw1x1"):
+            continue
+        if model[1] == "module_bf16" or (precision == "bfloat16"
+                                         and tuple(size) == TARGET):
             assert bodies["wgmma"] == counts[kernel], \
                 f"{name}: bf16 {kernel} launches off the tensor-core " \
                 f"body: {bodies}"
+        else:
+            assert bodies["simt_f32"] == counts[kernel], \
+                f"{name}: float32 {kernel} launches off the float32 " \
+                f"mainloop: {bodies}"
     gpu = np.stack([np.asarray(r["features"], np.float32) for r in rows])
     assert gpu.shape == (N_IMAGES, 2048), gpu.shape
     assert np.isfinite(gpu).all(), "non-finite features"
@@ -687,6 +760,10 @@ AUTOTUNE_PHASES = [
      "float32"),
     ("inception_module_native_autotune_f32", ("InceptionV3", "module"),
      TARGET, F32_REL, "float32"),
+    # the registry's dtype: the module computes in bf16 and stays
+    # kernel-routable, so its bf16 sites are auditioned as the reference's
+    ("featurize_module_bf16_autotune", ("Xception", "module_bf16"), TARGET,
+     BF16_REL, "float32"),
 ]
 
 
@@ -816,12 +893,24 @@ def main() -> int:
                     if k in row})
         return out
 
+    def body_summary(name, source, replaces, rows, headline, body):
+        """One body of a kernel: its launches on the main path by phase,
+        its rows, its headline shape."""
+        by_phase = {p: out["launches_by_body"][name][body]
+                    for p, out in phases.items()}
+        out = summary(name, source, replaces, rows, headline, by_phase)
+        out.update(name=f"{name}_{body}", body=body,
+                   plan=headline["plan"], ptxas=headline.get("ptxas"))
+        return out
+
     sep_mid = next(r for r in sep_rows
                    if r["shape"][1:] == [19, 19, 728, 728]
                    and r["dtype"] == "bfloat16")
     pw_mid = next(r for r in pw_rows
                   if r["shape"][1:] == [17, 17, 768, 192]
                   and r["dtype"] == "bfloat16")
+    sep_f32 = [r for r in sep_rows if r["dtype"] == "float32"]
+    pw_f32 = [r for r in pw_rows if r["dtype"] == "float32"]
     emit({"kernels": [
         summary("sep2d", "sparkdl_tpu_torch/csrc/sep2d.cu",
                 "sparkdl_tpu/core/kernels.py:454", sep_rows, sep_mid),
@@ -832,6 +921,16 @@ def main() -> int:
         probe_summary("fma9", 80),
         probe_summary("dw2d", 137),
         probe_summary("sep2d_probe", 160),
+        body_summary("sep2d", "sparkdl_tpu_torch/csrc/simt_f32.cuh",
+                     "sparkdl_tpu/core/kernels.py:454", sep_f32,
+                     next(r for r in sep_f32
+                          if r["shape"][1:] == [19, 19, 728, 728]),
+                     "simt_f32"),
+        body_summary("pw1x1", "sparkdl_tpu_torch/csrc/simt_f32.cuh",
+                     "sparkdl_tpu/core/kernels.py:516", pw_f32,
+                     next(r for r in pw_f32
+                          if r["shape"][1:] == [8, 8, 2048, 448]),
+                     "simt_f32"),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,8 +25,8 @@ body that ran.
 **Launch plans.** :func:`plan_sep2d` and :func:`plan_pw1x1` choose, from
 a call's shape and dtype alone, the body (bf16 on the Hopper tensor-core
 mainloop of ``csrc/wgmma_bf16.cuh`` wherever TMA can stride the rows,
-else a SIMT or ``mma.sync`` body), its tile, its ring and its split of
-K. The C launchers check the plan they are given and refuse one they
+else a SIMT or ``mma.sync`` body; float32 on the SIMT mainloop of
+``csrc/simt_f32.cuh``), its tile, its ring and its split of K. The C launchers check the plan they are given and refuse one they
 cannot run; the CPU tests hold the plans at every main-path site.
 
 **The gate.** Models never call the kernels; they call ``route_*``
@@ -66,12 +66,14 @@ rejection.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import json
 import logging
 import os
 import threading
 import time
+import weakref
 from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -99,10 +101,11 @@ VERDICT_STORE_VERSION = 1
 #: Kernel launches on the card since the last :func:`reset_launches`.
 launches: Dict[str, int] = {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
 #: The same launches by the body that ran (:func:`plan_sep2d`,
-#: :func:`plan_pw1x1`): ``"wgmma"`` is the Hopper tensor-core mainloop.
+#: :func:`plan_pw1x1`): ``"wgmma"`` is the Hopper tensor-core mainloop,
+#: ``"simt_f32"`` the float32 mainloop of ``csrc/simt_f32.cuh``.
 launches_by_body: Dict[str, Dict[str, int]] = {
-    "sep2d": {"wgmma": 0, "simt": 0},
-    "pw1x1": {"wgmma": 0, "mma": 0, "simt": 0}}
+    "sep2d": {"wgmma": 0, "simt_f32": 0, "simt_bf16": 0},
+    "pw1x1": {"wgmma": 0, "mma": 0, "simt_f32": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
@@ -157,7 +160,7 @@ def _raise_on_error(err: int, kernel: str) -> None:
 SMS = 132
 #: Shared memory one block may use on Hopper, in bytes.
 SMEM_LIMIT = 232448
-_BODY_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
+_BODY_CODES = {"simt_bf16": 0, "mma": 1, "wgmma": 2, "simt_f32": 3}
 _KCHUNK = 64          # K per stage of the tensor-core mainloop
 _ROW_BYTES = 128      # one K chunk of bf16
 _TILE_ALIGN = 1024
@@ -172,14 +175,25 @@ _SEP2D_RINGS = ((4, 4), (4, 3), (3, 4), (3, 3), (4, 2), (3, 2), (2, 4),
 
 @dataclass(frozen=True)
 class Plan:
-    """How one call runs: the ``body`` (``"wgmma"``, ``"mma"`` or
-    ``"simt"``), a block's ``bm`` rows × ``bn`` output channels, the
-    ``stages`` of its ring, K walked in ``chunks`` chunks of ``chunk``
-    channels and cut into ``splits`` shares (``k_ranges``: each share's
-    chunks, ``[begin, end)``, as the kernels compute them), the ``grid``
-    of blocks and the shared memory a block takes. ``note`` says why a
-    grid stays under one wave. ``halo_slots``: the x halos a
-    :func:`sep2d` block keeps in flight."""
+    """How one call runs: the ``body`` (``"wgmma"``, ``"mma"``,
+    ``"simt_f32"`` or ``"simt_bf16"``), a block's ``bm`` rows × ``bn``
+    output channels, the ``stages`` of its ring, K walked in ``chunks``
+    chunks of ``chunk`` channels and cut into ``splits`` shares
+    (``k_ranges``: each share's chunks, ``[begin, end)``, as the kernels
+    compute them), the ``grid`` of blocks and the shared memory a block
+    takes. ``note`` says why a grid stays under one wave, or why the last
+    round of the float32 body is under 80% full. ``halo_slots``: the x
+    halos a :func:`sep2d` block keeps in flight.
+
+    The float32 body's persistent blocks, one on each SM, walk ``units``
+    units (a row tile and ``groups`` of its N tiles, or one N tile and a
+    share of K): ``waves`` is units ÷ SMs, ``fill`` the busy share of the
+    SMs over the rounds (units ÷ (SMs · ⌈units ÷ SMs⌉): a busiest SM takes
+    ⌈units ÷ SMs⌉).
+    ``sep2d``'s ``layout`` is ``"resident"`` (a row tile's depthwise over
+    all of Cin stays in shared memory while the unit sweeps its N tiles)
+    or ``"streaming"`` (one chunk of it, the unit one N tile); its
+    depthwise runs ``recompute`` times per (row tile, K chunk)."""
 
     body: str
     bm: int
@@ -192,6 +206,13 @@ class Plan:
     smem: int
     note: str = ""
     halo_slots: int = 0
+    units: int = 0
+    groups: int = 1
+    waves: float = 0.0
+    fill: float = 0.0
+    recompute: int = 0
+    layout: str = ""
+    producers: int = 0
 
     @property
     def blocks(self) -> int:
@@ -246,10 +267,14 @@ def plan_sep2d(b: int, h: int, w: int, cin: int, cout: int, dtype,
     (so a position tile's depthwise runs ceil(Cout / 256) times at most),
     the most halo slots (up to four), then the deepest ring (up to four
     stages) that fit in shared memory; ``grid`` counts the tiles, which
-    persistent blocks, one per SM, walk in turn. Everything else takes
-    the SIMT body (128 × 128 tiles, K in chunks of 32, one block each)."""
+    persistent blocks, one per SM, walk in turn. float32 takes the SIMT
+    mainloop (:func:`_plan_f32`); other bf16 the first SIMT design
+    (``"simt_bf16"``: 128 × 128 tiles, K in chunks of 32, one block
+    each)."""
     positions = b * h * w
     dtype = _plan_dtype(dtype)
+    if dtype == torch.float32:
+        return _plan_f32("sep2d", positions, cin, cout, w)
     if dtype == torch.bfloat16 and cin % 8 == 0 and aligned:
         bn = 64 if cout <= 64 else 128 if cout <= 128 else 256
         chunks = _cdiv(cin, _KCHUNK)
@@ -271,7 +296,7 @@ def plan_sep2d(b: int, h: int, w: int, cin: int, cout: int, dtype,
     note = ("" if grid[0] * grid[1] >= SMS else
             f"{positions} positions make {grid[0] * grid[1]} tiles of "
             "128 x 128; the SIMT body does not split K")
-    return Plan("simt", 128, 128, 1, 32, chunks, 1, grid, smem, note)
+    return Plan("simt_bf16", 128, 128, 1, 32, chunks, 1, grid, smem, note)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -281,12 +306,12 @@ def plan_pw1x1(rows: int, cin: int, cout: int, dtype,
     takes the tensor-core body: 64 rows a block, the tile width of 32,
     48, 64 or 128 channels that pads Cout least, a ring of 2-4 stages.
     Other bf16 takes the ``mma.sync`` body (64 × 64), float32 the SIMT
-    body (128 × 64). The tensor-core and SIMT bodies split K where their
-    tiles are under one wave."""
+    mainloop (:func:`_plan_f32`). The tensor-core and SIMT bodies split K
+    where their tiles are under one wave."""
     dtype = _plan_dtype(dtype)
     if dtype == torch.float32:
-        body, bm, bn, chunk = "simt", 128, 64, 16
-    elif cin % 8 == 0 and aligned:
+        return _plan_f32("pw1x1", rows, cin, cout)
+    if cin % 8 == 0 and aligned:
         body, bm, chunk = "wgmma", 64, _KCHUNK
         bn = _fit_width(cout, (32, 48, 64, 128))
     else:
@@ -307,6 +332,181 @@ def plan_pw1x1(rows: int, cin: int, cout: int, dtype,
                 (_cdiv(rows, bm), _cdiv(cout, bn), splits), smem, note)
 
 
+#: The float32 mainloop (``csrc/simt_f32.cuh``): K per chunk, the most
+#: stages, the most K shares (a cluster of two: at one block an SM the
+#: card does not co-host 32 clusters of four), and the threads of a block:
+#: 64-256 consumers, and producers in the pairs of warp slots they leave
+#: (at least one pair; sep2d's depthwise makes its producers the busier).
+#: One block runs on each SM.
+_F32_KC = 16
+_F32_MAX_STAGES = 4
+_F32_MAX_SPLITS = 2
+_F32_MAX_THREADS = 384
+#: Lane-instructions a unit spends beside its FMAs: per staged float (a
+#: copy and its addresses), per halo float (copied, read by nine taps,
+#: fetched again by every unit), per depthwise row-channel (nine taps,
+#: masks), per output of a pass (the epilogue).
+_F32_COPY_COST = 2
+_F32_HALO_COST = 8
+_F32_DW_COST = 15
+_F32_EPI_COST = 3
+
+
+def f32_halo_boxes(bm: int, w: int) -> Tuple[int, int]:
+    """``simt32::halo_boxes``: sep2d's halo of ``bm + 2w + 2`` rows as TMA
+    boxes of at most 256 rows: (boxes, rows a box, even)."""
+    rows = bm + 2 * w + 2
+    boxes = _cdiv(rows, 256)
+    return boxes, (_cdiv(rows, boxes) + 1) & ~1
+
+
+def _f32_smem(sep: bool, resident: bool, bm: int, bn: int, w: int,
+              stages: int, chunks: int, splits: int) -> int:
+    """``simt32::smem_bytes``: room to align the base to 128 bytes, the
+    ring (K-major B, then A or a streamed chunk of sep2d's D, then sep2d's
+    halo boxes and its taps padded to 160 floats), sep2d's resident D, the
+    split-K reduction's tile where it is larger, and the stages'
+    mbarriers."""
+    boxes, box_rows = f32_halo_boxes(bm, w)
+    halo = boxes * box_rows * _F32_KC
+    stage = (_F32_KC * bn + (0 if sep and resident else bm * (_F32_KC + 4))
+             + (halo + 160 if sep else 0))
+    floats = stages * stage
+    if sep and resident:
+        floats += bm * (chunks * _F32_KC + 4)
+    if splits > 1:
+        floats = max(floats, bm * (bn + 4))
+    return 128 + floats * 4 + 3 * _F32_MAX_STAGES * 8
+
+
+def _f32_layouts(sep: bool, rows: int, tiles: int, chunks: int):
+    """(layout, groups, splits) of the float32 body to weigh: sep2d
+    resident with one or two N-tile groups a row tile, or streaming (a
+    unit per N tile; ``groups`` is then the N tiles); pw1x1 with K whole
+    or in two shares where even 64-row tiles would leave SMs idle and
+    these tiles are under one wave."""
+    if sep:
+        yield "resident", 1, 1
+        yield "resident", 2, 1
+        yield "streaming", 0, 1
+        return
+    for splits in range(1, _F32_MAX_SPLITS + 1):
+        if splits == 1 or (rows < 64 * SMS and tiles < SMS
+                           and chunks >= 2 * splits):
+            yield "", 0, splits
+
+
+def _f32_candidates(sep: bool, rows: int, cin: int, cout: int, w: int):
+    """(cost, Plan) of every float32 tile shape, layout and split that
+    fits (see :func:`_plan_f32`)."""
+    chunks = _cdiv(cin, _F32_KC)
+    for tx in (8, 16, 32):
+        bn = 8 * tx
+        tiles_n = _cdiv(cout, bn)
+        for threads in range(64, 257, 32):
+            if threads % tx:
+                continue
+            bm = 8 * (threads // tx)
+            tiles_m = _cdiv(rows, bm)
+            # whole pairs of warps, so that each producer keeps one column
+            # of a 256-wide B row
+            producers = (_F32_MAX_THREADS - threads) // 64 * 64
+            for layout, groups, splits in _f32_layouts(
+                    sep, rows, tiles_m * tiles_n, chunks):
+                groups = groups or tiles_n
+                if (groups - 1) * _cdiv(tiles_n, groups) >= tiles_n:
+                    continue  # a group would be empty
+                resident = layout == "resident"
+                most = min(_F32_MAX_STAGES, chunks) if resident \
+                    else _F32_MAX_STAGES
+                for stages in range(most, 1, -1):
+                    smem = _f32_smem(sep, resident, bm, bn, w, stages,
+                                     chunks, splits)
+                    if smem <= SMEM_LIMIT:
+                        break
+                else:
+                    continue
+                units = tiles_m * groups * splits
+                if splits > 1 and units > SMS:
+                    continue
+                passes = _cdiv(tiles_n, groups)
+                share = _cdiv(chunks, splits)
+                staged = bn + (bm if not sep else 0)
+                work = (passes * share * (bm * bn + _F32_COPY_COST * staged)
+                        * _F32_KC + passes * bm * bn * _F32_EPI_COST)
+                if sep:
+                    work += chunks * _F32_KC * (
+                        bm * _F32_DW_COST + _F32_HALO_COST * (bm + 2 * w + 2))
+                if splits > 1:
+                    work += bm * bn * (splits + 2)
+                rounds = _cdiv(units, SMS)
+                cost = rounds * work / min(1.0, threads / 256) ** 0.5
+                yield cost, Plan(
+                    "simt_f32", bm, bn, stages, _F32_KC, chunks, splits,
+                    (min(units, SMS) // splits, 1, splits), smem,
+                    units=units, groups=groups,
+                    waves=units / SMS, fill=units / (SMS * rounds),
+                    recompute=(groups if resident else
+                               tiles_n if sep else 0),
+                    layout=layout, producers=producers)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_f32(kernel: str, rows: int, cin: int, cout: int, w: int = 0
+              ) -> Plan:
+    """The float32 SIMT mainloop's plan: thread tiles of 8 × 8 outputs,
+    ``bm / 8`` × ``bn / 8`` consumer threads (``bn`` 64, 128 or 256;
+    64-256 threads) beside the producers, K in chunks of 16, the deepest
+    ring of 2-4 stages that fits (a resident D needs at least as many
+    chunks as stages), persistent blocks, one on each SM (at most one a
+    unit). Of the shapes that fit it takes the one whose busiest SM has
+    the least work: ⌈units ÷ SMs⌉ units of FMAs plus their copies, the
+    depthwise and the epilogue, slowed where the consumers are fewer than
+    eight warps. ``sep2d`` keeps a row tile's depthwise resident
+    (recompute 1, or 2 with two N-tile groups) unless the best streaming
+    shape is over 15% cheaper; ``pw1x1`` splits K over a cluster only
+    where its rows are few."""
+    sep = kernel == "sep2d"
+    best: Dict[Any, Tuple[Tuple[float, int, int], Plan]] = {}
+    for cost, plan in _f32_candidates(sep, rows, cin, cout, w):
+        kind = plan.layout if sep else plan.splits > 1
+        key = (cost, plan.recompute, plan.splits)
+        if kind not in best or key < best[kind][0]:
+            best[kind] = (key, plan)
+    if not best:
+        raise ValueError(f"{kernel}: no float32 plan fits {rows} rows, "
+                         f"{cin} -> {cout}")
+    notes = []
+    if sep:
+        (stream_cost, _, _), stream = best["streaming"]
+        (cost, _, _), plan = best.get("resident", ((float("inf"), 0, 0),
+                                                   None))
+        if plan is None or stream_cost * 1.15 < cost:
+            cost, plan = stream_cost, stream
+            notes.append(
+                "the depthwise of every channel stays resident only in "
+                f"tiles too thin to fill the card ({cin} channels), so "
+                f"each N tile streams it again (recompute {plan.recompute})")
+    else:
+        (cost, _, _), plan = min(best.values(), key=lambda kp: kp[0])
+        if plan.splits > 1:
+            (whole_cost, _, _), whole = best[False]
+            notes.append(
+                f"{plan.units // plan.splits} tiles of {plan.bm} x {plan.bn}"
+                f" are under one wave: K splits over clusters of "
+                f"{plan.splits}; the best unsplit tiling ({whole.bm} x "
+                f"{whole.bn}, {whole.units} tiles) would cost its busiest "
+                f"SM {whole_cost / cost - 1:.0%} more")
+    if plan.blocks < SMS and plan.splits == 1:
+        notes.append(f"{plan.units} units of {plan.bm} x {plan.bn} are "
+                     "fewer than the SMs: each takes one")
+    if plan.fill < 0.8:
+        notes.append(
+            f"no tile shape fills the last round: {plan.units} units over "
+            f"{SMS} SMs leave {plan.fill:.0%} of the rounds busy")
+    return dataclasses.replace(plan, note="; ".join(notes))
+
+
 def _plan_dtype(dtype) -> torch.dtype:
     return _DTYPES[dtype] if isinstance(dtype, str) else dtype
 
@@ -316,11 +516,50 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 
 
 def _weight_nk(pw: torch.Tensor) -> torch.Tensor:
-    """The (Cout, Cin) contiguous layout the kernels read, from a logical
-    (Cin, Cout) weight: free when ``pw`` is the transpose of such a
+    """The (Cout, Cin) contiguous layout the bf16 bodies read, from a
+    logical (Cin, Cout) weight: free when ``pw`` is the transpose of such a
     tensor (as the routes pass it), one copy otherwise."""
     w = pw.t()
     return w if w.is_contiguous() else w.contiguous()
+
+
+#: id(weight) -> (a weak reference to it, its version, data pointer and
+#: device, its (Cin, Cout) copy): the float32 body's weight layout, made
+#: once per conv weight; an entry goes with its weight.
+_kn_weights: Dict[int, Tuple[Any, ...]] = {}
+
+
+def _kn_weight(weight: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """The (Cin, Cout) contiguous float32 layout of a (Cout, Cin, ...)
+    conv weight, for the float32 body: made at the first call and again
+    after the weight changes (in place, or moved)."""
+    if weight.is_inference():  # no version to tell a change by
+        return weight.reshape(cout, cin).t().contiguous()
+    stamp = (weight._version, weight.data_ptr(), weight.device)
+    key = id(weight)
+    hit = _kn_weights.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == stamp:
+        return hit[2]
+    kn = weight.reshape(cout, cin).t().contiguous()
+    ref = weakref.ref(weight, lambda _, key=key: _kn_weights.pop(key, None))
+    _kn_weights[key] = (ref, stamp, kn)
+    return kn
+
+
+def _weight_layout(pw: torch.Tensor, x: torch.Tensor,
+                   name: str) -> torch.Tensor:
+    """The layout the body of x's dtype reads, from a logical (Cin, Cout)
+    weight, checked against x: (Cout, Cin) for bf16 (:func:`_weight_nk`),
+    (Cin, Cout) contiguous for float32 (its mainloop reads B K-major; one
+    transposing copy when ``pw`` is a transposed view)."""
+    cin, cout = x.shape[-1], pw.shape[-1]
+    if x.dtype == torch.float32:
+        w = pw if pw.is_contiguous() else pw.contiguous()
+        _check(w, f"{name} (as Cin x Cout)", x.device, x.dtype, (cin, cout))
+        return w
+    w = _weight_nk(pw)
+    _check(w, f"{name} (as Cout x Cin)", x.device, x.dtype, (cout, cin))
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +589,10 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
 
     ``dw9`` is the depthwise kernel as (9, Cin) tap-major and ``pw`` is
     (Cin, Cout), both in x's type; ``scale``/``shift`` are the folded BN
-    affine, float32, (Cout,) or (1, Cout). The kernels read ``pw`` as
-    (Cout, Cin): pass the transpose of a contiguous (Cout, Cin) tensor to
-    spare the copy. :func:`plan_sep2d` picks the body."""
+    affine, float32, (Cout,) or (1, Cout). The bf16 bodies read ``pw`` as
+    (Cout, Cin) (pass the transpose of a contiguous (Cout, Cin) tensor to
+    spare the copy), the float32 body as (Cin, Cout) (a contiguous ``pw``
+    is read as it lies). :func:`plan_sep2d` picks the body."""
     if not _on_card(x, "sep2d"):
         return plain_sep2d(x, dw9, pw, scale, shift, relu_in=relu_in)
     if x.dim() != 4:
@@ -363,8 +603,7 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
         raise TypeError(f"sep2d: x must be float32 or bfloat16, got {x.dtype}")
     _check(x, "x", x.device, x.dtype, (b, h, w, cin))
     _check(dw9, "dw9", x.device, x.dtype, (9, cin))
-    w_nk = _weight_nk(pw)
-    _check(w_nk, "pw (as Cout x Cin)", x.device, x.dtype, (cout, cin))
+    w_lay = _weight_layout(pw, x, "pw")
     scale, shift = scale.reshape(cout), shift.reshape(cout)
     _check(scale, "scale", x.device, torch.float32, (cout,))
     _check(shift, "shift", x.device, torch.float32, (cout,))
@@ -372,15 +611,17 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
     if out.numel() == 0:
         return out
     plan = plan_sep2d(b, h, w, cin, cout, x.dtype,
-                      aligned=_aligned(x, dw9, w_nk))
+                      aligned=_aligned(x, dw9, w_lay))
     fn = _sep2d_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dw9.data_ptr(), w_nk.data_ptr(),
+        err = fn(x.data_ptr(), dw9.data_ptr(), w_lay.data_ptr(),
                  scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
                  b, h, w, cin, cout, int(relu_in), _DTYPE_CODES[x.dtype],
                  _BODY_CODES[plan.body], plan.bn, plan.stages,
-                 plan.halo_slots, stream)
+                 plan.halo_slots, plan.bm, plan.groups,
+                 int(plan.layout == "resident"), plan.producers,
+                 plan.grid[0], stream)
     _raise_on_error(err, "sep2d")
     launches["sep2d"] += 1
     launches_by_body["sep2d"][plan.body] += 1
@@ -390,7 +631,7 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
 @functools.lru_cache(maxsize=None)
 def _sep2d_fn():
     fn = cuda_build.library("sep2d").sparkdl_sep2d
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -428,11 +669,15 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
     (float32 or bfloat16).
 
     ``w2`` is (Cin, Cout) in x's type; ``scale``/``shift`` are the folded
-    BN affine, float32, (Cout,) or (1, Cout). The kernels read ``w2`` as
-    (Cout, Cin): pass the transpose of a contiguous (Cout, Cin) tensor to
-    spare the copy. :func:`plan_pw1x1` picks the body and the split of K;
-    a split K sums its shares in a float32 workspace and a second launch
-    reduces them (both count as this call's one launch)."""
+    BN affine, float32, (Cout,) or (1, Cout). The bf16 bodies read ``w2``
+    as (Cout, Cin) (pass the transpose of a contiguous (Cout, Cin) tensor
+    to spare the copy), the float32 body as (Cin, Cout) (a contiguous
+    ``w2`` is read as it lies). :func:`plan_pw1x1` picks the body and the
+    split of K;
+    the tensor-core body's split K sums its shares in a float32 workspace
+    and a second launch reduces them (both count as this call's one
+    launch); the float32 body's shares meet in a cluster's shared memory
+    (one launch)."""
     if not _on_card(x, "pw1x1"):
         return plain_pw1x1(x, w2, scale, shift, relu=relu)
     if x.dim() != 4:
@@ -442,8 +687,7 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pw1x1: x must be float32 or bfloat16, got {x.dtype}")
     _check(x, "x", x.device, x.dtype, (b, h, w, cin))
-    w_nk = _weight_nk(w2)
-    _check(w_nk, "w2 (as Cout x Cin)", x.device, x.dtype, (cout, cin))
+    w_lay = _weight_layout(w2, x, "w2")
     scale, shift = scale.reshape(cout), shift.reshape(cout)
     _check(scale, "scale", x.device, torch.float32, (cout,))
     _check(shift, "shift", x.device, torch.float32, (cout,))
@@ -451,17 +695,19 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
     if out.numel() == 0:
         return out
     rows = b * h * w
-    plan = plan_pw1x1(rows, cin, cout, x.dtype, aligned=_aligned(x, w_nk))
+    plan = plan_pw1x1(rows, cin, cout, x.dtype, aligned=_aligned(x, w_lay))
     ws = (torch.empty((plan.splits, rows, cout), dtype=torch.float32,
-                      device=x.device) if plan.splits > 1 else None)
+                      device=x.device)
+          if plan.splits > 1 and plan.body == "wgmma" else None)
     fn = _pw1x1_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(),
+        err = fn(x.data_ptr(), w_lay.data_ptr(), scale.data_ptr(),
                  shift.data_ptr(), out.data_ptr(),
                  ws.data_ptr() if ws is not None else None, rows, cin, cout,
                  int(relu), _DTYPE_CODES[x.dtype], _BODY_CODES[plan.body],
-                 plan.bn, plan.stages, plan.splits, stream)
+                 plan.bn, plan.stages, plan.splits, plan.bm, plan.producers,
+                 plan.grid[0], stream)
     _raise_on_error(err, "pw1x1")
     launches["pw1x1"] += 1
     launches_by_body["pw1x1"][plan.body] += 1
@@ -472,7 +718,7 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
 def _pw1x1_fn():
     fn = cuda_build.library("pw1x1").sparkdl_pw1x1
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -927,13 +1173,13 @@ def _build_shootout(site: Site, device):
         w_dw = draw(dw.transpose(3, 2, 0, 1)).to(dt)         # (Cin,1,3,3)
         w_pw = draw(pw.transpose(3, 2, 0, 1)).to(dt)         # (Cout,Cin,1,1)
         dw9 = w_dw.reshape(cin, 9).t().contiguous()
-        pw2 = w_pw.reshape(cout, cin).t()  # the routes' no-copy layout
+        pw2 = _route_weight(w_pw, cout, cin, dt)  # as the routes pass it
         return (lambda a: sep2d(a, dw9, pw2, scale, shift),
                 lambda a: twin_sep2d(a, w_dw, w_pw, *bn, _AUDITION_EPS), x)
     relu = site.kernel == "pw1x1_relu"
     w4 = draw((rng.normal(size=(1, 1, cin, cout)) / np.sqrt(cin))
               .transpose(3, 2, 0, 1)).to(dt)
-    w2 = w4.reshape(cout, cin).t()  # the routes' no-copy layout
+    w2 = _route_weight(w4, cout, cin, dt)  # as the routes pass it
     return (lambda a: pw1x1(a, w2, scale, shift, relu=relu),
             lambda a: twin_pw1x1(a, w4, *bn, _AUDITION_EPS, relu=relu), x)
 
@@ -1041,6 +1287,16 @@ def ensure_verdict(site: Site, device) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _route_weight(weight, cout: int, cin: int, dtype) -> torch.Tensor:
+    """A conv weight (Cout, Cin, ...) as the (Cin, Cout) logical weight of
+    the kernels, in the layout the body of ``dtype`` reads without a copy:
+    bf16 the transpose of the conv's own (Cout, Cin), float32 a contiguous
+    (Cin, Cout) made once per weight (:func:`_kn_weight`)."""
+    if dtype == torch.float32 and weight.dtype == torch.float32:
+        return _kn_weight(weight, cout, cin)
+    return weight.reshape(cout, cin).to(dtype).contiguous().t()
+
+
 def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
                 bn_var, eps: float, *, family: str):
     """The fused sepconv body for one site, or None (the caller runs its
@@ -1053,8 +1309,7 @@ def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
     if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
         return None
     dw9 = dw_weight.reshape(cin, 9).t().to(x.dtype).contiguous()
-    # (Cin, Cout) as the transpose of the conv's own (Cout, Cin): no copy
-    pw2 = pw_weight.reshape(cout, cin).to(x.dtype).contiguous().t()
+    pw2 = _route_weight(pw_weight, cout, cin, x.dtype)
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return sep2d(x.contiguous(), dw9, pw2, scale, shift)
 
@@ -1070,8 +1325,7 @@ def route_pw1x1(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
                 (b, h, w, cin, cout), _dtype_name(x.dtype))
     if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
         return None
-    # (Cin, Cout) as the transpose of the conv's own (Cout, Cin): no copy
-    w2 = conv_weight.reshape(cout, cin).to(x.dtype).contiguous().t()
+    w2 = _route_weight(conv_weight, cout, cin, x.dtype)
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return pw1x1(x.contiguous(), w2, scale, shift, relu=relu)
 

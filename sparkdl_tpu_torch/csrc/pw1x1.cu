@@ -1,8 +1,9 @@
 // pw1x1: a 1x1 stride-1 conv as one GEMM with the folded-BN epilogue
 // fused: out[m, n] = relu?(sum_k x[m, k] * w[n, k] * scale[n] + shift[n]),
 // x the (M, Cin) row-major view of an NHWC activation, w (Cout, Cin) (the
-// conv weight's own layout, K contiguous), float32 accumulation, float32
-// affine, stored in x's type (float32/bf16).
+// conv weight's own layout, K contiguous; the float32 body takes (Cin,
+// Cout)), float32 accumulation, float32 affine, stored in x's type
+// (float32/bf16).
 //
 // Replaces the Pallas kernel sparkdl_tpu/core/kernels.py::pw1x1 (body
 // _pw1x1_kernel), which runs the product on the MXU over row blocks of the
@@ -27,11 +28,16 @@
 //   lands. TMA zero-fills past every ragged edge (rows, Cin, Cout).
 // - mma (bf16 whose Cin TMA cannot stride): warp-level mma.sync m16n8k16
 //   on 64 x 64 tiles, one stage, scalar loads with zero fill.
-// - simt (float32): float32 FMAs on the CUDA cores, 128 x 64 tiles, an
-//   8 x 4 register tile per thread. TF32 tensor cores would miss the
-//   float32 contract of 1e-5 relative.
-// Split-K (wgmma and simt): where the tile grid is under one wave, block
-// z of `splits` sums its share of the K chunks into a float32 workspace
+// - simt_f32 (float32): the float32 mainloop of simt_f32.cuh, shared with
+//   sep2d: producer warps staging by TMA (cp.async where the rows do not
+//   allow it), consumer warps on 8 x 8 float32 register tiles, persistent
+//   blocks sized per site; w comes as (Cin, Cout) here. TF32 tensor cores
+//   would miss the float32 contract of 1e-5 relative. Where the tile grid
+//   is under one wave it splits K over a cluster of two blocks that add
+//   their partial tiles through distributed shared memory in split order:
+//   one launch.
+// Split-K (wgmma): where the tile grid is under one wave, block z of
+// `splits` sums its share of the K chunks into a float32 workspace
 // (splits, M, Cout); a second launch adds the shares in split order and
 // applies the epilogue. Epilogue: y*scale + shift in float32 (no FMA
 // contraction, as the plain version rounds the product and the sum
@@ -39,11 +45,12 @@
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "simt_f32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-enum Body { SIMT = 0, MMA = 1, WGMMA = 2 };
+enum Body { MMA = 1, WGMMA = 2, SIMT_F32 = 3 };
 
 // K chunks [begin, end) of split z of `splits` over `chunks` chunks; the
 // plan computes the same ranges.
@@ -58,118 +65,6 @@ __device__ __forceinline__ float affine(float acc, const float* scale,
   float y = __fadd_rn(__fmul_rn(acc, scale[n]), shift[n]);
   return relu ? fmaxf(y, 0.f) : y;
 }
-
-// ---------------------------------------------------------------------------
-// float32: SIMT
-// ---------------------------------------------------------------------------
-
-namespace f32 {
-
-constexpr int BM = 128;      // rows per block
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 16;       // input channels per stage
-constexpr int THREADS = 256; // 16 x 16 threads, each 8 rows x 4 channels
-constexpr int APAD = 4;      // keeps the rows 16-byte aligned
-
-// Four consecutive values of row `row` from column `col` of a row-major
-// (rows, cols) matrix, zero outside it.
-template <bool VEC>
-__device__ __forceinline__ void load4(const float* __restrict__ p,
-                                      long long row, int col, long long rows,
-                                      int cols, float v[4]) {
-  if (row < rows) {
-    const float* src = p + row * cols + col;
-    if (VEC && col + 3 < cols) {
-      const float4 t = *reinterpret_cast<const float4*>(src);
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-      return;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = col + j < cols ? src[j] : 0.f;
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = 0.f;
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-pw1x1_kernel(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ scale, const float* __restrict__ shift,
-             float* __restrict__ out, float* __restrict__ ws, long long N,
-             int Cin, int Cout, int relu, int splits) {
-  __shared__ __align__(16) float As[BK][BM + APAD];  // x chunk, k-major
-  __shared__ __align__(16) float Bs[BK][BN + APAD];  // w chunk, k-major
-
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channels tx*4 .. tx*4+3
-  const int ty = tid / 16;  // rows ty*8 .. ty*8+7
-  int kb, ke;
-  split_range((Cin + BK - 1) / BK, splits, blockIdx.z, &kb, &ke);
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int kc = kb; kc < ke; ++kc) {
-    const int k0 = kc * BK;
-    // x: BM rows x BK channels = 512 quads, two per thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * THREADS;
-      const int r = q / (BK / 4);
-      const int kq = (q % (BK / 4)) * 4;
-      float v[4];
-      load4<VEC>(x, m0 + r, k0 + kq, N, Cin, v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) As[kq + j][r] = v[j];
-    }
-    // w: BN rows x BK channels = 256 quads, one per thread
-    {
-      const int r = tid / (BK / 4);
-      const int kq = (tid % (BK / 4)) * 4;
-      float v[4];
-      load4<VEC>(w, n0 + r, k0 + kq, Cout, Cin, v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Bs[kq + j][r] = v[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * 8 + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* part = ws + static_cast<long long>(blockIdx.z) * N * Cout;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx * 4 + j;
-    if (n >= Cout) continue;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = m0 + ty * 8 + i;
-      if (m >= N) continue;
-      if (splits > 1)
-        part[m * Cout + n] = acc[i][j];
-      else
-        out[m * Cout + n] = affine(acc[i][j], scale, shift, n, relu);
-    }
-  }
-}
-
-}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16, any Cin: warp-level tensor cores (mma.sync)
@@ -432,26 +327,6 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-int launch_f32(const void* x, const void* w, const float* scale,
-               const float* shift, void* out, float* ws, long long N,
-               int Cin, int Cout, int relu, int splits,
-               cudaStream_t stream) {
-  const long long blocks = (N + f32::BM - 1) / f32::BM;
-  const bool vec = Cin % 4 == 0 && aligned16(x) && aligned16(w);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  float* of = static_cast<float*>(out);
-  dim3 grid(static_cast<unsigned>(blocks), (Cout + f32::BN - 1) / f32::BN,
-            splits);
-  if (vec)
-    f32::pw1x1_kernel<true><<<grid, f32::THREADS, 0, stream>>>(
-        xf, wf, scale, shift, of, ws, N, Cin, Cout, relu, splits);
-  else
-    f32::pw1x1_kernel<false><<<grid, f32::THREADS, 0, stream>>>(
-        xf, wf, scale, shift, of, ws, N, Cin, Cout, relu, splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_mma(const void* x, const void* w, const float* scale,
                const float* shift, void* out, long long N, int Cin, int Cout,
                int relu, cudaStream_t stream) {
@@ -495,10 +370,6 @@ bool plan_ok(long long N, int Cin, int Cout, int dtype, int body, int bn,
   if (N <= 0 || Cin <= 0 || Cout <= 0 || splits < 1 || splits > 64)
     return false;
   if ((splits > 1) != (ws != nullptr)) return false;
-  if (body == SIMT)
-    return dtype == 0 && bn == f32::BN &&
-           (N + f32::BM - 1) / f32::BM <= 0x7fffffffLL &&
-           splits <= (Cin + f32::BK - 1) / f32::BK;
   if (body == MMA)
     return dtype == 1 && bn == mma::BN && splits == 1 &&
            (N + mma::BM - 1) / mma::BM <= 0x7fffffffLL;
@@ -513,34 +384,54 @@ bool plan_ok(long long N, int Cin, int Cout, int dtype, int body, int bn,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x is (N, Cin), w (Cout, Cin), both in
-// dtype; scale and shift (Cout,) float32; out (N, Cout) in dtype. body, bn,
-// stages, splits: the launch plan (core/kernels.py::plan_pw1x1); ws a
-// float32 (splits, N, Cout) workspace when splits > 1, else null. Returns
-// cudaErrorInvalidValue for a plan it cannot run, else cudaGetLastError()
-// after the launches (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. x is (N, Cin), w (Cout, Cin; (Cin,
+// Cout) for simt_f32), both in dtype; scale and shift (Cout,) float32; out (N, Cout) in dtype. body,
+// bn, stages, splits, bm, producers, blocks: the launch plan
+// (core/kernels.py::plan_pw1x1); ws a float32 (splits, N, Cout) workspace
+// when the wgmma body splits K, else null. Returns cudaErrorInvalidValue
+// for a plan it cannot run, else cudaGetLastError() after the launches
+// (0 = launched).
 extern "C" int sparkdl_pw1x1(const void* x, const void* w, const void* scale,
                              const void* shift, void* out, void* ws,
                              long long N, int Cin, int Cout, int relu,
                              int dtype, int body, int bn, int stages,
-                             int splits, void* stream) {
+                             int splits, int bm, int producers, int blocks,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == SIMT_F32) {
+    namespace s32 = sparkdl::simt32;
+    if (dtype != 0 || ws != nullptr || N <= 0 || N > 0x7fffffffLL ||
+        bm <= 0 || bm % 8 != 0 || bn <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    s32::Params p = {};
+    p.x = static_cast<const float*>(x);
+    p.w = static_cast<const float*>(w);
+    p.scale = static_cast<const float*>(scale);
+    p.shift = static_cast<const float*>(shift);
+    p.out = static_cast<float*>(out);
+    p.M = static_cast<int>(N);
+    p.Cin = Cin;
+    p.Cout = Cout;
+    p.relu = relu;
+    p.ty = bm / 8;
+    p.producers = producers;
+    p.stages = stages;
+    p.splits = splits;
+    p.chunks = (Cin + s32::KC - 1) / s32::KC;
+    p.tiles_n = (Cout + bn - 1) / bn;
+    p.groups = p.tiles_n;
+    p.units = static_cast<int>((N + bm - 1) / bm) * p.tiles_n;
+    return s32::launch<false>(p, bn, blocks, s);
+  }
   if (!plan_ok(N, Cin, Cout, dtype, body, bn, stages, splits, x, w, ws))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   float* part = static_cast<float*>(ws);
-  int err;
-  if (body == SIMT)
-    err = launch_f32(x, w, sc, sh, out, part, N, Cin, Cout, relu, splits, s);
-  else if (body == MMA)
-    err = launch_mma(x, w, sc, sh, out, N, Cin, Cout, relu, s);
-  else
-    err = launch_wgmma(x, w, sc, sh, out, part, N, Cin, Cout, relu, bn,
-                       stages, splits, s);
+  const int err =
+      body == MMA ? launch_mma(x, w, sc, sh, out, N, Cin, Cout, relu, s)
+                  : launch_wgmma(x, w, sc, sh, out, part, N, Cin, Cout, relu,
+                                 bn, stages, splits, s);
   if (err != 0 || splits == 1) return err;
-  return dtype == 0 ? reduce<float>(part, sc, sh, out, N, Cout, splits, relu,
-                                    s)
-                    : reduce<__nv_bfloat16>(part, sc, sh, out, N, Cout,
-                                            splits, relu, s);
+  return reduce<__nv_bfloat16>(part, sc, sh, out, N, Cout, splits, relu, s);
 }

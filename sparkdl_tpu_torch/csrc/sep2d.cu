@@ -13,8 +13,8 @@
 // far above the ~20 FLOP/byte ridge of the float32 CUDA cores. The first
 // site (147x147, 64->128, ~46 FLOP/byte in bf16) is bound by its bytes.
 //
-// Two bodies; the plan (core/kernels.py::plan_sep2d) picks one and its
-// tile, and this launcher checks the plan.
+// Three bodies; the plan (core/kernels.py::plan_sep2d) picks one and its
+// tile, and the launchers check the plan.
 //
 // wgmma (bf16, Cin a multiple of 8), on the Hopper mainloop of
 // wgmma_bf16.cuh. A tile is 64 positions (flattened over B*H*W) x BN
@@ -42,21 +42,30 @@
 // shared memory for 16-byte stores. The depthwise result never reaches
 // device memory, which keeps the TPU kernel's point.
 //
-// simt (float32, and bf16 whose Cin TMA cannot stride): one block owns 128
-// positions x 128 output channels and walks Cin in chunks of 32. Per
-// chunk it stages the tile's x rows and halo in shared memory, computes
-// their depthwise once from there (the nine taps read from shared memory,
-// not global memory), stages the chunk's slice of pw, and accumulates the
-// product in an 8 x 8 float32 register tile per thread, two blocks per SM
-// so one block's loads overlap the other's FMAs. TF32 tensor cores would
-// miss the float32 contract of 1e-5 relative.
+// simt_f32 (float32): the float32 mainloop of simt_f32.cuh, shared with
+// pw1x1. Producer warps stage each K chunk's halo, taps and pw slice (by
+// TMA where the rows allow it) a ring of stages ahead and compute the
+// depthwise of a row tile once per chunk into a block-resident D (all of
+// Cin) that every N tile of the unit reads (or one chunk of D, recomputed
+// per N tile, where all of Cin does not fit); consumer warps run 8 x 8
+// float32 register tiles; persistent blocks sized per site. pw comes as
+// (Cin, Cout) here. TF32 tensor cores would miss the float32 contract of
+// 1e-5 relative.
+//
+// simt_bf16 (bf16 whose rows TMA cannot stride: Cin % 8 != 0 or an
+// unaligned operand): one block owns 128 positions x 128 output channels
+// and walks Cin in chunks of 32. Per chunk it stages the tile's x rows and
+// halo in shared memory, computes their depthwise once from there, stages
+// the chunk's slice of pw, and accumulates the product in an 8 x 8 float32
+// register tile per thread, two blocks per SM.
 
 #include "common.cuh"
+#include "simt_f32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-enum Body { SIMT = 0, WGMMA = 2 };
+enum Body { SIMT_BF16 = 0, WGMMA = 2, SIMT_F32 = 3 };
 
 __device__ __forceinline__ float affine(float acc, const float* scale,
                                         const float* shift, int n) {
@@ -64,7 +73,7 @@ __device__ __forceinline__ float affine(float acc, const float* scale,
 }
 
 // ---------------------------------------------------------------------------
-// simt
+// simt_bf16
 // ---------------------------------------------------------------------------
 
 namespace simt {
@@ -606,27 +615,53 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x (B, H, W, Cin), dw9 (9, Cin) and pw
-// (Cout, Cin) in dtype; scale, shift (Cout,) float32; out (B, H, W, Cout)
-// in dtype. body, bn, stages, halo_slots: the launch plan
-// (core/kernels.py::plan_sep2d). Returns cudaErrorInvalidValue for a plan
-// it cannot run, else cudaGetLastError() after the launch (0 = launched).
+// ((Cout, Cin); (Cin, Cout) for simt_f32) in dtype; scale, shift (Cout,)
+// float32; out (B, H, W, Cout)
+// in dtype. body, bn, stages, halo_slots, bm, groups, resident, producers,
+// blocks: the launch plan (core/kernels.py::plan_sep2d). Returns
+// cudaErrorInvalidValue for a plan it cannot run, else cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int sparkdl_sep2d(const void* x, const void* dw9, const void* pw,
                              const void* scale, const void* shift, void* out,
                              int B, int H, int W, int Cin, int Cout,
                              int relu_in, int dtype, int body, int bn,
-                             int stages, int halo_slots, void* stream) {
+                             int stages, int halo_slots, int bm, int groups,
+                             int resident, int producers, int blocks,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long P = static_cast<long long>(B) * H * W;
   if (P <= 0 || Cin <= 0 || Cout <= 0 || (P + 63) / 64 > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (body == SIMT && bn == simt::BN) {
-    if (dtype == 0)
-      return simt::launch<float>(x, dw9, pw, scale, shift, out, H, W, Cin,
-                                 Cout, P, relu_in, s);
-    if (dtype == 1)
-      return simt::launch<__nv_bfloat16>(x, dw9, pw, scale, shift, out, H, W,
-                                         Cin, Cout, P, relu_in, s);
+  if (body == SIMT_F32 && dtype == 0 && P <= 0x7fffffffLL && bm % 8 == 0 &&
+      bn % 8 == 0) {
+    namespace s32 = sparkdl::simt32;
+    s32::Params p = {};
+    p.x = static_cast<const float*>(x);
+    p.dw9 = static_cast<const float*>(dw9);
+    p.w = static_cast<const float*>(pw);
+    p.scale = static_cast<const float*>(scale);
+    p.shift = static_cast<const float*>(shift);
+    p.out = static_cast<float*>(out);
+    p.M = static_cast<int>(P);
+    p.H = H;
+    p.W = W;
+    p.Cin = Cin;
+    p.Cout = Cout;
+    p.relu = relu_in;
+    p.ty = bm / 8;
+    p.producers = producers;
+    p.stages = stages;
+    p.resident = resident;
+    p.groups = groups;
+    p.splits = 1;
+    p.chunks = (Cin + s32::KC - 1) / s32::KC;
+    p.tiles_n = (Cout + bn - 1) / bn;
+    p.units = static_cast<int>((P + bm - 1) / bm) * groups;
+    return s32::launch<true>(p, bn, blocks, s);
   }
+  if (body == SIMT_BF16 && dtype == 1 && bn == simt::BN)
+    return simt::launch<__nv_bfloat16>(x, dw9, pw, scale, shift, out, H, W,
+                                       Cin, Cout, P, relu_in, s);
   if (body == WGMMA && dtype == 1 && Cin % 8 == 0 && aligned16(x) &&
       aligned16(pw) && (reinterpret_cast<uintptr_t>(dw9) & 7) == 0 &&
       stages >= 2 && stages <= tc::MAX_STAGES && halo_slots >= 2 &&

@@ -75,7 +75,8 @@ def _units() -> List[_Unit]:
 class InceptionV3(nn.Module):
     def __init__(self, include_top: bool = True, classes: int = 1000,
                  classifier_activation: Optional[str] = "softmax",
-                 pooling: Optional[str] = "avg") -> None:
+                 pooling: Optional[str] = "avg",
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.include_top = include_top
         self.classifier_activation = classifier_activation
@@ -85,9 +86,10 @@ class InceptionV3(nn.Module):
             # kernel_family opts the 1×1 SAME units into the pw1x1 route
             self.add_module(f"cb{i}", ConvBN(cin, features, (kh, kw), stride,
                                              padding,
-                                             kernel_family="inception"))
+                                             kernel_family="inception",
+                                             dtype=dtype))
         if include_top:
-            self.predictions = Dense(2048, classes)
+            self.predictions = Dense(2048, classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         units = (m for m in self.children() if isinstance(m, ConvBN))

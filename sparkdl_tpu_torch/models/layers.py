@@ -6,7 +6,11 @@ Activations are NHWC throughout, as in the JAX package; each conv views
 them as NCHW (channels-last memory) for ``F.conv2d``. Weights use
 PyTorch's layouts (``models/convert.py`` maps the Flax tree onto them).
 Each layer computes in the promoted type of its input and weights, as a
-Flax layer computes in ``result_type(input, weights)``.
+Flax layer computes in ``result_type(input, weights)``, unless it is given
+a compute ``dtype``, as a Flax layer's ``dtype``: then each op casts its
+input and its float32 weights to that dtype, and a BN with float32
+statistics computes in float32 and rounds its result to the dtype once
+(``flax.linen.BatchNorm``'s promotion). The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -37,20 +41,23 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 class Conv2d(nn.Module):
     """Conv without bias on NHWC activations, "VALID" or XLA "SAME"
-    padding; weight (Cout, Cin/groups, kh, kw)."""
+    padding; weight (Cout, Cin/groups, kh, kw); computes in ``dtype``
+    (None: the promoted type of input and weight)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride=1,
-                 padding: str = "SAME", groups: int = 1) -> None:
+                 padding: str = "SAME", groups: int = 1,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.kernel = _pair(kernel)
         self.stride = _pair(stride)
         self.padding = padding
         self.groups = groups
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(cout, cin // groups, *self.kernel))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return conv2d_nhwc(x.to(dtype), self.weight.to(dtype), self.stride,
                            self.padding, self.groups)
 
@@ -74,12 +81,17 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1),
 class BatchNorm(nn.Module):
     """Inference BatchNorm over the last axis in the reference's op order:
     ``(x − mean)·(γ·rsqrt(var + eps)) + β`` (``flax.linen.BatchNorm``),
-    NOT the folded affine — that belongs to the kernel route only."""
+    NOT the folded affine — that belongs to the kernel route only. It
+    computes in the promoted type of input and statistics, then rounds to
+    ``dtype`` once where one is given (``flax.linen.BatchNorm(dtype=...)``
+    with float32 statistics)."""
 
     def __init__(self, channels: int, eps: float = KERAS_BN_EPS,
-                 scale: bool = True) -> None:
+                 scale: bool = True,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.weight = (nn.Parameter(torch.ones(channels)) if scale
                        else None)
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -90,7 +102,8 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.running_var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        y = (x - self.running_mean) * mul + self.bias
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 def max_pool_same(x: torch.Tensor, window: int = 3,
@@ -135,19 +148,22 @@ class ConvBN(nn.Module):
     ``kernel_family`` opts the unit into the fused ``pw1x1`` route
     (``core/kernels.py``): at inference, a 1×1 stride-1 "SAME" unit runs
     as one kernel launch where the kernel gate routes its site; every
-    other unit runs the plain body."""
+    other unit runs the plain body, the route on operands of ``dtype``."""
 
     def __init__(self, cin: int, features: int, kernel, strides=(1, 1),
                  padding: str = "SAME", act: bool = True,
-                 kernel_family: Optional[str] = None) -> None:
+                 kernel_family: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.kernel = _pair(kernel)
         self.strides = _pair(strides)
         self.padding = padding
         self.act = act
         self.kernel_family = kernel_family
-        self.conv = Conv2d(cin, features, self.kernel, self.strides, padding)
-        self.bn = BatchNorm(features, scale=False)
+        self.dtype = dtype
+        self.conv = Conv2d(cin, features, self.kernel, self.strides, padding,
+                           dtype=dtype)
+        self.bn = BatchNorm(features, scale=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fused = self._fused(x)
@@ -162,6 +178,8 @@ class ConvBN(nn.Module):
         if (self.strides != (1, 1) or self.kernel != (1, 1)
                 or self.padding != "SAME"):
             return None
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         return kernels.route_pw1x1(
             x, self.conv.weight, self.bn.weight, self.bn.bias,
             self.bn.running_mean, self.bn.running_var, self.bn.eps,
@@ -175,19 +193,21 @@ class SeparableConvBN(nn.Module):
     ``kernel_family`` opts the unit into the fused ``sep2d`` route
     (``core/kernels.py``): at inference, a 3×3 stride-1 unit runs as one
     kernel launch where the kernel gate routes its site; otherwise the
-    plain body runs."""
+    plain body runs (the route on operands of ``dtype``)."""
 
     def __init__(self, cin: int, features: int, kernel=(3, 3),
                  strides=(1, 1), bn_eps: float = KERAS_BN_EPS,
-                 kernel_family: Optional[str] = None) -> None:
+                 kernel_family: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.kernel = _pair(kernel)
         self.strides = _pair(strides)
         self.kernel_family = kernel_family
+        self.dtype = dtype
         self.depthwise = Conv2d(cin, cin, self.kernel, self.strides,
-                                "SAME", groups=cin)
-        self.pointwise = Conv2d(cin, features, 1)
-        self.bn = BatchNorm(features, bn_eps)
+                                "SAME", groups=cin, dtype=dtype)
+        self.pointwise = Conv2d(cin, features, 1, dtype=dtype)
+        self.bn = BatchNorm(features, bn_eps, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fused = self._fused(x)
@@ -200,6 +220,8 @@ class SeparableConvBN(nn.Module):
             return None
         if self.strides != (1, 1) or self.kernel != (3, 3):
             return None
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         return kernels.route_sep2d(
             x, self.depthwise.weight, self.pointwise.weight, self.bn.weight,
             self.bn.bias, self.bn.running_mean, self.bn.running_var,
@@ -207,15 +229,18 @@ class SeparableConvBN(nn.Module):
 
 
 class Dense(nn.Module):
-    """``nn.Dense``: weight (out, in), bias (out,)."""
+    """``nn.Dense``: weight (out, in), bias (out,); computes in ``dtype``
+    (None: the promoted type of input and weight)."""
 
-    def __init__(self, cin: int, cout: int) -> None:
+    def __init__(self, cin: int, cout: int,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return F.linear(x.to(dtype), self.weight.to(dtype),
                         self.bias.to(dtype))
 

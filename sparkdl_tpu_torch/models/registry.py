@@ -169,12 +169,20 @@ def _fast_inference_apply(name: str, include_top: bool, dtype
 
 
 def _build(name: str, include_top: bool, weights, seed: int, dtype,
-           fast: bool) -> ModelFunction:
+           preprocess: bool, fast: bool,
+           precision: Optional[str]) -> ModelFunction:
+    """The module built with ``dtype`` as every layer's compute dtype
+    (the reference's Flax ``dtype``: float32 weights and statistics, each
+    op cast), so the result stays :attr:`ModelFunction.kernel_routable`
+    as ``fromFlax`` is; InceptionV3's fast apply computes in ``dtype``."""
     spec = get_model_spec(name)
+    compute = torch_dtype(dtype) if dtype is not None else None
     if include_top:
-        module = spec.builder(include_top=True, classes=spec.classes)
+        module = spec.builder(include_top=True, classes=spec.classes,
+                              dtype=compute)
     else:
-        module = spec.builder(include_top=False, pooling="avg")
+        module = spec.builder(include_top=False, pooling="avg",
+                              dtype=compute)
     _resolve_weights(module, name, weights, seed)
     kind = "predict" if include_top else "featurize"
     fast_apply = _fast_inference_apply(name, include_top, dtype) if fast \
@@ -186,26 +194,45 @@ def _build(name: str, include_top: bool, weights, seed: int, dtype,
     else:
         mf = ModelFunction.fromModule(module, _spec_input(spec),
                                       name=f"{name}_{kind}")
-        if dtype is not None and torch_dtype(dtype) != torch.float32:
-            mf = mf.with_compute_dtype(dtype)
-    mf = mf.with_preprocess(spec.preprocess)
+    if preprocess:
+        mf = mf.with_preprocess(spec.preprocess)
     mf.fast_path = fast_apply is not None
-    return mf
+    return _apply_precision(mf, precision)
+
+
+def _apply_precision(mf: ModelFunction,
+                     precision: Optional[str]) -> ModelFunction:
+    """``with_dtype(precision)``, keeping ``fast_path`` on the result; None
+    or ``"float32"`` leaves the model as it is."""
+    if precision is None or precision == "float32":
+        return mf
+    out = mf.with_dtype(precision)
+    out.fast_path = mf.fast_path
+    return out
 
 
 def build_featurizer(name: str, weights="random", seed: int = 0,
-                     dtype=None, fast: bool = True) -> ModelFunction:
+                     dtype=None, preprocess: bool = True, fast: bool = True,
+                     precision: Optional[str] = None) -> ModelFunction:
     """Headless named model as a ModelFunction emitting feature vectors.
 
     Input contract: float RGB [0, 255] NHWC at the model's input size;
-    scaling runs on the device. ``dtype`` (None = float32) is the compute
-    dtype; the executor applies ``EngineConfig.inference_precision`` on
-    top. ``fast=False`` builds the module apply even where an
-    inference-specialized fast path exists."""
-    return _build(name, False, weights, seed, dtype, fast)
+    scaling runs on the device (``preprocess=False`` leaves it out).
+    ``dtype`` (None = float32) is the compute dtype of every layer.
+    ``fast=False`` builds the module apply even where an
+    inference-specialized fast path exists. ``precision`` applies
+    :meth:`ModelFunction.with_dtype` to the finished featurizer (None or
+    ``"float32"`` leaves it as it is): the executor applies
+    ``EngineConfig.inference_precision`` itself, so this is for use of
+    the registry outside the engine."""
+    return _build(name, False, weights, seed, dtype, preprocess, fast,
+                  precision)
 
 
 def build_predictor(name: str, weights="random", seed: int = 0,
-                    dtype=None, fast: bool = True) -> ModelFunction:
-    """Full named model (softmax probabilities) as a ModelFunction."""
-    return _build(name, True, weights, seed, dtype, fast)
+                    dtype=None, preprocess: bool = True, fast: bool = True,
+                    precision: Optional[str] = None) -> ModelFunction:
+    """Full named model (softmax probabilities) as a ModelFunction;
+    ``precision`` as in :func:`build_featurizer`."""
+    return _build(name, True, weights, seed, dtype, preprocess, fast,
+                  precision)

@@ -4,7 +4,8 @@
 299×299 input, [-1, 1] preprocessing, 2048-d features. Entry flow
 (blocks 1-4), middle flow (blocks 5-12, 728 channels), exit flow (blocks
 13-14). Submodule names are the Flax module's, so its variables map onto
-this state dict one to one (``models/convert.py``).
+this state dict one to one (``models/convert.py``). ``dtype`` is every
+layer's compute dtype, as the Flax module's.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from sparkdl_tpu_torch.models.layers import (
 class Xception(nn.Module):
     def __init__(self, include_top: bool = True, classes: int = 1000,
                  classifier_activation: Optional[str] = "softmax",
-                 pooling: Optional[str] = "avg") -> None:
+                 pooling: Optional[str] = "avg",
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.include_top = include_top
         self.classifier_activation = classifier_activation
@@ -32,31 +34,33 @@ class Xception(nn.Module):
         def sep(name, cin, features):
             # kernel_family opts the unit into the fused sep2d route
             self.add_module(name, SeparableConvBN(
-                cin, features, kernel_family="xception"))
+                cin, features, kernel_family="xception", dtype=dtype))
 
-        self.block1_conv1 = Conv2d(3, 32, 3, stride=2, padding="VALID")
-        self.block1_conv1_bn = BatchNorm(32)
-        self.block1_conv2 = Conv2d(32, 64, 3, padding="VALID")
-        self.block1_conv2_bn = BatchNorm(64)
+        self.block1_conv1 = Conv2d(3, 32, 3, stride=2, padding="VALID",
+                                   dtype=dtype)
+        self.block1_conv1_bn = BatchNorm(32, dtype=dtype)
+        self.block1_conv2 = Conv2d(32, 64, 3, padding="VALID", dtype=dtype)
+        self.block1_conv2_bn = BatchNorm(64, dtype=dtype)
         cin = 64
         for i, features in zip((2, 3, 4), (128, 256, 728)):
             self.add_module(f"block{i}_res_conv",
-                            Conv2d(cin, features, 1, stride=2))
-            self.add_module(f"block{i}_res_bn", BatchNorm(features))
+                            Conv2d(cin, features, 1, stride=2, dtype=dtype))
+            self.add_module(f"block{i}_res_bn",
+                            BatchNorm(features, dtype=dtype))
             sep(f"block{i}_sepconv1", cin, features)
             sep(f"block{i}_sepconv2", features, features)
             cin = features
         for i in range(5, 13):
             for j in (1, 2, 3):
                 sep(f"block{i}_sepconv{j}", 728, 728)
-        self.block13_res_conv = Conv2d(728, 1024, 1, stride=2)
-        self.block13_res_bn = BatchNorm(1024)
+        self.block13_res_conv = Conv2d(728, 1024, 1, stride=2, dtype=dtype)
+        self.block13_res_bn = BatchNorm(1024, dtype=dtype)
         sep("block13_sepconv1", 728, 728)
         sep("block13_sepconv2", 728, 1024)
         sep("block14_sepconv1", 1024, 1536)
         sep("block14_sepconv2", 1536, 2048)
         if include_top:
-            self.predictions = Dense(2048, classes)
+            self.predictions = Dense(2048, classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self._modules

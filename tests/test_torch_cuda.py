@@ -133,7 +133,7 @@ def test_sep2d_at_xception_sites(card, site, dtype):
     hw, cin, cout = site
     args = _sep2d_case(card, BATCH, hw, hw, cin, cout, dtype)
     y, body = _launched_body("sep2d", lambda: kernels.sep2d(*args))
-    assert body == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert body == ("wgmma" if dtype == torch.bfloat16 else "simt_f32")
     assert body == kernels.plan_sep2d(BATCH, hw, hw, cin, cout, dtype).body
     ref = kernels.plain_sep2d(*args)
     err = float((y.float() - ref.float()).abs().max())
@@ -144,11 +144,12 @@ def test_sep2d_at_xception_sites(card, site, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sep2d_ragged_cin_takes_the_simt_body(card, dtype):
-    """Cin = 20: rows TMA cannot stride, so bf16 too takes the SIMT body."""
+    """Cin = 20: rows TMA cannot stride, so bf16 takes its SIMT body
+    (``simt_bf16``), float32 the float32 mainloop."""
     args = _sep2d_case(card, 2, 6, 5, 20, 24, dtype, seed=5)
     y, body = _launched_body("sep2d", lambda: kernels.sep2d(
         *args, relu_in=True))
-    assert body == "simt"
+    assert body == ("simt_bf16" if dtype == torch.bfloat16 else "simt_f32")
     ref = kernels.plain_sep2d(*args, relu_in=True)
     err = float((y.float() - ref.float()).abs().max())
     assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
@@ -176,7 +177,7 @@ def test_pw1x1_at_inception_sites(card, site, dtype):
     x, w2, scale, shift = _pw1x1_case(card, BATCH, hw, hw, cin, cout, dtype)
     y, body = _launched_body("pw1x1", lambda: kernels.pw1x1(
         x, w2, scale, shift, relu=True))
-    assert body == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    assert body == ("wgmma" if dtype == torch.bfloat16 else "simt_f32")
     ref = kernels.plain_pw1x1(x, w2, scale, shift, relu=True)
     err = float((y.float() - ref.float()).abs().max())
     assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
@@ -187,9 +188,10 @@ def test_pw1x1_at_inception_sites(card, site, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pw1x1_split_k(card, dtype):
     """8×8 2048→448 at batch 16: 112 (bf16) or 56 (float32) tiles, so the
-    plan splits K; the shares reduce to the plain version's result."""
+    plan splits K; the shares reduce to the plain version's result (the
+    float32 ones in a cluster's shared memory)."""
     plan = kernels.plan_pw1x1(BATCH * 64, 2048, 448, dtype)
-    assert plan.splits > 1 and plan.blocks >= kernels.SMS
+    assert plan.splits > 1 and (plan.blocks >= kernels.SMS or plan.note)
     x, w2, scale, shift = _pw1x1_case(card, BATCH, 8, 8, 2048, 448, dtype,
                                       seed=9)
     y, body = _launched_body("pw1x1", lambda: kernels.pw1x1(
@@ -199,6 +201,62 @@ def test_pw1x1_split_k(card, dtype):
     err = float((y.float() - ref.float()).abs().max())
     assert err <= (_f32_bound(ref.float()) if dtype == torch.float32
                    else kernels.BF16_TOLERANCE), err
+
+
+#: Ragged shapes of the float32 mainloop: (B, H, W, Cin, Cout). Positions
+#: not a multiple of any tile, Cout 728 and 2048 (last N tile partly
+#: stored), Cin 728 (a K tail of 8) and Cin % 4 != 0 (4-byte copies), B 1.
+F32_RAGGED = [(1, 19, 19, 728, 728), (1, 10, 10, 1536, 2048),
+              (3, 7, 5, 22, 13), (2, 9, 11, 37, 100), (1, 37, 37, 256, 728),
+              (1, 3, 3, 5, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_RAGGED,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kernel", ["sep2d", "pw1x1"])
+def test_simt_f32_at_ragged_shapes(card, kernel, shape):
+    """The float32 mainloop against its plain version where tiles,
+    chunks and rows are ragged; NaN behind every operand and in the
+    output's memory reaches no output."""
+    b, h, w, cin, cout = shape
+    if kernel == "sep2d":
+        args = list(_sep2d_case(card, b, h, w, cin, cout, torch.float32,
+                                seed=7))
+        fn, plain = kernels.sep2d, kernels.plain_sep2d
+        kw = {"relu_in": True}
+    else:
+        args = list(_pw1x1_case(card, b, h, w, cin, cout, torch.float32,
+                                seed=7))
+        fn, plain = kernels.pw1x1, kernels.plain_pw1x1
+        kw = {"relu": True}
+    ref = plain(*args, **kw)
+    args = [_poisoned(a.contiguous()) for a in args]
+    torch.cuda.synchronize()
+    torch.full_like(ref, float("nan"))
+    y, body = _launched_body(kernel, lambda: fn(*args, **kw))
+    assert body == "simt_f32"
+    assert bool(torch.isfinite(y).all())
+    err = float((y - ref).abs().max())
+    assert err <= _f32_bound(ref), err
+
+
+@pytest.mark.cuda
+def test_sep2d_unaligned_bf16_takes_the_simt_bf16_body(card):
+    """bf16 rows that start 8 bytes off a 16-byte boundary: TMA cannot
+    load them, so the first SIMT body runs them, under its own name."""
+    x, dw9, pw, scale, shift = _sep2d_case(card, 2, 7, 9, 64, 48,
+                                           torch.bfloat16, seed=8)
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=card)
+    shifted = buf[4:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    y, body = _launched_body("sep2d", lambda: kernels.sep2d(
+        shifted, dw9, pw, scale, shift))
+    assert body == "simt_bf16"
+    ref = kernels.plain_sep2d(shifted, dw9, pw, scale, shift)
+    assert float((y.float() - ref.float()).abs().max()) \
+        <= kernels.BF16_TOLERANCE
 
 
 @pytest.mark.cuda

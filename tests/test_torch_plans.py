@@ -2,12 +2,14 @@
 
 ``plan_sep2d`` and ``plan_pw1x1`` (``sparkdl_tpu_torch/core/kernels.py``)
 are pure functions of a call's shape and dtype: the body that runs (the
-Hopper tensor-core mainloop ``"wgmma"``, ``"mma"`` or ``"simt"``), its
-tile, its ring and its split of K. The C launchers check a plan and refuse
-one they cannot run, so these tests hold the plans at every main-path
-site: K covered exactly once, a wave of blocks or a stated reason, every
-bf16 site on the tensor cores, TMA row strides of 16 bytes, shared memory
-within the block's limit, the same plan every time.
+Hopper tensor-core mainloop ``"wgmma"``, ``"mma"``, the float32 SIMT
+mainloop ``"simt_f32"`` or ``"simt_bf16"``), its tile, its ring and its
+split of K. The C launchers check a plan and refuse one they cannot run,
+so these tests hold the plans at every main-path site: K covered exactly
+once, a wave of blocks or a stated reason, every bf16 site on the tensor
+cores, TMA row strides of 16 bytes, shared memory within the block's
+limit, the float32 body's rounds, fill and depthwise recompute, the same
+plan every time.
 """
 
 import numpy as np
@@ -98,8 +100,19 @@ def test_bf16_sites_take_the_tensor_core_body(kernel, site, plan):
 
 @pytest.mark.parametrize("kernel,site,dtype,plan", PLANS, ids=PLAN_IDS)
 def test_float32_sites_take_the_simt_body(kernel, site, dtype, plan):
-    if dtype == torch.float32:
-        assert plan.body == "simt" and plan.smem <= kernels.SMEM_LIMIT
+    """Every float32 site runs the shared SIMT mainloop, its persistent
+    blocks one on each SM, its shared memory as the launcher counts it."""
+    if dtype != torch.float32:
+        return
+    assert plan.body == "simt_f32" and plan.smem <= kernels.SMEM_LIMIT
+    hw, cin, cout = site
+    sep = kernel == "sep2d"
+    assert plan.smem == kernels._f32_smem(
+        sep, plan.layout == "resident", plan.bm, plan.bn, hw if sep else 0,
+        plan.stages, plan.chunks, plan.splits)
+    assert plan.grid[0] == min(plan.units, kernels.SMS) // plan.splits
+    assert plan.producers >= 64 and plan.producers % 64 == 0
+    assert plan.bm // 8 * plan.bn // 8 + plan.producers <= 384
 
 
 @pytest.mark.parametrize("site", XCEPTION_SEP2D, ids=_site_id)
@@ -124,18 +137,22 @@ def test_pw1x1_tile_width_pads_cout_least(cout, bn):
 
 
 def test_pw1x1_8x8_splits_k_to_fill_the_card():
-    """8×8 2048→448 at batch 16: 112 bf16 tiles and 56 float32 tiles."""
+    """8×8 2048→448 at batch 16: 112 bf16 tiles and 56 float32 tiles, K in
+    two shares each (the float32 shares meet in a cluster of two, and the
+    plan says why that beats finer tiles)."""
     bf16 = kernels.plan_pw1x1(BATCH * 64, 2048, 448, torch.bfloat16)
     f32 = kernels.plan_pw1x1(BATCH * 64, 2048, 448, torch.float32)
     assert (bf16.grid[0] * bf16.grid[1], f32.grid[0] * f32.grid[1]) == (112,
                                                                         56)
-    assert bf16.splits == 2 and f32.splits == 3
-    assert bf16.blocks >= kernels.SMS and f32.blocks >= kernels.SMS
+    assert bf16.splits == 2 and f32.splits == 2
+    assert bf16.blocks >= kernels.SMS
+    assert f32.blocks == f32.units == 112 <= kernels.SMS
+    assert "unsplit tiling" in f32.note
 
 
 @pytest.mark.parametrize("cin,cout,dtype,body", [
     (20, 36, torch.bfloat16, "mma"), (37, 13, torch.bfloat16, "mma"),
-    (20, 36, torch.float32, "simt"), (37, 13, torch.float32, "simt"),
+    (20, 36, torch.float32, "simt_f32"), (37, 13, torch.float32, "simt_f32"),
     (16, 13, torch.bfloat16, "wgmma"), (40, 100, torch.bfloat16, "wgmma")])
 def test_pw1x1_ragged_widths_get_a_body_that_can_load_them(cin, cout, dtype,
                                                           body):
@@ -150,9 +167,9 @@ def test_pw1x1_ragged_widths_get_a_body_that_can_load_them(cin, cout, dtype,
 
 
 @pytest.mark.parametrize("cin,cout,dtype,body", [
-    (20, 24, torch.bfloat16, "simt"), (16, 72, torch.bfloat16, "wgmma"),
+    (20, 24, torch.bfloat16, "simt_bf16"), (16, 72, torch.bfloat16, "wgmma"),
     (40, 24, torch.bfloat16, "wgmma"), (728, 100, torch.bfloat16, "wgmma"),
-    (20, 24, torch.float32, "simt")])
+    (20, 24, torch.float32, "simt_f32")])
 def test_sep2d_ragged_widths_get_a_body_that_can_load_them(cin, cout, dtype,
                                                           body):
     plan = kernels.plan_sep2d(2, 7, 9, cin, cout, dtype)
@@ -165,7 +182,7 @@ def test_unaligned_operands_leave_the_tensor_cores():
     assert kernels.plan_pw1x1(64, 64, 64, torch.bfloat16,
                               aligned=False).body == "mma"
     assert kernels.plan_sep2d(1, 8, 8, 64, 64, torch.bfloat16,
-                              aligned=False).body == "simt"
+                              aligned=False).body == "simt_bf16"
 
 
 @pytest.mark.parametrize("kernel", ["sep2d", "pw1x1"])
@@ -204,3 +221,79 @@ def test_cpu_wrappers_take_either_weight_layout():
                        kernels.pw1x1(x, w.t().contiguous(), sc, sh,
                                      relu=True))
     assert kernels.launches == {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
+
+
+#: chip_smoke's float32 kernel checks: sep2d (H = W, Cin, Cout) and pw1x1
+#: (H = W, Cin, Cout), batch 16
+SMOKE_SEP2D = [(147, 64, 128), (37, 256, 728), (19, 728, 728),
+               (10, 1536, 2048)]
+SMOKE_PW1X1 = [(35, 192, 64), (17, 768, 192), (8, 2048, 448)]
+
+
+def _f32_smoke_cases():
+    for site in SMOKE_SEP2D:
+        yield "sep2d", site, _sep2d(site, torch.float32)
+    for site in SMOKE_PW1X1:
+        yield "pw1x1", site, _pw1x1(site, torch.float32)
+
+
+F32_SMOKE = list(_f32_smoke_cases())
+
+
+@pytest.mark.parametrize("kernel,site,plan", F32_SMOKE,
+                         ids=["%s-%s" % (k, _site_id(s))
+                              for k, s, _ in F32_SMOKE])
+def test_float32_plan_rounds_fill_and_recompute(kernel, site, plan):
+    """The float32 plan at chip_smoke's shapes: units over the SMs in
+    ``waves`` (one persistent block an SM) and ``fill`` (the busy share of the
+    rounds), a note wherever the last round is under 80% full or the grid
+    under one wave; sep2d's depthwise resident (recompute 1) wherever the
+    layout fits, else streamed once per N tile with the reason given."""
+    hw, cin, cout = site
+    rows = BATCH * hw * hw
+    assert plan.body == "simt_f32" and plan.blocks <= kernels.SMS
+    tiles_m = -(-rows // plan.bm)
+    tiles_n = -(-cout // plan.bn)
+    assert plan.units == tiles_m * plan.groups * plan.splits
+    rounds = -(-plan.units // kernels.SMS)
+    assert plan.waves == pytest.approx(plan.units / kernels.SMS)
+    assert plan.fill == pytest.approx(plan.units / (kernels.SMS * rounds))
+    if plan.fill < 0.8:
+        assert "fill" in plan.note or "busy" in plan.note
+    if plan.blocks < kernels.SMS:
+        assert plan.note
+    if kernel == "pw1x1":
+        assert plan.recompute == 0 and plan.groups == tiles_n
+        return
+    if plan.layout == "resident":
+        assert plan.recompute == plan.groups <= 2
+        assert plan.stages <= plan.chunks
+    else:
+        assert plan.layout == "streaming"
+        assert plan.recompute == plan.groups == tiles_n
+        assert "resident" in plan.note and str(cin) in plan.note
+    # Xception's middle flow keeps its depthwise resident; 1536 channels
+    # at 10×10 do not fit beside the ring
+    expected = "streaming" if cin == 1536 else "resident"
+    assert plan.layout == expected
+
+
+@pytest.mark.parametrize("cin,cout", [(728, 728), (728, 100), (22, 13),
+                                      (37, 2048), (1536, 24)])
+@pytest.mark.parametrize("kernel", ["sep2d", "pw1x1"])
+def test_float32_plan_covers_ragged_widths(kernel, cin, cout):
+    """Ragged Cin (a K tail of zero-filled columns) and Cout (a last N
+    tile partly stored): the chunks cover Cin, the N tiles Cout, every
+    N-tile group is non-empty, a resident D holds every chunk."""
+    if kernel == "sep2d":
+        plan = kernels.plan_sep2d(1, 9, 7, cin, cout, torch.float32)
+    else:
+        plan = kernels.plan_pw1x1(63, cin, cout, torch.float32)
+    assert plan.body == "simt_f32"
+    assert plan.chunks == -(-cin // 16) and plan.chunk == 16
+    tiles_n = -(-cout // plan.bn)
+    per_group = -(-tiles_n // plan.groups)
+    assert (plan.groups - 1) * per_group < tiles_n
+    assert plan.smem <= kernels.SMEM_LIMIT
+    if plan.layout == "resident":
+        assert plan.stages <= plan.chunks
