@@ -10,6 +10,16 @@ checks each kernel against its plain PyTorch version at the shapes the
 featurize paths give it and times both (and the PyTorch library call that
 computes the same function, as a yardstick the port never calls); each
 ``sep2d``/``pw1x1`` row names its launch plan and the body that ran.
+``preproc_resize`` is also held bit for bit against the exact-order
+resize (row taps, then column taps, each multiply and add rounded in
+float32) at 256×256 and 512×384 → 299×299 in float32 and 256×256 in
+bf16, with each shape's launch plan and registers (``preproc_plan``),
+and the kernel gate's verdict on the 256×256 float32 site is printed
+(``preproc_audition``: recorded, not stored). The two bf16 bodies that
+only rows TMA cannot stride reach (``sep2d``'s ``simt_bf16``,
+``pw1x1``'s ``mma``) are checked and timed on inputs 8 bytes off a
+16-byte boundary at 19×19 728→728 and 8×8 2048→448; the main path
+launches neither.
 
 The probe phase checks the three depthwise probes of
 ``sparkdl_tpu_torch/experiments/probe.py`` (``fma9``, ``dw2d``,
@@ -104,7 +114,9 @@ SEP2D_SHAPES = [(147, 147, 64, 128), (37, 37, 256, 728), (19, 19, 728, 728),
 # the last entry of each case is ``relu``
 PW1X1_CASES = [(35, 35, 192, 64, True), (17, 17, 768, 192, True),
                (8, 8, 2048, 448, True), (35, 35, 192, 64, False)]
-PREPROC_SHAPES = [(256, 256), (512, 384)]
+#: (source H, W) and output dtype of each preproc_resize check
+PREPROC_CASES = [((256, 256), torch.float32), ((512, 384), torch.float32),
+                 ((256, 256), torch.bfloat16)]
 TARGET = (299, 299)
 PROFILE = "--profile" in sys.argv[1:]
 #: the launch counter of each kernel gate site kind
@@ -382,43 +394,166 @@ def check_pw1x1(kernels, dev):
     return rows
 
 
+def preproc_ptxas(plan, in_dtype, out_dtype):
+    """Registers and spills of the ``preproc_resize`` kernel ``plan``
+    launches for the dtype pair (None where its mangled name is not
+    found once)."""
+    code = {torch.uint8: "h", torch.float32: "f",
+            torch.bfloat16: "13__nv_bfloat16"}
+    part = (f"preproc_kernelI{code[in_dtype]}{code[out_dtype]}"
+            f"Lb{int(plan.staged)}ELb{int(plan.dense)}E")
+    found = [v for k, v in ptxas_by_function("preproc_resize").items()
+             if part in k]
+    return found[0] if len(found) == 1 else None
+
+
 def check_preproc(kernels, dev):
-    """preproc_resize against plain_preproc and cast + F.interpolate."""
+    """preproc_resize against plain_preproc (within the float32 kernel
+    tolerance, or one bf16 ulp on the [0, 255] scale), bit for bit
+    against the exact-order resize, and timed beside cast +
+    F.interpolate, at the featurize path's resized sources; prints each
+    shape's launch plan (``preproc_plan``: band rows, staged bytes, shared
+    memory, grid, registers)."""
     import torch.nn.functional as F
+
+    from sparkdl_tpu_torch.experiments.preproc_breakdown import exact_order
 
     rows = []
     gen = torch.Generator().manual_seed(SEED + 1)
-    for h, w in PREPROC_SHAPES:
+    for (h, w), out_dtype in PREPROC_CASES:
         x = torch.randint(0, 256, (BATCH, h, w, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
-        y = kernels.preproc_resize(x, TARGET, torch.float32)
-        ref = kernels.plain_preproc(x, TARGET, torch.float32)
+        y = kernels.preproc_resize(x, TARGET, out_dtype)
+        ref = kernels.plain_preproc(x, TARGET, out_dtype)
         torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        limit = F32_KERNEL_REL * max(1.0, float(ref.abs().max()))
+        err = float((y.float() - ref.float()).abs().max())
+        limit = (F32_KERNEL_REL * max(1.0, float(ref.abs().max()))
+                 if out_dtype == torch.float32 else 2.0)
         assert err <= limit, f"preproc {h}x{w}: max|err| {err} > {limit}"
+        exact = torch.equal(y, exact_order(x, *TARGET, out_dtype))
+        assert exact, f"preproc {h}x{w}: not the exact-order resize"
+        plan = kernels.plan_preproc(BATCH, h, w, 3, *TARGET, torch.uint8,
+                                    out_dtype)
+        name = str(out_dtype).replace("torch.", "")
+        emit({"phase": "preproc_plan", "shape": [BATCH, h, w, 3, *TARGET],
+              "dtype": f"uint8->{name}", "band_rows": plan.band_rows,
+              "bands": plan.bands, "staged": plan.staged,
+              "staged_bytes": plan.staged_bytes, "dense": plan.dense,
+              "smem": plan.smem, "grid": list(plan.grid),
+              "blocks": plan.blocks, "note": plan.note,
+              "ptxas": preproc_ptxas(plan, torch.uint8, out_dtype)})
 
         def library():
-            return F.interpolate(x.permute(0, 3, 1, 2).float(), size=TARGET,
-                                 mode="bilinear", align_corners=False,
-                                 antialias=False)
+            return F.interpolate(x.permute(0, 3, 1, 2).to(out_dtype),
+                                 size=TARGET, mode="bilinear",
+                                 align_corners=False, antialias=False)
 
         outs = BATCH * TARGET[0] * TARGET[1] * 3
         flops = outs * 9  # 6 multiplies + 3 adds per output element
-        nbytes = x.numel() + outs * 4
+        nbytes = x.numel() + outs * y.element_size()
         b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
         rows.append({
-            "shape": [BATCH, h, w, 3, *TARGET], "dtype": "uint8->float32",
-            "max_abs_err": err, "tolerance": limit,
-            **timings(lambda: kernels.preproc_resize(x, TARGET,
-                                                     torch.float32),
-                      lambda: kernels.plain_preproc(x, TARGET,
-                                                    torch.float32),
+            "shape": [BATCH, h, w, 3, *TARGET], "dtype": f"uint8->{name}",
+            "max_abs_err": err, "tolerance": limit, "exact_order": exact,
+            "plan": {"band_rows": plan.band_rows, "smem": plan.smem,
+                     "grid": list(plan.grid)},
+            **timings(lambda: kernels.preproc_resize(x, TARGET, out_dtype),
+                      lambda: kernels.plain_preproc(x, TARGET, out_dtype),
                       library),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6})
         emit({"phase": "kernel_check", "kernel": "preproc_resize",
               **rows[-1]})
+    return rows
+
+
+def preproc_audition(kernels, dev):
+    """The gate's verdict on the featurize path's preproc site (16 uint8
+    images of 256×256 → 299×299 float32) under its float32 contract,
+    bit for bit against cast + F.interpolate: recorded, not stored."""
+    site = kernels.Site("preproc", "smoke", (BATCH, 256, 256, 3, *TARGET),
+                        "uint8->float32")
+    verdict = kernels._audition(site, dev)
+    emit({"phase": "preproc_audition", "site": kernels._site_key(site, dev),
+          **verdict})
+    return verdict
+
+
+def unaligned(x):
+    """A copy of ``x`` that starts 8 bytes off a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8 // x.element_size(), dtype=x.dtype,
+                      device=x.device)
+    out = buf[8 // x.element_size():].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+def check_unaligned_bodies(kernels, dev):
+    """The two bf16 bodies that take rows TMA cannot stride, each at a
+    real shape of its path on an input 8 bytes off a 16-byte boundary:
+    ``sep2d``'s ``simt_bf16`` at 19×19 728→728 and ``pw1x1``'s ``mma`` at
+    8×8 2048→448, against their plain versions and library calls. The
+    main path launches neither (its inputs are aligned)."""
+    import torch.nn.functional as F
+
+    rows = []
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for name, (h, w, cin, cout), body in (
+            ("sep2d", (19, 19, 728, 728), "simt_bf16"),
+            ("pw1x1", (8, 8, 2048, 448), "mma")):
+        dt = torch.bfloat16
+        x = unaligned(torch.randn(BATCH, h, w, cin, generator=gen).to(dev, dt))
+        wt = (torch.randn(cout, cin, generator=gen) / cin ** 0.5).to(dev, dt).t()
+        scale = (torch.rand(cout, generator=gen) * 0.5 + 0.5).to(dev)
+        shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        sc, sh = scale.to(dt), shift.to(dt)
+        n = BATCH * h * w
+        if name == "sep2d":
+            dw9 = (torch.randn(9, cin, generator=gen) * 0.2).to(dev, dt)
+            args = (x, dw9, wt, scale, shift)
+            plain = kernels.plain_sep2d
+            plan = kernels.plan_sep2d(BATCH, h, w, cin, cout, dt,
+                                      aligned=False)
+            xn = x.permute(0, 3, 1, 2)
+            w_dw = dw9.t().reshape(cin, 1, 3, 3).contiguous()
+            w_pw = wt.t().reshape(cout, cin, 1, 1).contiguous()
+
+            def library():
+                t = F.conv2d(xn, w_dw, padding=1, groups=cin)
+                return F.conv2d(t, w_pw) * sc.view(1, cout, 1, 1) \
+                    + sh.view(1, cout, 1, 1)
+
+            flops = n * (18 * cin + 2 * cin * cout)
+            nbytes = (n * (cin + cout) + 9 * cin + cin * cout) * 2 \
+                + 2 * cout * 4
+        else:
+            args = (x, wt, scale, shift)
+            plain = kernels.plain_pw1x1
+            plan = kernels.plan_pw1x1(n, cin, cout, dt, aligned=False)
+            x2 = x.reshape(-1, cin)
+
+            def library():
+                return torch.matmul(x2, wt) * sc + sh
+
+            flops = 2 * n * cin * cout
+            nbytes = (n * (cin + cout) + cin * cout) * 2 + 2 * cout * 4
+        fn = getattr(kernels, name)
+        y, ran = launched_body(kernels, name, lambda: fn(*args))
+        assert ran == plan.body == body, (name, ran, plan.body)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        assert err <= kernels.BF16_TOLERANCE, f"{name}/{body}: max|err| {err}"
+        b_ms, b_by = bound_ms(flops, nbytes, dt)
+        rows.append({
+            "kernel": name, "body": body, "shape": [BATCH, h, w, cin, cout],
+            "dtype": "bfloat16", "offset_bytes": 8, "plan": plan_row(plan),
+            "max_abs_err": err, "tolerance": kernels.BF16_TOLERANCE,
+            **timings(lambda: fn(*args), lambda: plain(*args), library),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6})
+        emit({"phase": "kernel_check", **rows[-1]})
     return rows
 
 
@@ -646,7 +781,7 @@ def port_kernel(key: str):
                                          and "splitk_reduce" in key):
             body = next((b for part, b in bodies if part in key), "other")
             return f"{kernel}/{body}"
-    if "preproc_resize" in key:
+    if "preproc_kernel" in key or "preproc_resize" in key:
         return "preproc_resize"
     return None
 
@@ -806,6 +941,8 @@ def main() -> int:
     sep_rows = check_sep2d(kernels, dev)
     pw_rows = check_pw1x1(kernels, dev)
     pre_rows = check_preproc(kernels, dev)
+    preproc_audition(kernels, dev)
+    odd_rows = check_unaligned_bodies(kernels, dev)
     probe_rows = check_probes(probe, dev)
 
     phases = {name: main_path(s, kernels, name, model, size, per_forward,
@@ -866,11 +1003,13 @@ def main() -> int:
     del os.environ[kernels.COMPILE_CACHE_DIR_ENV]
     s.EngineConfig.inference_precision = "bfloat16"
 
-    def summary(name, source, replaces, rows, headline, by_phase=None):
+    def summary(name, source, replaces, rows, headline, by_phase=None,
+                on_path=True):
         if by_phase is None:
             by_phase = {p: out["launches"][name] for p, out in phases.items()}
         launches = sum(by_phase.values())
-        assert launches > 0, f"{name} never launched on the main path"
+        assert launches > 0 or not on_path, \
+            f"{name} never launched on the main path"
         by_body = {}
         for out in phases.values():
             for body, n in out["launches_by_body"].get(name, {}).items():
@@ -893,12 +1032,15 @@ def main() -> int:
                     if k in row})
         return out
 
-    def body_summary(name, source, replaces, rows, headline, body):
-        """One body of a kernel: its launches on the main path by phase,
-        its rows, its headline shape."""
+    def body_summary(name, source, replaces, rows, headline, body,
+                     on_path=True):
+        """One body of a kernel: its launches on the main path by phase
+        (none for a body only unaligned inputs take), its rows, its
+        headline shape."""
         by_phase = {p: out["launches_by_body"][name][body]
                     for p, out in phases.items()}
-        out = summary(name, source, replaces, rows, headline, by_phase)
+        out = summary(name, source, replaces, rows, headline, by_phase,
+                      on_path)
         out.update(name=f"{name}_{body}", body=body,
                    plan=headline["plan"], ptxas=headline.get("ptxas"))
         return out
@@ -931,6 +1073,12 @@ def main() -> int:
                      next(r for r in pw_f32
                           if r["shape"][1:] == [8, 8, 2048, 448]),
                      "simt_f32"),
+        body_summary("sep2d", "sparkdl_tpu_torch/csrc/sep2d.cu",
+                     "sparkdl_tpu/core/kernels.py:454", odd_rows[:1],
+                     odd_rows[0], "simt_bf16", on_path=False),
+        body_summary("pw1x1", "sparkdl_tpu_torch/csrc/pw1x1.cu",
+                     "sparkdl_tpu/core/kernels.py:516", odd_rows[1:],
+                     odd_rows[1], "mma", on_path=False),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,8 +26,12 @@ body that ran.
 a call's shape and dtype alone, the body (bf16 on the Hopper tensor-core
 mainloop of ``csrc/wgmma_bf16.cuh`` wherever TMA can stride the rows,
 else a SIMT or ``mma.sync`` body; float32 on the SIMT mainloop of
-``csrc/simt_f32.cuh``), its tile, its ring and its split of K. The C launchers check the plan they are given and refuse one they
-cannot run; the CPU tests hold the plans at every main-path site.
+``csrc/simt_f32.cuh``), its tile, its ring and its split of K;
+:func:`plan_preproc` the band of output rows a block owns, the source
+rows it stages and its shared-memory layout, with the tap tables of
+:func:`preproc_tables`. The C launchers check the plan they are given
+and refuse one they cannot run; the CPU tests hold the plans at every
+main-path site.
 
 **The gate.** Models never call the kernels; they call ``route_*``
 (``models/layers.py``, ``ModelFunction.resized``), which returns the
@@ -763,19 +767,210 @@ def _resize_taps(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, wgt
 
 
-_device_taps_cache: Dict[Tuple[int, int, str], Tuple[torch.Tensor,
-                                                      torch.Tensor]] = {}
+#: The band heights a :func:`preproc_resize` plan tries, tallest first.
+_PREPROC_BAND_ROWS = (16, 8, 4, 2, 1)
+#: Shared memory a block takes at most where it can, so that four blocks
+#: share an SM (228 KB an SM, less 1 KB a block), and the blocks a plan
+#: wants at least: one block's staging then overlaps another's stores.
+_PREPROC_SMEM_TARGET = 57 * 1024
+_PREPROC_MIN_BLOCKS = 2 * SMS
+#: The block's mbarrier, then one 16-byte record per band row.
+_PREPROC_INFO_OFF = 16
 
 
-def _device_taps(src: int, dst: int, device: torch.device):
-    key = (src, dst, str(device))
-    taps = _device_taps_cache.get(key)
-    if taps is None:
-        idx, wgt = _resize_taps(src, dst)
-        taps = (torch.from_numpy(idx).to(device),
-                torch.from_numpy(wgt).to(device))
-        _device_taps_cache[key] = taps
-    return taps
+@dataclass(frozen=True)
+class PreprocPlan:
+    """How one :func:`preproc_resize` call runs. A block of 256 threads
+    owns a band of ``band_rows`` output rows of one image
+    (``grid`` = (bands, images, 1); the last band may be shorter).
+    ``staged``: the block stages the source rows its band taps in shared
+    memory, as ``runs[k]``, band k's runs of consecutive source rows,
+    each (first row, rows, byte offset in the staging area), the area
+    ``staged_bytes`` at most (a run's slot rounded up to 16 bytes, plus
+    16 for its address modulo 16), at most ``run_stride`` runs a band;
+    otherwise the vertical pass reads the image in device memory and
+    ``runs`` is empty. ``dense``: every source
+    column is tapped (else a table compacts the tapped ones); ``nxc``
+    floats make one row of the vertical pass, (tapped columns) × C.
+    ``src_off``, ``t_off`` and ``out_off`` place the staging area, the
+    vertical pass's rows and the band's output image in the block's
+    ``smem`` bytes. ``note`` says why a plan stays under its targets."""
+
+    th: int
+    band_rows: int
+    runs: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+    run_stride: int
+    staged: bool
+    dense: bool
+    nxc: int
+    staged_bytes: int
+    src_off: int
+    t_off: int
+    out_off: int
+    smem: int
+    grid: Tuple[int, int, int]
+    note: str = ""
+
+    @property
+    def bands(self) -> int:
+        return self.grid[0]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def band(self, k: int) -> Tuple[int, int]:
+        """Band k's output rows, ``[begin, end)``."""
+        return k * self.band_rows, min((k + 1) * self.band_rows, self.th)
+
+
+def _align16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def _band_runs(taps: np.ndarray, row_bytes: int
+               ) -> Tuple[Tuple[int, int, int], ...]:
+    """The runs that stage the source rows ``taps`` (a band's (rows, 2)
+    row taps) name: consecutive rows, a gap of one row bridged (a copy
+    of one more row is cheaper than another run), each with its byte
+    offset in the staging area."""
+    spans = []
+    for row in sorted(set(int(r) for r in taps.ravel())):
+        if spans and row <= spans[-1][1] + 1:
+            spans[-1][1] = row
+        else:
+            spans.append([row, row])
+    runs, offset = [], 0
+    for first, last in spans:
+        runs.append((first, last - first + 1, offset))
+        offset += _align16((last - first + 1) * row_bytes) + 16
+    return tuple(runs)
+
+
+def _preproc_layout(band_rows: int, staged_bytes: int, nxc: int, twc: int,
+                    out_item: int) -> Tuple[int, int, int, int]:
+    """(src_off, t_off, out_off, smem) of a block: the mbarrier and the
+    band-row records, the staging area, the vertical pass's float32
+    rows, then the band's output image and 16 bytes for its shift."""
+    src_off = _align16(_PREPROC_INFO_OFF + 16 * band_rows)
+    t_off = src_off + staged_bytes
+    out_off = t_off + _align16(4 * band_rows * nxc)
+    return src_off, t_off, out_off, out_off + _align16(
+        band_rows * twc * out_item) + 16
+
+
+@functools.lru_cache(maxsize=256)
+def plan_preproc(b: int, h: int, w: int, c: int, th: int, tw: int,
+                 in_dtype, out_dtype,
+                 band_rows: Optional[int] = None) -> PreprocPlan:
+    """The launch plan of :func:`preproc_resize` for ``b`` images of
+    ``h × w × c`` to ``th × tw``: the tallest band (16, 8, 4, 2 or 1
+    output rows) whose block fits four to an SM while the grid keeps two
+    blocks an SM, else the shortest that fits at all; its source rows
+    staged in shared memory where one band's fit (a steep downscale
+    stages two rows an output row), else read from device memory.
+    ``band_rows`` pins the band height. Raises ValueError for a call one
+    block cannot hold: an output row's float32 pass and output image
+    over the shared memory, over 65,535 images, or an image of 2³¹
+    elements."""
+    if min(b, h, w, c, th, tw) <= 0:
+        raise ValueError(f"preproc_resize: empty shape {(b, h, w, c)} -> "
+                         f"{(th, tw)}")
+    if b > 65535 or h * w * c >= 2 ** 31 or th * tw * c >= 2 ** 31:
+        raise ValueError(f"preproc_resize: {b} images of {h}x{w}x{c} -> "
+                         f"{th}x{tw} exceed the launch's 32-bit indices")
+    item, out_item = in_dtype.itemsize, out_dtype.itemsize
+    ytaps = _resize_taps(h, th)[0]
+    columns = len(np.unique(_resize_taps(w, tw)[0]))
+    nxc, twc, row_bytes = columns * c, tw * c, w * c * item
+    heights = _PREPROC_BAND_ROWS if band_rows is None else (band_rows,)
+    for staged in (True, False):
+        fits = []
+        for r in heights:
+            runs = tuple(_band_runs(ytaps[k * r:(k + 1) * r], row_bytes)
+                         for k in range(_cdiv(th, r))) if staged else ()
+            staged_bytes = max((o + _align16(n * row_bytes) + 16
+                                for band in runs for _, n, o in band[-1:]),
+                               default=0)
+            layout = _preproc_layout(r, staged_bytes, nxc, twc, out_item)
+            if layout[3] <= SMEM_LIMIT:
+                fits.append((r, runs, staged_bytes, layout))
+        if not fits:
+            continue
+        pick = next((f for f in fits if f[3][3] <= _PREPROC_SMEM_TARGET
+                     and _cdiv(th, f[0]) * b >= _PREPROC_MIN_BLOCKS),
+                    fits[-1])
+        r, runs, staged_bytes, layout = pick
+        blocks = _cdiv(th, r) * b
+        notes = [] if staged else ["one output row's source rows do not "
+                                   "fit: the vertical pass reads device "
+                                   "memory"]
+        if blocks < _PREPROC_MIN_BLOCKS:
+            notes.append(f"{th} output rows of {b} images make {blocks} "
+                         f"blocks at bands of {r}")
+        elif layout[3] > _PREPROC_SMEM_TARGET:
+            notes.append(f"a band of {r} takes {layout[3]} bytes: under "
+                         "four blocks an SM")
+        return PreprocPlan(th, r, runs, max(map(len, runs), default=0),
+                           staged, columns == w, nxc, staged_bytes, *layout,
+                           (_cdiv(th, r), b, 1), note="; ".join(notes))
+    raise ValueError(
+        f"preproc_resize: one output row of {tw}x{c} ({out_dtype}) and its "
+        f"float32 pass over {nxc} source values exceed {SMEM_LIMIT} bytes "
+        "of shared memory")
+
+
+@functools.lru_cache(maxsize=64)
+def preproc_tables(plan: PreprocPlan, h: int, w: int, c: int, tw: int
+                   ) -> Dict[str, Optional[np.ndarray]]:
+    """The tables a :func:`preproc_resize` launch reads, int32 (weights
+    as their float32 bits):
+
+    - ``runs`` (bands · run_stride, 4), when staged: each band's runs
+      (first source row, rows, byte offset, 0), the band's count in its
+      first run's last field;
+    - ``rowtab`` (th, 4): each output row's two row taps and, when
+      staged, the runs (of its band) that hold them; ``ywt`` (th, 2)
+      float32, their weights;
+    - ``vsrc`` (nxc,): the source (column, channel) of each value of a
+      vertical-pass row, None when dense;
+    - ``htab`` (tw·c, 4): each output (column, channel)'s two indices into
+      that row and its two column weights."""
+    ytaps, ywt = _resize_taps(h, plan.th)
+    xtaps, xwt = _resize_taps(w, tw)
+    columns = np.unique(xtaps)
+    slot = np.zeros(w, np.int64)
+    slot[columns] = np.arange(len(columns))
+    ch = np.arange(c)
+    htab = np.stack([(slot[xtaps[:, 0]][:, None] * c + ch).ravel(),
+                     (slot[xtaps[:, 1]][:, None] * c + ch).ravel(),
+                     np.repeat(xwt[:, 0], c).view(np.int32),
+                     np.repeat(xwt[:, 1], c).view(np.int32)],
+                    axis=1).astype(np.int32)
+    rowtab = np.zeros((plan.th, 4), np.int32)
+    rowtab[:, :2] = ytaps
+    runs = np.zeros((len(plan.runs), max(plan.run_stride, 1), 4), np.int32)
+    for k, band in enumerate(plan.runs):
+        begin, end = plan.band(k)
+        for tap in (0, 1):
+            rows = ytaps[begin:end, tap]
+            for i, (first, n, _) in enumerate(band):
+                rowtab[begin:end, 2 + tap][(rows >= first)
+                                           & (rows < first + n)] = i
+        runs[k, :len(band), :3] = band
+        runs[k, 0, 3] = len(band)
+    return {"runs": runs.reshape(-1, 4) if plan.staged else None,
+            "rowtab": rowtab, "ywt": np.ascontiguousarray(ywt),
+            "vsrc": None if plan.dense else
+            (columns[:, None] * c + ch).ravel().astype(np.int32),
+            "htab": htab}
+
+
+@functools.lru_cache(maxsize=64)
+def _device_preproc_tables(plan: PreprocPlan, h: int, w: int, c: int,
+                           tw: int, device: str):
+    return {k: None if v is None else torch.from_numpy(v).to(device)
+            for k, v in preproc_tables(plan, h, w, c, tw).items()}
 
 
 def plain_preproc(x, target_hw: Tuple[int, int], out_dtype):
@@ -793,7 +988,8 @@ def plain_preproc(x, target_hw: Tuple[int, int], out_dtype):
 
 def preproc_resize(x, target_hw: Tuple[int, int], out_dtype):
     """Fused cast + bilinear resize: ``(B, H, W, C)`` uint8, float32 or
-    bfloat16 → ``(B, th, tw, C)`` in ``out_dtype`` (float32/bfloat16)."""
+    bfloat16 → ``(B, th, tw, C)`` in ``out_dtype`` (float32/bfloat16), one
+    launch planned by :func:`plan_preproc`."""
     if not _on_card(x, "preproc_resize"):
         return plain_preproc(x, target_hw, out_dtype)
     if x.dim() != 4:
@@ -808,32 +1004,51 @@ def preproc_resize(x, target_hw: Tuple[int, int], out_dtype):
     b, h, w, c = x.shape
     th, tw = int(target_hw[0]), int(target_hw[1])
     _check(x, "x", x.device, x.dtype, (b, h, w, c))
-    ytap, ywt = _device_taps(h, th, x.device)
-    xtap, xwt = _device_taps(w, tw, x.device)
     out = torch.empty((b, th, tw, c), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _preproc_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), ytap.data_ptr(),
-                 ywt.data_ptr(), xtap.data_ptr(), xwt.data_ptr(),
-                 b, h, w, c, th, tw, _DTYPE_CODES[x.dtype],
-                 _DTYPE_CODES[out_dtype], stream)
-    _raise_on_error(err, "preproc_resize")
+    launch_preproc(_preproc_fn(), x, out,
+                   plan_preproc(b, h, w, c, th, tw, x.dtype, out_dtype))
     launches["preproc_resize"] += 1
     return out
+
+
+def launch_preproc(fn, x: torch.Tensor, out: torch.Tensor,
+                   plan: PreprocPlan) -> None:
+    """One launch of ``fn`` (``sparkdl_preproc_resize`` of a library built
+    from ``csrc/preproc_resize.cu``) under ``plan``; raises if the
+    launch is refused."""
+    b, h, w, c = x.shape
+    th, tw = out.shape[1:3]
+    tabs = _device_preproc_tables(plan, h, w, c, tw, str(x.device))
+
+    def ptr(name):
+        t = tabs[name]
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), ptr("runs"), ptr("rowtab"),
+                 ptr("ywt"), ptr("vsrc"), ptr("htab"), b, h, w * c, th,
+                 tw * c, plan.band_rows, plan.nxc, plan.run_stride,
+                 plan.src_off, plan.t_off, plan.out_off,
+                 plan.smem, int(plan.staged), _DTYPE_CODES[x.dtype],
+                 _DTYPE_CODES[out.dtype], stream)
+    _raise_on_error(err, "preproc_resize")
+
+
+#: ``sparkdl_preproc_resize``'s parameters: seven pointers, fifteen
+#: ints, the stream.
+_PREPROC_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
+                     + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _preproc_fn():
     fn = cuda_build.library("preproc_resize").sparkdl_preproc_resize
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    fn.argtypes = _PREPROC_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
-
-
 
 
 # ---------------------------------------------------------------------------

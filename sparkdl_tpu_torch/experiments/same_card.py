@@ -6,13 +6,16 @@
 with ``git archive``). In the order OTHER, this, this, OTHER, a child
 process per turn imports that checkout's ``chip_smoke.py`` and port,
 builds its kernels into its own ``build/`` and runs the kernel checks
-(``check_sep2d``, ``check_pw1x1``, ``check_preproc``: each kernel against
-its plain version at its path's shapes, CUDA-event ms) and the probe
-script's ``main()`` (the three probes and their yardsticks, µs per
-application chained in CUDA graphs). Turns in this order put a drift of
-the card's clocks on both checkouts alike. Prints one JSON row per
-(kernel, shape, dtype, relu) with the four times, in turn order; needs
-the card.
+(``check_sep2d``, ``check_pw1x1``, ``check_preproc`` and, where the
+checkout has it, ``check_unaligned_bodies``: each kernel against its
+plain version at its path's shapes, CUDA-event ms and, from
+``torch.profiler``, device ms: a kernel of a few µs is hidden by its
+host launch in event ms) and the probe script's ``main()`` (the three
+probes and their yardsticks, µs per application chained in CUDA
+graphs). Turns in this order put a drift of the card's clocks on both
+checkouts alike. Prints one JSON row per (kernel, shape, dtype, relu,
+body) with the four times of each kind, in turn order (None in the
+turns of a checkout without that row); needs the card.
 """
 
 from __future__ import annotations
@@ -34,12 +37,15 @@ from sparkdl_tpu_torch.core import cuda_build, kernels
 from sparkdl_tpu_torch.experiments import probe
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+cs.PROFILE = True  # device ms from torch.profiler beside the event ms
 cuda_build.build_all()
 dev = torch.device("cuda")
 s.EngineConfig.pallas_kernels = "force"
 cs.check_sep2d(kernels, dev)
 cs.check_pw1x1(kernels, dev)
 cs.check_preproc(kernels, dev)
+if hasattr(cs, "check_unaligned_bodies"):
+    cs.check_unaligned_bodies(kernels, dev)
 times = probe.main(dev)
 print(json.dumps({"phase": "probe_main", "us_per_app": {
     k: v["us_per_app"] for k, v in times.items()}}), flush=True)
@@ -48,8 +54,10 @@ print(json.dumps({"phase": "probe_main", "us_per_app": {
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def run_turn(checkout: Path) -> Dict[str, float]:
-    """The kernel times of one checkout: ``{row key: ms}``."""
+def run_turn(checkout: Path) -> Dict[str, Dict[str, float]]:
+    """The kernel times of one checkout: ``{row key: {"ms": event ms,
+    "device_ms": device ms}}`` (the probes' µs per application chained
+    in CUDA graphs, under "ms")."""
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=checkout,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
@@ -62,11 +70,12 @@ def run_turn(checkout: Path) -> Dict[str, float]:
         row = json.loads(line)
         if row.get("phase") == "kernel_check":
             key = [row["kernel"], row["shape"], row["dtype"],
-                   row.get("relu")]
-            times[json.dumps(key)] = row["ms"]
+                   row.get("relu"), row.get("body")]
+            times[json.dumps(key)] = {"ms": row["ms"],
+                                      "device_ms": row.get("device_ms")}
         elif row.get("phase") == "probe_main":
             for name, us in row["us_per_app"].items():
-                times[json.dumps(["probe", name])] = us / 1e3
+                times[json.dumps(["probe", name])] = {"ms": us / 1e3}
     return times
 
 
@@ -75,10 +84,13 @@ def main(other: Path) -> List[dict]:
              ("other", other)]
     results = [run_turn(path) for _, path in turns]
     rows = []
-    for key in results[0]:
-        rows.append({"key": json.loads(key),
-                     "ms": {f"{i}_{label}": results[i].get(key)
-                            for i, (label, _) in enumerate(turns)}})
+    # rows of either checkout, the other's first (a row only one has
+    # shows None in the other's turns)
+    for key in dict.fromkeys(k for result in results for k in result):
+        rows.append({"key": json.loads(key), **{
+            kind: {f"{i}_{label}": results[i].get(key, {}).get(kind)
+                   for i, (label, _) in enumerate(turns)}
+            for kind in ("ms", "device_ms")}})
         print(json.dumps(rows[-1]), flush=True)
     return rows
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from sparkdl_tpu_torch.core import kernels
+from sparkdl_tpu_torch.experiments.preproc_breakdown import exact_order
 
 EPS = 1e-3
 
@@ -277,6 +278,61 @@ def test_preproc_resize_matches_plain(card, in_dtype, out_dtype, src, dst):
     # bf16 output on the [0, 255] scale: one bf16 ulp is 1.0 there
     assert err <= (_f32_bound(ref.float()) if out_dtype == torch.float32
                    else 2.0), err
+
+
+def _preproc_input(card, shape, dtype, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=gen,
+                             dtype=torch.uint8).to(card)
+    return (torch.randn(shape, generator=gen) * 60.0).to(card, dtype)
+
+
+#: (B, H, W, C, TH, TW): odd batches (unaligned image bases); an upscale
+#: whose rows are 51 elements (no multiple of 16 bytes), a downscale at
+#: C = 4, the identity at C = 1, one output row, a steep downscale, the
+#: featurize path's 256×256 source, and rows too wide to stage in float32
+PREPROC_EXACT = [(3, 13, 17, 3, 29, 23), (3, 40, 36, 4, 32, 32),
+                 (5, 17, 13, 1, 17, 13), (3, 20, 30, 3, 1, 7),
+                 (3, 600, 600, 3, 3, 3), (3, 256, 256, 3, 299, 299),
+                 (1, 2, 15000, 4, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32,
+                                      torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PREPROC_EXACT, ids=str)
+def test_preproc_resize_is_the_exact_order(card, shape, in_dtype, out_dtype):
+    """Bit for bit the exact-order resize, and within the tolerance of
+    ``plain_preproc``, for every dtype pair and plan mode."""
+    b, h, w, c, th, tw = shape
+    x = _preproc_input(card, (b, h, w, c), in_dtype)
+    before = kernels.launches["preproc_resize"]
+    y = kernels.preproc_resize(x, (th, tw), out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.launches["preproc_resize"] == before + 1
+    assert torch.equal(y, exact_order(x, th, tw, out_dtype))
+    ref = kernels.plain_preproc(x, (th, tw), out_dtype)
+    err = float((y.float() - ref.float()).abs().max())
+    # bf16: the old bound of 2.0 on the [0, 255] scale, scaled with |ref|
+    assert err <= (_f32_bound(ref.float()) if out_dtype == torch.float32
+                   else 2.0 * max(1.0, float(ref.float().abs().max()) / 255)
+                   ), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band_rows", [1, 2, 3, 5, 8, 16])
+def test_preproc_resize_at_every_band_height(card, band_rows):
+    """Plans pinned to other band heights (more runs, ragged last bands,
+    other shared-memory layouts) give the same bits."""
+    x = _preproc_input(card, (3, 256, 256, 3), torch.uint8, seed=4)
+    out = torch.empty((3, 299, 299, 3), device=card)
+    plan = kernels.plan_preproc(3, 256, 256, 3, 299, 299, torch.uint8,
+                                torch.float32, band_rows=band_rows)
+    kernels.launch_preproc(kernels._preproc_fn(), x, out, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, exact_order(x, 299, 299, torch.float32))
 
 
 @pytest.mark.cuda
