@@ -9,7 +9,9 @@ key on them). ``BucketPlanner`` is not ported yet.
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import threading
+import weakref
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +37,59 @@ def bucket_size(n: int, batch_size: int, min_bucket: int = 8) -> int:
     return max(min(b, batch_size), n)
 
 
+def element_signature(array: np.ndarray) -> Tuple:
+    """(element shape, dtype) of a dim-0-batched array: the identity
+    under which rows are interchangeable."""
+    return (tuple(array.shape[1:]), str(array.dtype))
+
+
+# (id(fn), element signature) -> (a weak reference to fn, the output's
+# element shape and numpy dtype). fn is held weakly, so the memo never
+# keeps a discarded model alive; the stored reference also guards against
+# an id() reused by another fn.
+_EMPTY_TEMPLATES: Dict[Tuple, Tuple[Callable[[], Any], Tuple]] = {}
+_EMPTY_LOCK = threading.Lock()
+
+
+def _empty_result(fn: Callable, array: np.ndarray,
+                  batch_size: int) -> np.ndarray:
+    """Zero-row output with ``fn``'s output element shape and dtype (a
+    bfloat16 output as float32, as :func:`run_batched` returns it).
+
+    The shape comes from one pass of ``fn`` on meta tensors at
+    ``batch_size`` rows (``fn.__sparkdl_trace_target__`` when present:
+    the abstract version of a compiled fn), memoized per (fn, element
+    signature): every later empty call rebuilds the array from the
+    memo."""
+    key = (id(fn), element_signature(array))
+    with _EMPTY_LOCK:
+        hit = _EMPTY_TEMPLATES.get(key)
+    if hit is None or hit[0]() is not fn:
+        dtype = torch.from_numpy(np.zeros((0,), array.dtype)).dtype
+        dummy = torch.empty((batch_size,) + tuple(array.shape[1:]),
+                            dtype=dtype, device="meta")
+        out = getattr(fn, "__sparkdl_trace_target__", fn)(dummy)
+        out_dtype = (torch.float32 if out.dtype == torch.bfloat16
+                     else out.dtype)
+        template = (tuple(out.shape[1:]),
+                    torch.empty(0, dtype=out_dtype).numpy().dtype)
+
+        def _drop(_ref, _key=key):
+            with _EMPTY_LOCK:
+                _EMPTY_TEMPLATES.pop(_key, None)
+
+        try:
+            ref: Callable[[], Any] = weakref.ref(fn, _drop)
+        except TypeError:  # not weakly referable: a strong reference
+            ref = (lambda _fn=fn: _fn)
+        with _EMPTY_LOCK:
+            _EMPTY_TEMPLATES[key] = (ref, template)
+    else:
+        template = hit[1]
+    shape, dtype = template
+    return np.zeros((0,) + shape, dtype=dtype)
+
+
 def run_batched(fn: Callable[[torch.Tensor], torch.Tensor],
                 array: np.ndarray, batch_size: int,
                 device: torch.device) -> np.ndarray:
@@ -44,10 +99,11 @@ def run_batched(fn: Callable[[torch.Tensor], torch.Tensor],
     buffer and uploaded with ONE host-to-device copy; pad rows are sliced
     off on the device, the chunk outputs concatenated there, and the
     result fetched with one device-to-host copy (a bfloat16 result as
-    float32)."""
+    float32). Zero rows give a zero-row array of the output's element
+    shape (:func:`_empty_result`)."""
     n = array.shape[0]
     if n == 0:
-        raise ValueError("run_batched needs at least one row")
+        return _empty_result(fn, array, batch_size)
     pin = device.type == "cuda"
     outs: List[torch.Tensor] = []
     for start in range(0, n, batch_size):

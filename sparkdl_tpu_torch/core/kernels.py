@@ -1294,15 +1294,27 @@ class _Calls(torch.nn.Module):
         return self._fn(x)
 
 
-def _run_on_meta(fn: Callable, x: torch.Tensor, variables) -> None:
+def _run_on_meta(fn: Callable, x: torch.Tensor, variables):
     meta_x = torch.empty_like(x, device="meta")
     if not isinstance(variables, torch.nn.Module):
-        fn(meta_x)
-        return
+        return fn(meta_x)
     named = list(variables.named_parameters()) \
         + list(variables.named_buffers())
     meta = {f"variables.{name}": t.to("meta") for name, t in named}
-    torch.func.functional_call(_Calls(fn, variables), meta, (meta_x,))
+    return torch.func.functional_call(_Calls(fn, variables), meta,
+                                      (meta_x,))
+
+
+def _abstract_pass(fn: Callable, x: torch.Tensor, variables
+                   ) -> Tuple[Counter, Any]:
+    sites: Counter = Counter()
+    prev = _collecting()
+    _collect.sites = sites
+    try:
+        out = _run_on_meta(fn, x, variables)
+    finally:
+        _collect.sites = prev
+    return sites, out
 
 
 def collect_sites(fn: Callable, x: torch.Tensor,
@@ -1315,14 +1327,14 @@ def collect_sites(fn: Callable, x: torch.Tensor,
     during the pass. Every route returns None before it touches a
     tensor: no kernel launches. An operation with no meta version makes
     the pass raise."""
-    sites: Counter = Counter()
-    prev = _collecting()
-    _collect.sites = sites
-    try:
-        _run_on_meta(fn, x, variables)
-    finally:
-        _collect.sites = prev
-    return sites
+    return _abstract_pass(fn, x, variables)[0]
+
+
+def abstract_output(fn: Callable, x: torch.Tensor, variables=None):
+    """``fn(x)``'s output as meta tensors (its shape and dtype), from the
+    same pass as :func:`collect_sites`: nothing is computed and no kernel
+    launches (the JAX package's ``jax.eval_shape``)."""
+    return _abstract_pass(fn, x, variables)[1]
 
 
 def ensure_autotuned(fn: Callable, x: torch.Tensor, model: str = "model",

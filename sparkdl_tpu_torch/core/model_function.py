@@ -243,6 +243,8 @@ class ModelFunction:
                 self._autotuned_shapes.add(key)
             return self(x)
 
+        run.__sparkdl_trace_target__ = lambda x: kernels.abstract_output(
+            self, x.to(spec_dtype), self.variables)
         return batching.run_batched(run, array, batch_size, device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

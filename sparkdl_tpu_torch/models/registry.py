@@ -43,6 +43,23 @@ _TORCH_MEAN = (0.485, 0.456, 0.406)
 _TORCH_STD = (0.229, 0.224, 0.225)
 
 
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def _constant(values: Tuple[float, ...], like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a tensor of ``like``'s dtype on its device, made once
+    per (values, dtype, device): a forward makes no host-to-device copy
+    of its own, so it can be captured in a CUDA graph."""
+    key = (values, like.dtype, like.device)
+    const = _CONSTANTS.get(key)
+    if const is None:
+        with torch.inference_mode(False):  # usable outside inference too
+            const = torch.tensor(values, dtype=like.dtype,
+                                 device=like.device)
+        const = _CONSTANTS.setdefault(key, const)
+    return const
+
+
 def preprocess_tf_mode(x: torch.Tensor) -> torch.Tensor:
     """keras 'tf' mode: scale to [-1, 1]."""
     return x / 127.5 - 1.0
@@ -51,15 +68,13 @@ def preprocess_tf_mode(x: torch.Tensor) -> torch.Tensor:
 def preprocess_caffe_mode(x: torch.Tensor) -> torch.Tensor:
     """keras 'caffe' mode: RGB->BGR, subtract ImageNet means."""
     x = x.flip(-1)
-    return x - torch.tensor(_CAFFE_MEAN, dtype=x.dtype, device=x.device)
+    return x - _constant(_CAFFE_MEAN, x)
 
 
 def preprocess_torch_mode(x: torch.Tensor) -> torch.Tensor:
     """keras 'torch' mode: [0,1] scale then ImageNet RGB mean/std."""
     x = x / 255.0
-    mean = torch.tensor(_TORCH_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(_TORCH_STD, dtype=x.dtype, device=x.device)
-    return (x - mean) / std
+    return (x - _constant(_TORCH_MEAN, x)) / _constant(_TORCH_STD, x)
 
 
 def preprocess_identity(x: torch.Tensor) -> torch.Tensor:
