@@ -79,9 +79,28 @@ from the store with no audition.
 Each phase is checked against the port's own CPU run of the same weights
 on two images, and the launch counters, set to 0 just before the phase and
 read just after, show that it went through exactly the kernels it should.
+
+Every featurize phase runs through captured CUDA graphs
+(``ModelFunction.jitted``): its warm-up pass captures one graph per bucket
+rung (``graphs``, ``rungs``, ``capture_s``), and its counted pass only
+replays them (each replay adds the launches its capture recorded to the
+counters). Each phase line also holds the graphs' outputs
+``torch.equal`` to the eager forward of the same padded chunks
+(``graph_equal``), the images per second of the counted pass
+(``images_per_s``) and of the same chunks through the graphs and through
+the eager forward, each with its upload and fetch
+(``graph_forward_images_per_s``, ``eager_images_per_s``: a yardstick the
+path never takes), and the counted pass's phase timers (``phase_stats``,
+``host_ms_per_partition``), ``overlap_stats()``, its staging streams'
+summed ``PrefetchStats`` and its health counters.
+``featurize_native_multichunk`` featurizes one partition of 40 images at
+batch 16: chunks of 16, 16 and 8, so two graphs, staged ahead on the
+prefetch thread.
+
 ``--profile`` adds device times from ``torch.profiler`` beside each event
 time, and one profiled pass per phase: device time by kernel, the device
-time of each of the port's kernels by body, and the device's idle share.
+time of each of the port's kernels by body, and the device's idle share
+(also in the phase line, with those of the graph and eager yardsticks).
 
 Prints one JSON object per phase; the line before the last is the kernels
 summary and the card's ``name, power.limit``; the last line is the
@@ -699,18 +718,23 @@ def model_state(s, feat):
             for k, v in model_function(s, feat).variables.state_dict().items()}
 
 
-def autotune_expectation(s, kernels, feat, size, dev):
-    """The verdict of every kernel site the phase's model routes through
-    (each must have one) and the launches per forward they predict: the
-    calls per forward of each adopted site. The model is the one the
-    executor ran: flattened, resized if needed, in the configured
-    precision (each wrapper is memoized, so these are the same objects)."""
-    from sparkdl_tpu_torch.core.model_function import torch_dtype
-
+def executed_model(s, feat, size):
+    """The model the executor ran: flattened, resized if needed, in the
+    configured precision (each wrapper is memoized, so these are the same
+    objects, holding the same captured graphs)."""
     run = model_function(s, feat).flattened()
     if tuple(size) != TARGET:
         run = run.resized(size, TARGET)
-    run = run.with_dtype(s.EngineConfig.inference_precision)
+    return run.with_dtype(s.EngineConfig.inference_precision)
+
+
+def autotune_expectation(s, kernels, feat, size, dev):
+    """The verdict of every kernel site the phase's model routes through
+    (each must have one) and the launches per forward they predict: the
+    calls per forward of each adopted site."""
+    from sparkdl_tpu_torch.core.model_function import torch_dtype
+
+    run = executed_model(s, feat, size)
     per_forward, verdicts = {}, []
     if not run.kernel_routable:  # bf16, as in the reference: no site
         return per_forward, verdicts
@@ -731,9 +755,52 @@ def autotune_expectation(s, kernels, feat, size, dev):
     return per_forward, verdicts
 
 
-def profile_pass(name, feat, df, top: int = 12):
-    """One more featurize pass under ``torch.profiler``: device time by
-    kernel and the device's idle share of the pass's wall time."""
+def graph_vs_eager(run, images, dev, repeats: int = 3):
+    """The phase's padded chunks (the power-of-two ladder, as the path's
+    cold planner pads them) through its captured graphs and through the
+    eager forward of the same model, each with its upload and its one
+    fetch: whether every graph output is ``torch.equal`` to the eager
+    one, and the images per second of each (the median of ``repeats``
+    passes). The eager forward is a yardstick the path never takes."""
+    from sparkdl_tpu_torch.core import batching
+    from sparkdl_tpu_torch.core.model_function import torch_dtype
+
+    compiled = run.jitted(dev)
+    spec = torch_dtype(run.input_spec.dtype)
+    chunks = [(torch.from_numpy(c).pin_memory(), n) for c, n in
+              batching.iter_batches(np.stack(images), BATCH)]
+
+    def graph_pass():
+        outs = [compiled(c, n) for c, n in chunks]
+        return torch.cat(outs).float().cpu(), outs
+
+    def eager_pass():
+        outs = [run(c.to(dev, non_blocking=True).to(spec))[:n]
+                for c, n in chunks]
+        return torch.cat(outs).float().cpu(), outs
+
+    with torch.inference_mode():
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(graph_pass()[1], eager_pass()[1]))
+        rates = {}
+        for label, fn in (("graph", graph_pass), ("eager", eager_pass)):
+            times = []
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            rates[label] = len(images) / sorted(times)[len(times) // 2]
+        idle = {}
+        if PROFILE:
+            for label, fn in (("graph", graph_pass), ("eager", eager_pass)):
+                idle[label] = profiled(fn)["idle_share"]
+    return equal, rates, idle
+
+
+def profiled(fn):
+    """``fn()`` once under ``torch.profiler``: wall ms, device busy ms,
+    the device's idle share and the device events by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -741,7 +808,7 @@ def profile_pass(name, feat, df, top: int = 12):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        feat.transform(df).collect()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -749,6 +816,17 @@ def profile_pass(name, feat, df, top: int = 12):
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+            "kernels": kernels}
+
+
+def profile_pass(name, feat, df, top: int = 12):
+    """One more featurize pass under ``torch.profiler``: device time by
+    kernel and the device's idle share of the pass's wall time."""
+    got = profiled(lambda: feat.transform(df).collect())
+    wall_ms, busy_ms, kernels = (got["wall_ms"], got["device_busy_ms"],
+                                 got["kernels"])
     kernels.sort(key=lambda k: -k[1])
     port = {}
     for key, ms, n in kernels:
@@ -760,12 +838,12 @@ def profile_pass(name, feat, df, top: int = 12):
     for entry in port.values():
         entry["share"] = entry["ms"] / busy_ms
     emit({"phase": f"{name}_profile", "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms,
-          "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+          "device_busy_ms": busy_ms, "idle_share": got["idle_share"],
           "port_kernels": port,
           "top_kernels": [{"name": k[:90], "ms": ms, "calls": n,
                            "share": ms / busy_ms}
                           for k, ms, n in kernels[:top]]})
+    return got["idle_share"]
 
 
 def port_kernel(key: str):
@@ -786,39 +864,82 @@ def port_kernel(key: str):
     return None
 
 
+#: every staging stream run_batched opened (RecordedPrefetcher)
+STREAMS = []
+
+
+def record_streams():
+    """Make run_batched's staging pipeline keep each stream it opens, so
+    a phase can sum their PrefetchStats."""
+    from sparkdl_tpu_torch.core import pipeline
+
+    class RecordedPrefetcher(pipeline.DevicePrefetcher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            STREAMS.append(self)
+
+    pipeline.DevicePrefetcher = RecordedPrefetcher
+
+
+def prefetch_totals(streams):
+    """The PrefetchStats of ``streams`` summed (max_depth: the largest),
+    with the number of streams and of those staged on a thread."""
+    out = {"streams": len(streams),
+           "threaded": sum(1 for p in streams if p.depth > 0)}
+    for p in streams:
+        for k, v in p.stats.as_dict().items():
+            out[k] = max(out.get(k, 0), v) if k == "max_depth" \
+                else out.get(k, 0) + v
+    return out
+
+
 def main_path(s, kernels, name, model, size, per_forward, rel_tol,
-              mode="force", precision="bfloat16"):
-    """Featurize N_IMAGES seeded images of ``size`` on the card under the
-    kernel gate's ``mode`` and ``EngineConfig.inference_precision`` (one
-    warm-up pass, then the counted and timed pass), check the launch
-    counts against ``per_forward`` launches per forward (under
-    "autotune", those its verdicts predict) and the bodies they took
-    (every bf16 launch of sep2d and pw1x1 on the tensor-core body), and
-    check two of the features against the port's CPU run of the same
-    weights."""
+              mode="force", precision="bfloat16", n_images=N_IMAGES):
+    """Featurize ``n_images`` seeded images of ``size`` on the card under
+    the kernel gate's ``mode`` and ``EngineConfig.inference_precision``
+    (one warm-up pass, which captures a CUDA graph per bucket rung, then
+    the counted and timed pass, all replays), check the launch counts
+    against ``per_forward`` launches per forward (under "autotune", those
+    its verdicts predict) and the bodies they took (every bf16 launch of
+    sep2d and pw1x1 on the tensor-core body), check two of the features
+    against the port's CPU run of the same weights, and hold the graphs'
+    outputs ``torch.equal`` to the eager forward of the same chunks (and
+    time both). The line carries the counted pass's phase timers,
+    staging streams and health counters."""
+    from sparkdl_tpu_torch.core import health, profiling
+
     s.EngineConfig.inference_precision = precision
     rng = np.random.default_rng(SEED + size[0])
     images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
-              for _ in range(N_IMAGES)]
+              for _ in range(n_images)]
     s.EngineConfig.device = "cuda"
     s.EngineConfig.pallas_kernels = mode
     feat, df = featurize(s, model, images, "random", BATCH)
     # warm-up (builds, allocator, cuDNN plans; under "autotune", the
-    # auditions of every site at its first sight)
+    # auditions of every site at its first sight; a graph per rung)
+    profiling.reset_phase_stats()
     t0 = time.perf_counter()
     feat.transform(df).collect()
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
+    capture = profiling.phase_stats().get("sparkdl.compile",
+                                          {"total_s": 0.0, "count": 0})
     verdicts = None
     if mode == "autotune":
         per_forward, verdicts = autotune_expectation(s, kernels, feat, size,
                                                      torch.device("cuda"))
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    rows = feat.transform(df).collect()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    profiling.reset_phase_stats()
+    del STREAMS[:]
+    with health.HealthMonitor(name) as monitor:
+        t0 = time.perf_counter()
+        rows = feat.transform(df).collect()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     counts = dict(kernels.launches)
+    phase_stats = profiling.phase_stats()
+    overlap = profiling.overlap_stats()
+    prefetch = prefetch_totals(STREAMS)
     by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
     for kernel, bodies in by_body.items():
         assert sum(bodies.values()) == counts[kernel], (name, by_body)
@@ -837,11 +958,21 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
                 f"{name}: float32 {kernel} launches off the float32 " \
                 f"mainloop: {bodies}"
     gpu = np.stack([np.asarray(r["features"], np.float32) for r in rows])
-    assert gpu.shape == (N_IMAGES, 2048), gpu.shape
+    assert gpu.shape == (n_images, 2048), gpu.shape
     assert np.isfinite(gpu).all(), "non-finite features"
-    forwards = -(-N_IMAGES // BATCH)
+    forwards = -(-n_images // BATCH)
     expected = {k: per_forward.get(k, 0) * forwards for k in counts}
     assert counts == expected, f"{name}: launches {counts} != {expected}"
+    assert "sparkdl.compile" not in phase_stats, \
+        f"{name}: the counted pass captured again: {phase_stats}"
+
+    dev = torch.device("cuda")
+    run = executed_model(s, feat, size)
+    rungs = sorted(k[0][0] for k in run.jitted(dev).graphs)
+    assert rungs, f"{name}: no graph captured"
+    graph_equal, rates, idle = graph_vs_eager(run, images, dev)
+    assert graph_equal, f"{name}: a graph's output differs from the " \
+                        f"eager forward of the same chunk"
 
     s.EngineConfig.device = "cpu"
     cpu_feat, cpu_df = featurize(s, model, images[:2], model_state(s, feat),
@@ -854,19 +985,30 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     assert err <= limit, f"{name}: features differ from the CPU run by " \
                          f"{err} > {limit}"
     out = {"phase": name, "model": model[0], "path": model[1],
-           "images": N_IMAGES, "source_size": list(size),
+           "images": n_images, "source_size": list(size),
            "batch_size": BATCH, "pallas_kernels": mode,
            "precision": s.EngineConfig.inference_precision,
            "warmup_s": warmup_s, "seconds": seconds,
-           "images_per_s": N_IMAGES / seconds,
+           "images_per_s": n_images / seconds,
+           "graphs": len(rungs), "rungs": rungs,
+           "capture_s": capture["total_s"], "captures": capture["count"],
+           "graph_equal": graph_equal,
+           "graph_forward_images_per_s": rates["graph"],
+           "eager_images_per_s": rates["eager"],
+           "host_ms_per_partition": {k: v["total_s"] * 1e3
+                                     for k, v in phase_stats.items()},
+           "phase_stats": phase_stats, "overlap": overlap,
+           "prefetch": prefetch, "health": monitor.counters(),
            "launches": counts, "launches_by_body": by_body,
            "max_abs_err_vs_cpu": err,
            "tolerance": limit, "feature_max_abs": float(np.abs(cpu).max())}
     if verdicts is not None:
         out["verdicts"] = verdicts
-    emit(out)
     if PROFILE:
-        profile_pass(name, feat, df)
+        out["idle_share"] = profile_pass(name, feat, df)
+        out["graph_forward_idle_share"] = idle["graph"]
+        out["eager_idle_share"] = idle["eager"]
+    emit(out)
     return out
 
 
@@ -945,9 +1087,18 @@ def main() -> int:
     odd_rows = check_unaligned_bodies(kernels, dev)
     probe_rows = check_probes(probe, dev)
 
+    record_streams()
     phases = {name: main_path(s, kernels, name, model, size, per_forward,
                               tol)
               for name, model, size, per_forward, tol in PHASES}
+    # one partition of 40 images at batch 16: chunks of 16, 16 and 8, so
+    # two graphs (rungs 16 and 8) and the staging thread runs
+    name = "featurize_native_multichunk"
+    phases[name] = main_path(s, kernels, name, ("Xception", "named"),
+                             TARGET, {"sep2d": 34}, BF16_REL, n_images=40)
+    assert phases[name]["rungs"] == [8, 16], phases[name]["rungs"]
+    assert phases[name]["prefetch"]["threaded"] == 1 \
+        and phases[name]["prefetch"]["staged"] == 3, phases[name]["prefetch"]
 
     # The user's default: each phase with a fresh verdict store; the
     # auditions on the card are counted, and their seconds summed, where

@@ -4,7 +4,8 @@ A port of ``sparkdl_tpu.core.executor.execute``: transformers call
 :func:`execute` instead of ``model.apply_batch``, and it decides the
 precision (``EngineConfig.inference_precision``, applied through
 ``ModelFunction.with_dtype``) and the device (``EngineConfig.device``)
-once, here. Coalescing, priority lanes, admission and the breaker are
+once, here, and hands ``apply_batch`` the model's bucket planner and the
+staging depth. Coalescing, priority lanes, admission and the breaker are
 not ported yet.
 """
 
@@ -14,6 +15,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from sparkdl_tpu_torch.core import batching
 
 
 def resolve_device() -> torch.device:
@@ -32,13 +35,20 @@ def resolve_device() -> torch.device:
     return device
 
 
-def execute(model: Any, array: Any, *, batch_size: int = 64) -> np.ndarray:
+def execute(model: Any, array: Any, *, batch_size: int = 64,
+            prefetch: int = 2) -> np.ndarray:
     """Run ``model`` over the rows of ``array`` on the configured device
-    in the configured precision; returns numpy."""
+    in the configured precision; returns numpy. ``prefetch``: chunk
+    staging depth of the async input pipeline (0 = inline); the bucket
+    ladder is the model's shared planner under
+    ``EngineConfig.bucket_ladder = "tuned"``."""
     from sparkdl_tpu_torch.engine.dataframe import EngineConfig
 
     EngineConfig.validate()
     device = resolve_device()
     if EngineConfig.inference_precision != "float32":
         model = model.with_dtype(EngineConfig.inference_precision)
-    return model.apply_batch(array, batch_size=batch_size, device=device)
+    planner = batching.default_planner(getattr(model, "name", "model"),
+                                       batch_size)
+    return model.apply_batch(array, batch_size=batch_size, device=device,
+                             prefetch=prefetch, planner=planner)

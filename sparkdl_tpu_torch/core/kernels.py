@@ -69,6 +69,7 @@ rejection.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -80,13 +81,13 @@ import time
 import weakref
 from collections import Counter
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparkdl_tpu_torch.core import cuda_build
+from sparkdl_tpu_torch.core import cuda_build, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +128,58 @@ def reset_launches() -> None:
     for bodies in launches_by_body.values():
         for body in bodies:
             bodies[body] = 0
+
+
+def launch_counts() -> Dict[str, Any]:
+    """A copy of :data:`launches` and :data:`launches_by_body`, for
+    :func:`add_launches`."""
+    return {"launches": dict(launches),
+            "by_body": {k: dict(v) for k, v in launches_by_body.items()}}
+
+
+def launch_delta(before: Dict[str, Any]) -> Dict[str, Any]:
+    """The launches counted since ``before`` (a :func:`launch_counts`)."""
+    now = launch_counts()
+    return {"launches": {k: v - before["launches"][k]
+                         for k, v in now["launches"].items()},
+            "by_body": {k: {b: n - before["by_body"][k][b]
+                            for b, n in v.items()}
+                        for k, v in now["by_body"].items()}}
+
+
+def add_launches(delta: Dict[str, Any], times: int = 1) -> None:
+    """Add ``times`` × ``delta`` (a :func:`launch_delta`) to the counters:
+    a CUDA graph's replay launches the kernels its capture recorded
+    without running their wrappers, and a capture launches none."""
+    for name, n in delta["launches"].items():
+        launches[name] += times * n
+    for name, bodies in delta["by_body"].items():
+        for body, n in bodies.items():
+            launches_by_body[name][body] += times * n
+
+
+_captured = threading.local()
+
+
+@contextlib.contextmanager
+def holding_references() -> Iterator[List[torch.Tensor]]:
+    """Collect, while a CUDA graph is captured on this thread, every
+    tensor a wrapper hands its kernel by address that the capture did not
+    allocate (a cached weight layout, the resize tables): the graph must
+    hold them, since a replay reads them where they lay at capture."""
+    held: List[torch.Tensor] = []
+    prev = getattr(_captured, "held", None)
+    _captured.held = held
+    try:
+        yield held
+    finally:
+        _captured.held = prev
+
+
+def _hold(*tensors) -> None:
+    held = getattr(_captured, "held", None)
+    if held is not None:
+        held.extend(t for t in tensors if t is not None)
 
 
 def _on_card(x: torch.Tensor, kernel: str) -> bool:
@@ -543,10 +596,12 @@ def _kn_weight(weight: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
     key = id(weight)
     hit = _kn_weights.get(key)
     if hit is not None and hit[0]() is weight and hit[1] == stamp:
+        _hold(hit[2])
         return hit[2]
     kn = weight.reshape(cout, cin).t().contiguous()
     ref = weakref.ref(weight, lambda _, key=key: _kn_weights.pop(key, None))
     _kn_weights[key] = (ref, stamp, kn)
+    _hold(kn)
     return kn
 
 
@@ -1021,6 +1076,7 @@ def launch_preproc(fn, x: torch.Tensor, out: torch.Tensor,
     b, h, w, c = x.shape
     th, tw = out.shape[1:3]
     tabs = _device_preproc_tables(plan, h, w, c, tw, str(x.device))
+    _hold(*tabs.values())
 
     def ptr(name):
         t = tabs[name]
@@ -1232,13 +1288,24 @@ def verdicts_snapshot() -> Dict[str, Dict[str, Any]]:
         return {k: dict(v) for k, v in _verdicts.items()}
 
 
+_generation = 0
+
+
+def generation() -> int:
+    """Bumped by each :func:`reset`: a program captured under one
+    generation's verdicts (``ModelFunction.jitted``) never replays under
+    another's."""
+    return _generation
+
+
 def reset() -> None:
     """Forget every in-memory verdict; the store file, if any, is read
     again at the next lookup."""
-    global _verdicts_loaded
+    global _verdicts_loaded, _generation
     with _verdict_lock:
         _verdicts.clear()
         _verdicts_loaded = False
+        _generation += 1
 
 
 # ---------------------------------------------------------------------------
@@ -1471,6 +1538,11 @@ def _audition(site: Site, device) -> Dict[str, Any]:
             verdict["reason"] = (f"{twin_s / max(kernel_s, 1e-12):.2f}x "
                                  "speedup, numerics in contract")
     verdict["audition_s"] = time.perf_counter() - t0
+    if telemetry.active() is not None:
+        telemetry.observe(telemetry.M_KERNEL_AUTOTUNE_S,
+                          verdict["audition_s"])
+        telemetry.count(telemetry.M_KERNEL_ADOPTED if verdict["adopted"]
+                        else telemetry.M_KERNEL_REJECTED)
     logger.info("kernel audition %s: %s — %s", _site_key(site, device),
                 "ADOPTED" if verdict["adopted"] else "rejected",
                 verdict["reason"])

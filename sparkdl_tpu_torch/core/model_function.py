@@ -11,13 +11,16 @@ package, so the dtype flow of each wrapper is the reference's.
 from __future__ import annotations
 
 import copy
+import itertools
+import threading
+import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.core import batching, kernels
+from sparkdl_tpu_torch.core import batching, kernels, profiling, telemetry
 
 
 @dataclass(frozen=True)
@@ -73,7 +76,7 @@ class ModelFunction:
         self._flat_cache: Optional["ModelFunction"] = None
         self._resize_cache: Dict[Tuple, "ModelFunction"] = {}
         self._precision_cache: Dict[str, "ModelFunction"] = {}
-        self._autotuned_shapes: set = set()
+        self._programs: Dict[torch.device, "Compiled"] = {}
 
     @classmethod
     def fromFunction(cls, fn: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -202,9 +205,18 @@ class ModelFunction:
     # -- execution -----------------------------------------------------------
 
     def to(self, device) -> "ModelFunction":
-        """Move the weights to ``device`` (in place; a no-op when there)."""
+        """Move the weights to ``device`` (in place). A no-op when they are
+        there already: the CUDA graphs captured over them read them where
+        they lie, so weights that do move drop every graph captured over
+        them."""
         if isinstance(self.variables, torch.nn.Module):
-            self.variables.to(device)
+            device = _resolved(torch.device(device))
+            tensors = itertools.chain(self.variables.parameters(),
+                                      self.variables.buffers())
+            if any(t.device != device for t in tensors):
+                for program in list(_PROGRAMS_OVER.get(self.variables, ())):
+                    program.drop()
+                self.variables.to(device)
         return self
 
     def stage_inputs(self, array) -> np.ndarray:
@@ -217,35 +229,39 @@ class ModelFunction:
             arr = arr.astype(self.input_spec.dtype)
         return arr
 
-    def apply_batch(self, array, batch_size: int = 64,
-                    device="cuda") -> np.ndarray:
+    def jitted(self, device="cuda") -> "Compiled":
+        """``(chunk, n_valid) -> output rows`` on ``device``: on the card
+        one captured CUDA graph per input shape, the JAX package's one
+        compiled program per bucket (:class:`Compiled`). Memoized per
+        device."""
+        device = _resolved(torch.device(device))
+        program = self._programs.get(device)
+        if program is None:
+            program = self._programs.setdefault(device,
+                                                Compiled(self, device))
+        return program
+
+    def apply_batch(self, array, batch_size: int = 64, device="cuda",
+                    prefetch: int = 2,
+                    planner: Optional[batching.BucketPlanner] = None
+                    ) -> np.ndarray:
         """Run over N rows in padded chunks on ``device``; returns numpy.
-        Each chunk is uploaded with one host-to-device copy from a pinned
-        buffer (``core.batching.run_batched``) and cast on the device to
-        the spec dtype before the body runs, as the JAX package's compiled
-        program does. At the first sight of a chunk's (shape, dtype,
-        device), a kernel-routable model settles its kernel verdicts first
-        (``kernels.ensure_autotuned``: under ``"autotune"``, an abstract
-        pass and at most one audition per new site), so the chunk runs
-        against decided sites."""
+
+        Chunks are staged ``prefetch`` ahead on a background thread into
+        pinned host buffers (``core.batching.run_batched``; 0 = inline),
+        each uploaded with one host-to-device copy and run by
+        :meth:`jitted`: cast on the device to the spec dtype, then the
+        body, as the JAX package's compiled program does. ``planner``:
+        the telemetry-tuned bucket ladder (``batching.planner_for``),
+        dropped when built for another batch size."""
         device = torch.device(device)
         array = self.stage_inputs(array)
         self.to(device)
-        spec_dtype = torch_dtype(self.input_spec.dtype)
-
-        def run(x):
-            x = x.to(spec_dtype)
-            key = (tuple(x.shape), x.dtype, x.device)
-            if (self.kernel_routable and key not in self._autotuned_shapes
-                    and kernels.kernel_mode() == "autotune"):
-                kernels.ensure_autotuned(self, x, model=self.name,
-                                         variables=self.variables)
-                self._autotuned_shapes.add(key)
-            return self(x)
-
-        run.__sparkdl_trace_target__ = lambda x: kernels.abstract_output(
-            self, x.to(spec_dtype), self.variables)
-        return batching.run_batched(run, array, batch_size, device)
+        if planner is not None and planner.batch_size != batch_size:
+            planner = None  # foreign ladder: fall back to pow2
+        return batching.run_batched(self.jitted(device), array, batch_size,
+                                    device, prefetch=prefetch,
+                                    planner=planner)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_fn(self.variables, x)
@@ -253,3 +269,160 @@ class ModelFunction:
     def __repr__(self) -> str:
         return (f"ModelFunction({self.name}, input={self.input_spec.shape} "
                 f"{self.input_spec.dtype})")
+
+
+def _resolved(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current index>``, as a tensor's device reads."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+# weights (an nn.Module) -> the programs captured over them, so weights
+# that move drop every graph that reads them, whichever wrapper moved them
+_PROGRAMS_OVER: "weakref.WeakKeyDictionary[torch.nn.Module, weakref.WeakSet]" \
+    = weakref.WeakKeyDictionary()
+
+
+@dataclass
+class _Graph:
+    """One captured program: the graph, its static input and output, the
+    launches of each kernel one replay makes, and the tensors it reads by
+    address that it did not allocate."""
+
+    graph: Any
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: Dict[str, Any]
+    held: List[torch.Tensor]
+
+
+class Compiled:
+    """A :class:`ModelFunction`'s ``(chunk, n_valid) -> output rows`` on
+    one device: the port of the JAX package's ``jitted``.
+
+    On the card, the first sight of a key — the chunk's shape and dtype,
+    the kernel gate's mode and its verdict generation
+    (``kernels.generation``) — runs inside a ``sparkdl.compile`` span:
+
+    1. the kernel verdicts are settled (``kernels.ensure_autotuned``, an
+       abstract pass and at most one audition per new site under
+       ``"autotune"``), so no audition ever runs inside a capture;
+    2. one eager warm-up forward on the chunk fills every cache a forward
+       fills at first use (built kernels, the float32 body's weight
+       layout, the resize tables, library handles) on a side stream;
+    3. cast → [resize] → preprocess → model → [flatten] is captured as one
+       ``torch.cuda.CUDAGraph`` from a static input into a static output.
+
+    Every chunk is then copied into the static input on the current
+    stream, the graph replayed, and a device copy of the valid output
+    rows returned before the next replay overwrites them. The rungs of
+    one model share one graph memory pool. A graph's kernels launch
+    without their wrappers, so the launch counters
+    (``kernels.launches``) get the launches its capture recorded at each
+    replay, and none for the capture itself; the warm-up counts as the
+    launches it made. A forward that cannot be captured raises: nothing
+    runs eagerly in its place. A graph captured under another mode or
+    generation is dropped when its shape is captured again.
+
+    On the CPU the same function runs eagerly, since the caller asked for
+    the CPU, with the same ``sparkdl.compile`` span at each new key.
+    """
+
+    def __init__(self, model: ModelFunction, device: torch.device) -> None:
+        self.model = model
+        self.device = device
+        self._spec_dtype = torch_dtype(model.input_spec.dtype)
+        self._graphs: Dict[Tuple, _Graph] = {}
+        self._seen: set = set()
+        self._pool = None
+        self._lock = threading.Lock()
+        self.__sparkdl_trace_target__ = self._abstract
+        if isinstance(model.variables, torch.nn.Module):
+            _PROGRAMS_OVER.setdefault(model.variables,
+                                      weakref.WeakSet()).add(self)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x.to(self._spec_dtype))
+
+    def _abstract(self, x: torch.Tensor) -> torch.Tensor:
+        """The output of ``x`` (meta) without running or capturing."""
+        return kernels.abstract_output(self._forward, x,
+                                       self.model.variables)
+
+    def _settle(self, x: torch.Tensor) -> None:
+        if self.model.kernel_routable:
+            kernels.ensure_autotuned(self._forward, x, model=self.model.name,
+                                     variables=self.model.variables)
+
+    def _key(self, chunk: torch.Tensor) -> Tuple:
+        return (tuple(chunk.shape), chunk.dtype, kernels.kernel_mode(),
+                kernels.generation())
+
+    @property
+    def graphs(self) -> Dict[Tuple, _Graph]:
+        """The captured graphs by key (shape, dtype, mode, generation)."""
+        return dict(self._graphs)
+
+    def drop(self) -> None:
+        """Forget every captured graph (the weights moved)."""
+        with self._lock:
+            self._graphs.clear()
+
+    def __call__(self, chunk: torch.Tensor,
+                 n_valid: Optional[int] = None) -> torch.Tensor:
+        n_valid = chunk.shape[0] if n_valid is None else n_valid
+        key = self._key(chunk)
+        if self.device.type != "cuda":
+            x = chunk.to(self.device)
+            if key in self._seen:
+                return self._forward(x)[:n_valid]
+            with profiling.annotate(telemetry.SPAN_COMPILE,
+                                    model=self.model.name,
+                                    shapes=repr(key[:2])):
+                self._settle(x)
+                out = self._forward(x)
+            self._seen.add(key)
+            return out[:n_valid]
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._capture(chunk, key)
+            else:
+                graph.static_in.copy_(chunk, non_blocking=True)
+            graph.graph.replay()
+            kernels.add_launches(graph.launches)
+            return graph.static_out[:n_valid].clone()
+
+    def _capture(self, chunk: torch.Tensor, key: Tuple) -> _Graph:
+        with profiling.annotate(telemetry.SPAN_COMPILE,
+                                model=self.model.name,
+                                shapes=repr(key[:2])):
+            static_in = torch.empty(chunk.shape, dtype=chunk.dtype,
+                                    device=self.device)
+            static_in.copy_(chunk, non_blocking=True)
+            self._settle(static_in)
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._forward(static_in)
+            current.wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
+            try:
+                with kernels.holding_references() as held, torch.cuda.graph(
+                        graph, pool=self._pool,
+                        capture_error_mode="thread_local"):
+                    static_out = self._forward(static_in)
+            finally:
+                launches = kernels.launch_delta(before)
+                kernels.add_launches(launches, times=-1)
+            stale = [k for k in self._graphs if k[:2] == key[:2]]
+            for k in stale:
+                del self._graphs[k]
+            out = self._graphs[key] = _Graph(graph, static_in, static_out,
+                                             launches, held)
+        return out

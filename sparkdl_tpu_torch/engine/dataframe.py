@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from sparkdl_tpu_torch.core import telemetry
 from sparkdl_tpu_torch.image.imageIO import (
     ImageColumn, imageFields, imageStructsToColumn,
 )
@@ -42,15 +43,22 @@ class EngineConfig:
     # $SPARKDL_COMPILE_CACHE_DIR. "force": every feasible site runs its
     # kernel, no audition. "off": no kernel runs, nothing is auditioned.
     pallas_kernels: str = "autotune"
+    # Tail-bucket ladder: "tuned" (default) arms the per-model
+    # telemetry-tuned BucketPlanner (core/batching.py) — identical to the
+    # blind ladder until enough launches are observed, then rungs move to
+    # the observed size distribution (each new rung is one more captured
+    # graph); "pow2" keeps the blind power-of-two ladder everywhere.
+    bucket_ladder: str = "tuned"
 
     _PRECISIONS = ("float32", "bfloat16")
     _KERNEL_MODES = ("off", "autotune", "force")
+    _LADDERS = ("tuned", "pow2")
 
     @classmethod
     def snapshot(cls) -> Dict[str, Any]:
         return {k: getattr(cls, k) for k in
                 ("inference_precision", "fused_preprocess", "device",
-                 "pallas_kernels")}
+                 "pallas_kernels", "bucket_ladder")}
 
     @classmethod
     def restore(cls, saved: Dict[str, Any]) -> None:
@@ -67,6 +75,10 @@ class EngineConfig:
             raise ValueError(
                 f"EngineConfig.pallas_kernels must be one of "
                 f"{cls._KERNEL_MODES}, got {cls.pallas_kernels!r}")
+        if cls.bucket_ladder not in cls._LADDERS:
+            raise ValueError(
+                "EngineConfig.bucket_ladder must be 'tuned' or 'pow2', "
+                f"got {cls.bucket_ladder!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -190,10 +202,13 @@ class DataFrame:
         with self._lock:
             if self._materialized is None:
                 out = []
-                for batch in self._partitions:
-                    for op in self._ops:
-                        batch = op(batch)
-                    out.append(batch)
+                with telemetry.span(telemetry.SPAN_MATERIALIZE,
+                                    partitions=len(self._partitions),
+                                    ops=len(self._ops)):
+                    for batch in self._partitions:
+                        for op in self._ops:
+                            batch = op(batch)
+                        out.append(batch)
                 self._materialized = out
             return self._materialized
 

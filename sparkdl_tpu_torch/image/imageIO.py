@@ -19,6 +19,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from sparkdl_tpu_torch.core import health, profiling
+
 imageFields: List[str] = ["origin", "height", "width", "nChannels", "mode",
                           "data"]
 
@@ -219,6 +221,8 @@ def _stage_structs(structs, target_size, dtype, channels, tolerant: bool
             if not tolerant:
                 raise
             dropped += 1
+    if dropped:
+        health.record(health.DECODE_DEGRADED, n=dropped, stage="structs")
     if arrays:
         if dtype is None and len({a.dtype for a in arrays}) > 1:
             arrays = [np.asarray(a, dtype="float32") for a in arrays]
@@ -295,7 +299,9 @@ def decodeImageBytes(data: bytes) -> Optional[np.ndarray]:
     """Decode compressed image bytes → HWC uint8 array (None on failure).
     The source's channel count is kept (grayscale stays 1-channel)."""
     arr = _pil_decode(data)
-    if arr is not None and arr.ndim == 2:
+    if arr is None:
+        health.record(health.DECODE_DEGRADED, stage="bytes")
+    elif arr.ndim == 2:
         arr = arr[:, :, None]
     return arr
 
@@ -362,18 +368,19 @@ def readImagesWithCustomFn(path: str,
                                      numPartitions=numPartition)
 
     def decode_partition(batch) -> ImageColumn:
+        uris = batch.column("filePath")
         arrays: List[Optional[np.ndarray]] = []
-        for uri in batch.column("filePath"):
-            try:
-                with open(stripFileScheme(uri), "rb") as f:
-                    raw = f.read()
-            except OSError:
-                arrays.append(None)
-                continue
-            arr = decode_f(raw)
-            arrays.append(None if arr is None else np.asarray(arr))
-        return imageArraysToStructColumn(arrays, list(
-            batch.column("filePath")))
+        with profiling.annotate("sparkdl.decode", rows=len(uris)):
+            for uri in uris:
+                try:
+                    with open(stripFileScheme(uri), "rb") as f:
+                        raw = f.read()
+                except OSError:
+                    arrays.append(None)
+                    continue
+                arr = decode_f(raw)
+                arrays.append(None if arr is None else np.asarray(arr))
+        return imageArraysToStructColumn(arrays, list(uris))
 
     return paths_df.withColumnBatch("image", decode_partition)
 

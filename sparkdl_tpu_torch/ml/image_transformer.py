@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from sparkdl_tpu_torch.core import executor as device_executor
+from sparkdl_tpu_torch.core import profiling
 from sparkdl_tpu_torch.engine.dataframe import EngineConfig
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.ml.base import Transformer
@@ -29,6 +30,10 @@ from sparkdl_tpu_torch.param.shared_params import (
 )
 
 logger = logging.getLogger(__name__)
+
+# Chunk-staging depth of the async input pipeline inside apply_batch
+# (core/pipeline.py); 0 falls back to inline serial staging.
+_PREFETCH_DEPTH = 2
 
 
 class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
@@ -105,8 +110,11 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
                 valid = valid_idx.tolist()
                 stacked, run_fast = _resize_uniform_batch(stacked,
                                                           target_size, run)
-                out = device_executor.execute(run_fast, stacked,
-                                              batch_size=batch_size)
+                with profiling.annotate("sparkdl.device_apply",
+                                        rows=len(stacked)):
+                    out = device_executor.execute(
+                        run_fast, stacked, batch_size=batch_size,
+                        prefetch=_PREFETCH_DEPTH)
                 if mode == "vector":
                     return _vectors_with_nulls(out, valid, batch.num_rows)
                 return _images_with_nulls(out, valid, batch.num_rows,
@@ -117,10 +125,12 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
             structs = (col.to_pylist() if isinstance(col, imageIO.ImageColumn)
                        else list(col))
             present = [i for i, s in enumerate(structs) if s is not None]
-            stacked, kept, dropped = \
-                imageIO.imageStructsToBatchArrayTolerant(
-                    [structs[i] for i in present],
-                    target_size=target_size, dtype=None)
+            with profiling.annotate("sparkdl.host_stage",
+                                    rows=len(present)):
+                stacked, kept, dropped = \
+                    imageIO.imageStructsToBatchArrayTolerant(
+                        [structs[i] for i in present],
+                        target_size=target_size, dtype=None)
             if dropped:
                 logger.warning(
                     "TorchImageTransformer: dropped %d undecodable image "
@@ -129,8 +139,11 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
             valid = [present[j] for j in kept]
             if not valid:
                 return [None] * batch.num_rows
-            out = device_executor.execute(run, stacked,
-                                          batch_size=batch_size)
+            with profiling.annotate("sparkdl.device_apply",
+                                    rows=len(stacked)):
+                out = device_executor.execute(run, stacked,
+                                              batch_size=batch_size,
+                                              prefetch=_PREFETCH_DEPTH)
             if mode == "vector":
                 return _vectors_with_nulls(out, valid, batch.num_rows)
             return _images_with_nulls(out, valid, batch.num_rows,

@@ -373,7 +373,8 @@ def test_xception_features_match_cpu(card, force_routes):
     cpu = mf.apply_batch(x, batch_size=2, device="cpu")
     kernels.reset_launches()
     gpu = mf.apply_batch(x, batch_size=2, device=card)
-    assert kernels.launches["sep2d"] == 34
+    # the first sight of the shape: one eager warm-up, then one replay
+    assert kernels.launches["sep2d"] == 2 * 34
     assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()
 
 
@@ -390,8 +391,144 @@ def test_inception_module_path_matches_cpu(card, force_routes):
     cpu = mf.apply_batch(x, batch_size=2, device="cpu")
     kernels.reset_launches()
     gpu = mf.apply_batch(x, batch_size=2, device=card)
-    assert kernels.launches["pw1x1"] == 39
+    # the first sight of the shape: one eager warm-up, then one replay
+    assert kernels.launches["pw1x1"] == 2 * 39
     assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()
+
+
+def _graph_case(name):
+    """(model, input) of one captured-graph case: Xception (34 ``sep2d``
+    sites), InceptionV3's module path (39 ``pw1x1`` sites), or a
+    weightless scale behind the ``preproc_resize`` prologue; with the
+    launches of each kernel per forward."""
+    from sparkdl_tpu_torch.core.model_function import (
+        ModelFunction, TensorSpec,
+    )
+    from sparkdl_tpu_torch.models.registry import build_featurizer
+
+    rng = np.random.default_rng(6)
+    if name == "preproc_resize":
+        mf = ModelFunction(lambda vs, x: x * 0.5, None,
+                           TensorSpec((None, 29, 23, 3))).resized((40, 48))
+        x = rng.integers(0, 256, (3, 40, 48, 3), np.uint8)
+        return mf, x, {"preproc_resize": 1}
+    if name == "sep2d":
+        mf = build_featurizer("Xception", weights="random", seed=3)
+        per = {"sep2d": 34}
+    else:
+        mf = build_featurizer("InceptionV3", weights="random", seed=3,
+                              fast=False)
+        per = {"pw1x1": 39}
+    x = rng.integers(0, 256, (2, 75, 75, 3), np.uint8)
+    return mf.flattened(), x, per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sep2d", "pw1x1", "preproc_resize"])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_graph_replay_equals_eager(card, force_routes, name, precision):
+    """A fresh model captured at a new shape: each replay gives
+    ``torch.equal`` results to the eager forward of the same chunk, and
+    the launch counters advance by the kernels' launches per forward at
+    each replay (the eager warm-up of the capture counts as one
+    forward, the capture as none)."""
+    mf, x, per = _graph_case(name)
+    mf = mf.with_dtype(precision)
+    mf.to(card)
+    compiled = mf.jitted(card)
+    chunk = torch.from_numpy(x).pin_memory()
+    kernels.reset_launches()
+    with torch.inference_mode():
+        first = compiled(chunk, 2)
+        torch.cuda.synchronize()
+        assert {k: kernels.launches[k] for k in per} == \
+            {k: 2 * n for k, n in per.items()}
+        assert len(compiled.graphs) == 1
+        kernels.reset_launches()
+        again = [compiled(chunk, 2) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert {k: kernels.launches[k] for k in per} == \
+            {k: 3 * n for k, n in per.items()}
+        kernels.reset_launches()
+        eager = mf(chunk.to(card).to(torch.float32))[:2]
+        torch.cuda.synchronize()
+    assert {k: kernels.launches[k] for k in per} == per
+    assert first.shape == eager.shape
+    for out in [first] + again:
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_graph_of_each_rung_and_mode(card, force_routes, monkeypatch):
+    """One graph per rung (20 rows at batch 16: rungs 16 and 8); a graph
+    captured under "force" never replays under "off", and
+    kernels.reset() (a new verdict generation) captures again, each new
+    capture dropping the stale graph of its shape."""
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    mf, x, _ = _graph_case("preproc_resize")
+    mf.to(card)
+    compiled = mf.jitted(card)
+    x20 = np.concatenate([x] * 7)[:20]
+    out = mf.apply_batch(x20, batch_size=16, device=card, prefetch=2)
+    assert sorted(k[0][0] for k in compiled.graphs) == [8, 16]
+    np.testing.assert_array_equal(
+        mf.apply_batch(x20[:3], batch_size=16, device=card), out[:3])
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "off")
+    kernels.reset_launches()
+    off = mf.apply_batch(x20, batch_size=16, device=card)
+    assert kernels.launches["preproc_resize"] == 0
+    assert sorted(k[2] for k in compiled.graphs) == ["off", "off"]
+    np.testing.assert_allclose(off, out, rtol=0, atol=1e-3)
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "force")
+    generation = kernels.generation()
+    kernels.reset()
+    assert kernels.generation() == generation + 1
+    again = mf.apply_batch(x20, batch_size=16, device=card)
+    assert sorted(k[2:] for k in compiled.graphs) == \
+        [("force", generation + 1)] * 2
+    np.testing.assert_array_equal(again, out)
+
+
+_SYNC_IN_FORWARD = """
+import torch
+from sparkdl_tpu_torch.core.model_function import ModelFunction, TensorSpec
+
+def body(vs, x):
+    if float(x.sum().item()) > -1:   # a host sync inside the forward
+        return x * 2.0
+    return x
+
+mf = ModelFunction(body, None, TensorSpec((None, 4, 4, 3)))
+chunk = torch.zeros(2, 4, 4, 3).pin_memory()
+try:
+    with torch.inference_mode():
+        mf.jitted("cuda")(chunk, 2)
+except Exception as e:  # the capture must fail, not run eagerly
+    print("raised", type(e).__name__, str(e).splitlines()[0][:200])
+else:
+    print("no error")
+"""
+
+
+@pytest.mark.cuda
+def test_sync_in_forward_raises_at_capture(card, tmp_path):
+    """``.item()`` inside a forward cannot be captured: the call raises
+    (no eager run in its place). A failed capture can leave the CUDA
+    context unusable, so it runs in a process of its own."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "sync_in_forward.py"
+    script.write_text(_SYNC_IN_FORWARD)
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1].startswith("raised"), \
+        out.stdout
 
 
 @pytest.mark.cuda
