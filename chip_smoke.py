@@ -82,9 +82,10 @@ read just after, show that it went through exactly the kernels it should.
 
 Every featurize phase runs through captured CUDA graphs
 (``ModelFunction.jitted``): its warm-up pass captures one graph per bucket
-rung (``graphs``, ``rungs``, ``capture_s``), and its counted pass only
-replays them (each replay adds the launches its capture recorded to the
-counters). Each phase line also holds the graphs' outputs
+rung (``graphs``, ``rungs``, ``capture_s``, and ``graph_pool_mib``: the
+MiB each capture added to the model's graph memory pool), and its counted
+pass only replays them (each replay adds the launches its capture
+recorded to the counters). Each phase line also holds the graphs' outputs
 ``torch.equal`` to the eager forward of the same padded chunks
 (``graph_equal``), the images per second of the counted pass
 (``images_per_s``) and of the same chunks through the graphs and through
@@ -811,10 +812,13 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # user annotations (the port's record_function phases) also appear
+    # on the device's timeline; they are ranges, not device work
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(ms for _, ms, _ in kernels)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
@@ -968,7 +972,9 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
 
     dev = torch.device("cuda")
     run = executed_model(s, feat, size)
-    rungs = sorted(k[0][0] for k in run.jitted(dev).graphs)
+    graphs = sorted(((k[0][0], g) for k, g in run.jitted(dev).graphs.items()),
+                    key=lambda item: item[0])
+    rungs = [rung for rung, _ in graphs]
     assert rungs, f"{name}: no graph captured"
     graph_equal, rates, idle = graph_vs_eager(run, images, dev)
     assert graph_equal, f"{name}: a graph's output differs from the " \
@@ -991,6 +997,7 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
            "warmup_s": warmup_s, "seconds": seconds,
            "images_per_s": n_images / seconds,
            "graphs": len(rungs), "rungs": rungs,
+           "graph_pool_mib": [g.pool_bytes / 2 ** 20 for _, g in graphs],
            "capture_s": capture["total_s"], "captures": capture["count"],
            "graph_equal": graph_equal,
            "graph_forward_images_per_s": rates["graph"],

@@ -34,7 +34,7 @@ from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, \
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.core import pipeline, profiling, telemetry
+from sparkdl_tpu_torch.core import kernels, pipeline, profiling, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -170,9 +170,6 @@ PLANNER_MAX_UPDATES = 8
 _PLANNER_MAX_SIZES = 128
 
 _LADDER_STORE_BASENAME = "sparkdl_bucket_ladders.json"
-#: The directory of the ladder store (the verdict store's, as in the
-#: reference, where the compile cache also lives).
-COMPILE_CACHE_DIR_ENV = "SPARKDL_COMPILE_CACHE_DIR"
 
 
 def ladder_store_path() -> Optional[str]:
@@ -180,7 +177,7 @@ def ladder_store_path() -> Optional[str]:
     (beside the kernel verdicts): a warm process reloads the tuned ladder,
     so the retune is paid once, not per process. None when the variable
     is unset (no persistence)."""
-    cache_dir = os.environ.get(COMPILE_CACHE_DIR_ENV)
+    cache_dir = os.environ.get(kernels.COMPILE_CACHE_DIR_ENV)
     if not cache_dir:
         return None
     return os.path.join(cache_dir, _LADDER_STORE_BASENAME)
@@ -310,7 +307,8 @@ class BucketPlanner:
         candidate = self._solve(counts, max_rungs)
         cost_now = self._padded_rows(current, counts)
         cost_new = self._padded_rows(candidate, counts)
-        if candidate == current or cost_new > (1.0 - self.hysteresis) * cost_now:
+        if (candidate == current
+                or cost_new > (1.0 - self.hysteresis) * cost_now):
             return
         with self._lock:
             self._ladder = candidate

@@ -20,7 +20,10 @@ PyTorch version (:func:`plain_sep2d`, :func:`plain_pw1x1`,
 :func:`plain_preproc`) only for a tensor on the CPU; there is no fallback
 on the card. :data:`launches` counts kernel launches, one per wrapper
 call that reached the card, and :data:`launches_by_body` the same by the
-body that ran.
+body that ran. A kernel captured in a CUDA graph (``ModelFunction.jitted``)
+launches at each replay without its wrapper: the graph adds the launches
+its capture recorded at each replay (:func:`add_launches`), and the
+capture itself counts none.
 
 **Launch plans.** :func:`plan_sep2d` and :func:`plan_pw1x1` choose, from
 a call's shape and dtype alone, the body (bf16 on the Hopper tensor-core

@@ -280,21 +280,24 @@ def _resolved(device: torch.device) -> torch.device:
 
 # weights (an nn.Module) -> the programs captured over them, so weights
 # that move drop every graph that reads them, whichever wrapper moved them
-_PROGRAMS_OVER: "weakref.WeakKeyDictionary[torch.nn.Module, weakref.WeakSet]" \
-    = weakref.WeakKeyDictionary()
+_PROGRAMS_OVER: "weakref.WeakKeyDictionary[torch.nn.Module, Any]" = \
+    weakref.WeakKeyDictionary()
 
 
 @dataclass
 class _Graph:
     """One captured program: the graph, its static input and output, the
-    launches of each kernel one replay makes, and the tensors it reads by
-    address that it did not allocate."""
+    launches of each kernel one replay makes, the tensors it reads by
+    address that it did not allocate, and the bytes its capture added to
+    the model's graph memory pool (a later rung reuses what an earlier
+    one freed, so it adds less)."""
 
     graph: Any
     static_in: torch.Tensor
     static_out: torch.Tensor
     launches: Dict[str, Any]
     held: List[torch.Tensor]
+    pool_bytes: int
 
 
 class Compiled:
@@ -411,6 +414,9 @@ class Compiled:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()  # as the capture does, before counting
+            reserved = torch.cuda.memory_reserved(self.device)
             before = kernels.launch_counts()
             try:
                 with kernels.holding_references() as held, torch.cuda.graph(
@@ -420,9 +426,10 @@ class Compiled:
             finally:
                 launches = kernels.launch_delta(before)
                 kernels.add_launches(launches, times=-1)
+            pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
             stale = [k for k in self._graphs if k[:2] == key[:2]]
             for k in stale:
                 del self._graphs[k]
             out = self._graphs[key] = _Graph(graph, static_in, static_out,
-                                             launches, held)
+                                             launches, held, pool_bytes)
         return out

@@ -425,3 +425,61 @@ def test_transformer_over_chunks_matches_reference(cpu_engine):
         == [(2, 3, 3)]
     compiled = mf.flattened().resized((16, 20), (12, 12)).jitted("cpu")
     assert [k[0] for k in compiled._seen] == [(8, 16, 20, 3)]
+
+
+def test_maybe_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
+    """Off without a directory; with ``SPARKDL_PROFILE_DIR`` set, a
+    ``torch.profiler`` Chrome trace holding the block's annotated ranges
+    lands there."""
+    monkeypatch.delenv(profiling.PROFILE_DIR_ENV, raising=False)
+    with profiling.maybe_trace() as on:
+        assert on is False
+    monkeypatch.setenv(profiling.PROFILE_DIR_ENV, str(tmp_path))
+    with profiling.maybe_trace() as on:
+        with profiling.annotate("sparkdl.decode"):
+            torch.ones(4).sum()
+    assert on is True
+    traces = list(tmp_path.glob("sparkdl_trace_*.json"))
+    assert len(traces) == 1 and "sparkdl.decode" in traces[0].read_text()
+
+
+def test_telemetry_scope_writes_its_report(tmp_path):
+    """The scope's run report and Chrome trace land in ``out_dir``; spans
+    opened on another thread parent under the attached context; the
+    Prometheus dump holds every instrument."""
+    import json
+    import threading
+
+    with health.HealthMonitor("h"), \
+            telemetry.Telemetry("t", out_dir=str(tmp_path)) as tel:
+        with telemetry.span(telemetry.SPAN_MATERIALIZE) as outer:
+            ctx = telemetry.current_context()
+
+            def child():
+                telemetry.attach(ctx)
+                with telemetry.span("sparkdl.stage"):
+                    pass
+
+            worker = threading.Thread(target=child)
+            worker.start()
+            worker.join(timeout=10)
+        telemetry.count(telemetry.M_BATCH_ROWS, 3)
+        telemetry.gauge_set(telemetry.M_PADDING_WASTE, 0.25)
+        telemetry.observe(telemetry.M_PREFETCH_STALL_S, 0.01)
+        health.record(health.DECODE_DEGRADED)
+    assert not worker.is_alive()
+    stage = tel.tracer.spans("sparkdl.stage")[0]
+    assert stage["parent_id"] == outer.span_id
+    report = json.loads(open(tel.report_path).read())
+    assert report["metrics"]["counters"] == {
+        telemetry.M_BATCH_ROWS: 3,
+        telemetry.HEALTH_METRIC_PREFIX + health.DECODE_DEGRADED: 1}
+    assert report["health"]["counters"] == {health.DECODE_DEGRADED: 1}
+    trace = json.loads(open(tel.trace_path).read())
+    assert {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"} == \
+        {"sparkdl.run", "sparkdl.materialize", "sparkdl.stage"}
+    text = tel.metrics.prometheus_text()
+    for name in ("sparkdl_batching_rows 3", "sparkdl_batching_padding_waste",
+                 "sparkdl_prefetch_stall_s_count 1"):
+        assert name in text
+    assert telemetry.active() is None
