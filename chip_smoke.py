@@ -897,6 +897,17 @@ def prefetch_totals(streams):
     return out
 
 
+def host_ms(phase_stats, seconds):
+    """The counted pass's ms by phase timer, its wall ms, and the ms of
+    its wall outside ``sparkdl.device_apply`` (the frame's own work: the
+    column's stack, ``collect()``'s rows)."""
+    out = {k: v["total_s"] * 1e3 for k, v in phase_stats.items()}
+    out["pass"] = seconds * 1e3
+    out["outside_device_apply"] = out["pass"] - out.get(
+        "sparkdl.device_apply", 0.0)
+    return out
+
+
 def main_path(s, kernels, name, model, size, per_forward, rel_tol,
               mode="force", precision="bfloat16", n_images=N_IMAGES):
     """Featurize ``n_images`` seeded images of ``size`` on the card under
@@ -1002,8 +1013,7 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
            "graph_equal": graph_equal,
            "graph_forward_images_per_s": rates["graph"],
            "eager_images_per_s": rates["eager"],
-           "host_ms_per_partition": {k: v["total_s"] * 1e3
-                                     for k, v in phase_stats.items()},
+           "host_ms_per_partition": host_ms(phase_stats, seconds),
            "phase_stats": phase_stats, "overlap": overlap,
            "prefetch": prefetch, "health": monitor.counters(),
            "launches": counts, "launches_by_body": by_body,
