@@ -8,8 +8,8 @@ run's operator can answer "what went wrong, and what did the framework
 do about it?" from one structured report instead of grepping warnings.
 
 Monitors activate process-wide (partition ops may run on other threads,
-where a ContextVar scope entered on the driver would be invisible), nest,
-and restore the previous monitor on exit. With no active monitor,
+where a ContextVar scope entered on the calling thread would be
+invisible), nest, and restore the previous monitor on exit. With no active monitor,
 :func:`record` is one global read and a ``None`` check — the hot paths
 pay nothing when nobody is listening.
 

@@ -722,7 +722,7 @@ def observe(name: str, value: float,
 
 
 class RunReport:
-    """Builder for the single end-of-run JSON artifact: trace summary +
+    """Assembles the single end-of-run JSON artifact: trace summary +
     metric snapshot + phase/overlap stats + health report."""
 
     @staticmethod
