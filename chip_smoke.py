@@ -12,8 +12,9 @@ computes the same function, as a yardstick the port never calls); each
 ``sep2d``/``pw1x1`` row names its launch plan and the body that ran.
 ``preproc_resize`` is also held bit for bit against the exact-order
 resize (row taps, then column taps, each multiply and add rounded in
-float32) at 256×256 and 512×384 → 299×299 in float32 and 256×256 in
-bf16, with each shape's launch plan and registers (``preproc_plan``),
+float32) at 256×256 and 512×384 → 299×299 in float32, 256×256 → 299×299
+in bf16 and 256×256 → 224×224 in float32, with each shape's launch plan
+and registers (``preproc_plan``),
 and the kernel gate's verdict on the 256×256 float32 site is printed
 (``preproc_audition``: recorded, not stored). The two bf16 bodies that
 only rows TMA cannot stride reach (``sep2d``'s ``simt_bf16``,
@@ -98,6 +99,25 @@ summed ``PrefetchStats`` and its health counters.
 batch 16: chunks of 16, 16 and 8, so two graphs, staged ahead on the
 prefetch thread.
 
+Five phases drive the rest of the Flax model zoo the same way, each at
+its spec's input size and feature width, 32 images at batch 16:
+``resnet50_native`` (``DeepImageFeaturizer("ResNet50")`` on 224×224
+sources under the default ``"autotune"`` gate and bf16 precision: no
+site is collected, nothing launches), ``resnet50_resized`` (256×256
+sources under ``"force"``: ``preproc_resize`` once per forward, then the
+float32 network with bf16-rounded weights), ``vgg16_native`` (fc2's
+4096 features), ``mobilenet_v2_native`` (1280 features) and
+``testnet_predict`` (``DeepImagePredictor("TestNet",
+decodePredictions=True, topK=5)`` on 32×32 sources in float32: the
+decoded probabilities, and their classes, against the CPU run's). A
+phase whose spec has the model's FLOPs per image (ResNet50,
+InceptionV3) also gives its graphs' forward rate in TFLOP/s. Then
+ResNet101, ResNet152 and VGG19 each run as such a phase on 16 224×224
+images (``depth_*``, one forward), and ``resnet_fast_vs_module``
+times ResNet50's fast apply (``models/resnet_fast.py``, BN folded) beside
+the module through the same graphs, in bf16: a number only, since the
+registry does not select it, as in the reference.
+
 ``--profile`` adds device times from ``torch.profiler`` beside each event
 time, and one profiled pass per phase: device time by kernel, the device
 time of each of the port's kernels by body, and the device's idle share
@@ -122,6 +142,7 @@ import torch
 SEED = 0
 BATCH = 16
 N_IMAGES = 32
+TOP_K = 5             # DeepImagePredictor's decoded classes per row
 F32_REL = 1e-3        # float32 whole-slice tolerance, relative to max|ref|
 BF16_REL = 5e-2       # bf16 whole-slice tolerance, relative to max|ref|
 F32_KERNEL_REL = 1e-5  # float32 kernel tolerance, relative to max(1, |ref|)
@@ -134,10 +155,13 @@ SEP2D_SHAPES = [(147, 147, 64, 128), (37, 37, 256, 728), (19, 19, 728, 728),
 # the last entry of each case is ``relu``
 PW1X1_CASES = [(35, 35, 192, 64, True), (17, 17, 768, 192, True),
                (8, 8, 2048, 448, True), (35, 35, 192, 64, False)]
-#: (source H, W) and output dtype of each preproc_resize check
-PREPROC_CASES = [((256, 256), torch.float32), ((512, 384), torch.float32),
-                 ((256, 256), torch.bfloat16)]
-TARGET = (299, 299)
+#: (source H, W), target (H, W) and output dtype of each preproc_resize
+#: check: the 299×299 models' resized sources, and the 224×224 models'
+PREPROC_CASES = [((256, 256), (299, 299), torch.float32),
+                 ((512, 384), (299, 299), torch.float32),
+                 ((256, 256), (299, 299), torch.bfloat16),
+                 ((256, 256), (224, 224), torch.float32)]
+TARGET = (299, 299)  # Xception's and InceptionV3's input size
 PROFILE = "--profile" in sys.argv[1:]
 #: the launch counter of each kernel gate site kind
 COUNTER_OF_SITE = {"sep2d": "sep2d", "pw1x1": "pw1x1", "pw1x1_relu": "pw1x1",
@@ -431,7 +455,8 @@ def check_preproc(kernels, dev):
     """preproc_resize against plain_preproc (within the float32 kernel
     tolerance, or one bf16 ulp on the [0, 255] scale), bit for bit
     against the exact-order resize, and timed beside cast +
-    F.interpolate, at the featurize path's resized sources; prints each
+    F.interpolate, at the featurize paths' resized sources (to 299×299
+    and to 224×224); prints each
     shape's launch plan (``preproc_plan``: band rows, staged bytes, shared
     memory, grid, registers)."""
     import torch.nn.functional as F
@@ -440,22 +465,24 @@ def check_preproc(kernels, dev):
 
     rows = []
     gen = torch.Generator().manual_seed(SEED + 1)
-    for (h, w), out_dtype in PREPROC_CASES:
+    for (h, w), target, out_dtype in PREPROC_CASES:
         x = torch.randint(0, 256, (BATCH, h, w, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
-        y = kernels.preproc_resize(x, TARGET, out_dtype)
-        ref = kernels.plain_preproc(x, TARGET, out_dtype)
+        y = kernels.preproc_resize(x, target, out_dtype)
+        ref = kernels.plain_preproc(x, target, out_dtype)
         torch.cuda.synchronize()
         err = float((y.float() - ref.float()).abs().max())
         limit = (F32_KERNEL_REL * max(1.0, float(ref.abs().max()))
                  if out_dtype == torch.float32 else 2.0)
-        assert err <= limit, f"preproc {h}x{w}: max|err| {err} > {limit}"
-        exact = torch.equal(y, exact_order(x, *TARGET, out_dtype))
-        assert exact, f"preproc {h}x{w}: not the exact-order resize"
-        plan = kernels.plan_preproc(BATCH, h, w, 3, *TARGET, torch.uint8,
+        assert err <= limit, f"preproc {h}x{w}->{target}: max|err| {err} " \
+                             f"> {limit}"
+        exact = torch.equal(y, exact_order(x, *target, out_dtype))
+        assert exact, f"preproc {h}x{w}->{target}: not the exact-order " \
+                      f"resize"
+        plan = kernels.plan_preproc(BATCH, h, w, 3, *target, torch.uint8,
                                     out_dtype)
         name = str(out_dtype).replace("torch.", "")
-        emit({"phase": "preproc_plan", "shape": [BATCH, h, w, 3, *TARGET],
+        emit({"phase": "preproc_plan", "shape": [BATCH, h, w, 3, *target],
               "dtype": f"uint8->{name}", "band_rows": plan.band_rows,
               "bands": plan.bands, "staged": plan.staged,
               "staged_bytes": plan.staged_bytes, "dense": plan.dense,
@@ -465,20 +492,20 @@ def check_preproc(kernels, dev):
 
         def library():
             return F.interpolate(x.permute(0, 3, 1, 2).to(out_dtype),
-                                 size=TARGET, mode="bilinear",
+                                 size=target, mode="bilinear",
                                  align_corners=False, antialias=False)
 
-        outs = BATCH * TARGET[0] * TARGET[1] * 3
+        outs = BATCH * target[0] * target[1] * 3
         flops = outs * 9  # 6 multiplies + 3 adds per output element
         nbytes = x.numel() + outs * y.element_size()
         b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
         rows.append({
-            "shape": [BATCH, h, w, 3, *TARGET], "dtype": f"uint8->{name}",
+            "shape": [BATCH, h, w, 3, *target], "dtype": f"uint8->{name}",
             "max_abs_err": err, "tolerance": limit, "exact_order": exact,
             "plan": {"band_rows": plan.band_rows, "smem": plan.smem,
                      "grid": list(plan.grid)},
-            **timings(lambda: kernels.preproc_resize(x, TARGET, out_dtype),
-                      lambda: kernels.plain_preproc(x, TARGET, out_dtype),
+            **timings(lambda: kernels.preproc_resize(x, target, out_dtype),
+                      lambda: kernels.plain_preproc(x, target, out_dtype),
                       library),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6})
@@ -680,11 +707,13 @@ def check_probes(probe, dev):
 
 def featurize(s, model, images, weights, batch_size):
     """The user-facing transformer of one phase and its frame. ``model``
-    is (name, "named") for ``DeepImageFeaturizer(modelName=name)``, or
-    (name, "module") for ``TorchImageTransformer`` over
-    ``build_featurizer(name, fast=False)`` (``"module_bf16"``: built with
-    ``dtype="bfloat16"``, every layer computing in bf16 as the
-    reference's Flax ``dtype``)."""
+    is (name, "named") for ``DeepImageFeaturizer(modelName=name)``,
+    (name, "predict") for ``DeepImagePredictor(modelName=name,
+    decodePredictions=True, topK=TOP_K)``, or (name, "module") for
+    ``TorchImageTransformer`` over ``build_featurizer(name, fast=False)``
+    (``"module_bf16"``: built with ``dtype="bfloat16"``, every layer
+    computing in bf16 as the reference's Flax ``dtype``). The output
+    column is ``features`` in each."""
     from sparkdl_tpu_torch.image import imageIO
     from sparkdl_tpu_torch.models import registry
 
@@ -695,6 +724,11 @@ def featurize(s, model, images, weights, batch_size):
         feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
                                      modelName=name, weights=weights,
                                      batchSize=batch_size)
+    elif path == "predict":
+        feat = s.DeepImagePredictor(inputCol="image", outputCol="features",
+                                    modelName=name, weights=weights,
+                                    decodePredictions=True, topK=TOP_K,
+                                    batchSize=batch_size)
     else:
         dtype = "bfloat16" if path == "module_bf16" else None
         feat = s.TorchImageTransformer(
@@ -708,9 +742,24 @@ def featurize(s, model, images, weights, batch_size):
 def model_function(s, feat):
     """The ModelFunction a phase's transformer runs (before the
     executor's flatten, resize and precision wrappers)."""
-    return (feat._model_function("featurize")
-            if isinstance(feat, s.DeepImageFeaturizer)
-            else feat.getModelFunction())
+    if isinstance(feat, s.DeepImageFeaturizer):
+        return feat._model_function("featurize")
+    if isinstance(feat, s.DeepImagePredictor):
+        return feat._model_function("predict")
+    return feat.getModelFunction()
+
+
+def row_vectors(rows):
+    """The ``features`` column as float32 rows, and, for decoded
+    predictions, each row's top classes (their probabilities are the
+    rows); else None."""
+    cells = [r["features"] for r in rows]
+    if cells and isinstance(cells[0], list) and isinstance(cells[0][0],
+                                                            dict):
+        return (np.asarray([[d["probability"] for d in c] for c in cells],
+                           np.float32),
+                [[d["class"] for d in c] for c in cells])
+    return np.stack([np.asarray(c, np.float32) for c in cells]), None
 
 
 def model_state(s, feat):
@@ -720,12 +769,15 @@ def model_state(s, feat):
 
 
 def executed_model(s, feat, size):
-    """The model the executor ran: flattened, resized if needed, in the
-    configured precision (each wrapper is memoized, so these are the same
-    objects, holding the same captured graphs)."""
-    run = model_function(s, feat).flattened()
-    if tuple(size) != TARGET:
-        run = run.resized(size, TARGET)
+    """The model the executor ran: flattened, resized to the model's own
+    input size if needed, in the configured precision (each wrapper is
+    memoized, so these are the same objects, holding the same captured
+    graphs)."""
+    mf = model_function(s, feat)
+    target = mf.input_spec.spatial_size()
+    run = mf.flattened()
+    if tuple(size) != target:
+        run = run.resized(size, target)
     return run.with_dtype(s.EngineConfig.inference_precision)
 
 
@@ -919,10 +971,15 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     sep2d and pw1x1 on the tensor-core body), check two of the features
     against the port's CPU run of the same weights, and hold the graphs'
     outputs ``torch.equal`` to the eager forward of the same chunks (and
-    time both). The line carries the counted pass's phase timers,
-    staging streams and health counters."""
+    time both). Sizes and widths are the model's spec's (decoded
+    predictions: their TOP_K probabilities, and their classes against the
+    CPU run's). The line carries the counted pass's phase timers, staging
+    streams and health counters, and the graphs' forward rate in TFLOP/s
+    where the spec has the model's FLOPs per image."""
     from sparkdl_tpu_torch.core import health, profiling
+    from sparkdl_tpu_torch.models import registry
 
+    spec = registry.get_model_spec(model[0])
     s.EngineConfig.inference_precision = precision
     rng = np.random.default_rng(SEED + size[0])
     images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
@@ -964,7 +1021,7 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
         if kernel not in ("sep2d", "pw1x1"):
             continue
         if model[1] == "module_bf16" or (precision == "bfloat16"
-                                         and tuple(size) == TARGET):
+                                         and tuple(size) == spec.input_size):
             assert bodies["wgmma"] == counts[kernel], \
                 f"{name}: bf16 {kernel} launches off the tensor-core " \
                 f"body: {bodies}"
@@ -972,8 +1029,9 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
             assert bodies["simt_f32"] == counts[kernel], \
                 f"{name}: float32 {kernel} launches off the float32 " \
                 f"mainloop: {bodies}"
-    gpu = np.stack([np.asarray(r["features"], np.float32) for r in rows])
-    assert gpu.shape == (n_images, 2048), gpu.shape
+    gpu, gpu_classes = row_vectors(rows)
+    width = TOP_K if model[1] == "predict" else spec.feature_dim
+    assert gpu.shape == (n_images, width), gpu.shape
     assert np.isfinite(gpu).all(), "non-finite features"
     forwards = -(-n_images // BATCH)
     expected = {k: per_forward.get(k, 0) * forwards for k in counts}
@@ -994,13 +1052,14 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     s.EngineConfig.device = "cpu"
     cpu_feat, cpu_df = featurize(s, model, images[:2], model_state(s, feat),
                                  2)
-    cpu = np.stack([np.asarray(r["features"], np.float32)
-                    for r in cpu_feat.transform(cpu_df).collect()])
+    cpu, cpu_classes = row_vectors(cpu_feat.transform(cpu_df).collect())
     s.EngineConfig.device = "cuda"
     err = float(np.max(np.abs(gpu[:2] - cpu)))
     limit = rel_tol * float(np.max(np.abs(cpu)))
     assert err <= limit, f"{name}: features differ from the CPU run by " \
                          f"{err} > {limit}"
+    assert gpu_classes is None or gpu_classes[:2] == cpu_classes, \
+        f"{name}: top classes {gpu_classes[:2]} != {cpu_classes}"
     out = {"phase": name, "model": model[0], "path": model[1],
            "images": n_images, "source_size": list(size),
            "batch_size": BATCH, "pallas_kernels": mode,
@@ -1013,6 +1072,12 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
            "graph_equal": graph_equal,
            "graph_forward_images_per_s": rates["graph"],
            "eager_images_per_s": rates["eager"],
+           # the rate the graphs' forward achieves at the reference spec's
+           # FLOPs per image (2·MACs at the input size)
+           "flops_per_image": spec.flops_per_image,
+           "graph_forward_tflops": (rates["graph"] * spec.flops_per_image
+                                    / 1e12 if spec.flops_per_image
+                                    else None),
            "host_ms_per_partition": host_ms(phase_stats, seconds),
            "phase_stats": phase_stats, "overlap": overlap,
            "prefetch": prefetch, "health": monitor.counters(),
@@ -1042,6 +1107,85 @@ PHASES = [
     ("inception_module_resized", ("InceptionV3", "module"), (256, 256),
      {"pw1x1": 39, "preproc_resize": 1}, F32_REL),
 ]
+# The 224×224 models (and TestNet's 32×32): (phase, (model, path),
+# source size, launches per forward, tolerance, gate, precision). None of
+# them routes sep2d or pw1x1, as in the reference; a resized source
+# launches preproc_resize once per forward. resnet50_native runs the
+# user's default gate, "autotune", where bf16 collects no site.
+ZOO_PHASES = [
+    ("resnet50_native", ("ResNet50", "named"), (224, 224), None, BF16_REL,
+     "autotune", "bfloat16"),
+    ("resnet50_resized", ("ResNet50", "named"), (256, 256),
+     {"preproc_resize": 1}, F32_REL, "force", "bfloat16"),
+    ("vgg16_native", ("VGG16", "named"), (224, 224), {}, BF16_REL, "force",
+     "bfloat16"),
+    ("mobilenet_v2_native", ("MobileNetV2", "named"), (224, 224), {},
+     BF16_REL, "force", "bfloat16"),
+    ("testnet_predict", ("TestNet", "predict"), (32, 32), {}, F32_REL,
+     "force", "float32"),
+]
+#: the deeper members of the 224×224 families, each a phase of BATCH
+#: images (one forward) under "force" in bf16, checked as the others
+DEPTH_CHECKS = ("ResNet101", "ResNet152", "VGG19")
+
+
+def resnet_fast_vs_module(dev, n_images=4 * BATCH, repeats=5):
+    """ResNet50's fast apply (``models/resnet_fast.py``: BN folded, each
+    downsampling block's ``conv_0`` and ``conv_1`` as one conv, computing
+    in bf16) against the module the default featurizer runs (the
+    registry's, under the bf16 precision), both through captured graphs
+    of the same padded chunks of seeded 224×224 images with upload and
+    fetch: images/s of each (the median of ``repeats`` passes, in turns
+    module, fast, fast, module) and their max|Δ|. A number only: the
+    registry does not select the fast apply, as in the reference."""
+    from sparkdl_tpu_torch.core import batching
+    from sparkdl_tpu_torch.core.model_function import ModelFunction
+    from sparkdl_tpu_torch.models import registry
+    from sparkdl_tpu_torch.models.resnet_fast import resnet_fast_apply
+
+    spec = registry.get_model_spec("ResNet50")
+    module_mf = registry.build_featurizer("ResNet50", seed=SEED)
+    fast = ModelFunction.fromFunction(
+        lambda m, x: resnet_fast_apply(m, x, compute_dtype=torch.bfloat16),
+        module_mf.variables, module_mf.input_spec, name="ResNet50_fast")
+    runs = {"module": module_mf.flattened().with_dtype("bfloat16"),
+            "fast": fast.with_preprocess(spec.preprocess).flattened()}
+    rng = np.random.default_rng(SEED + 8)
+    images = rng.integers(0, 256, size=(n_images, *spec.input_size, 3),
+                          dtype=np.uint8)
+    chunks = [(torch.from_numpy(c).pin_memory(), n)
+              for c, n in batching.iter_batches(images, BATCH)]
+    outs, times = {}, {"module": [], "fast": []}
+    with torch.inference_mode():
+        for label, run in runs.items():
+            run.to(dev)
+            compiled = run.jitted(dev)
+            outs[label] = torch.cat([compiled(c, n) for c, n in chunks]
+                                    ).float().cpu()
+        for label in ["module", "fast", "fast", "module"] * repeats:
+            compiled = runs[label].jitted(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cat([compiled(c, n) for c, n in chunks]).float().cpu()
+            times[label].append(time.perf_counter() - t0)
+    rates = {k: n_images / sorted(v)[len(v) // 2] for k, v in times.items()}
+    for label, out in outs.items():
+        assert out.shape == (n_images, spec.feature_dim), (label, out.shape)
+        assert torch.isfinite(out).all(), f"{label}: non-finite features"
+    diff = float((outs["fast"] - outs["module"]).abs().max())
+    out = {"phase": "resnet_fast_vs_module", "images": n_images,
+           "batch_size": BATCH, "source_size": list(spec.input_size),
+           "dtype": "bfloat16", "passes": 2 * repeats,
+           "module_images_per_s": rates["module"],
+           "fast_images_per_s": rates["fast"],
+           "fast_over_module": rates["fast"] / rates["module"],
+           "max_abs_diff": diff,
+           "feature_max_abs": float(outs["module"].abs().max()),
+           "registry_selects_fast": module_mf.fast_path}
+    emit(out)
+    return out
+
+
 # (phase, (model, path), source size, tolerance, precision), under
 # "autotune": bf16 (the default) auditions nothing, as in the reference;
 # float32 exercises the gate on the card
@@ -1169,6 +1313,18 @@ def main() -> int:
         == [v["adopted"] for v in phases[name]["verdicts"]]
     kernels._audition = audition
     del os.environ[kernels.COMPILE_CACHE_DIR_ENV]
+
+    # the 224×224 models (and TestNet), their deeper members, and
+    # ResNet's fast apply beside its module
+    for name, model, size, per_forward, tol, mode, precision in ZOO_PHASES:
+        phases[name] = main_path(s, kernels, name, model, size, per_forward,
+                                 tol, mode=mode, precision=precision)
+    assert phases["resnet50_native"]["verdicts"] == [], \
+        "resnet50_native: bf16 collected kernel sites"
+    for name in DEPTH_CHECKS:
+        main_path(s, kernels, f"depth_{name}", (name, "named"), (224, 224),
+                  {}, BF16_REL, n_images=BATCH)
+    resnet_fast_vs_module(dev)
     s.EngineConfig.inference_precision = "bfloat16"
 
     def summary(name, source, replaces, rows, headline, by_phase=None,

@@ -4,12 +4,15 @@ A port of ``sparkdl_tpu.ml.named_image``: the named model comes from the
 port's registry, and featurize/predict run through
 :class:`~sparkdl_tpu_torch.ml.image_transformer.TorchImageTransformer`.
 ``DeepImagePredictor(decodePredictions=True)`` emits top-K ``(class,
-description, probability)`` rows with stable ``class_<i>`` labels.
+description, probability)`` rows over the model's own classes, labelled
+from a local Keras class index where one exists, else ``class_<i>``.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import Optional
 
 import numpy as np
@@ -203,5 +206,20 @@ class DeepImagePredictor(_NamedImageTransformer):
 
 
 def imagenet_labels(n_classes: int = 1000):
-    """[(id, name)] — stable ``class_<i>`` ids (no class index is read)."""
+    """[(wnid, human_name)] from a local copy of Keras's
+    ``imagenet_class_index.json`` (``~/.keras/models/``, then
+    ``~/.keras/``) where one exists and reads whole, else stable
+    ``class_<i>`` ids. Nothing is downloaded."""
+    candidates = [
+        os.path.expanduser("~/.keras/models/imagenet_class_index.json"),
+        os.path.expanduser("~/.keras/imagenet_class_index.json"),
+    ]
+    for path in candidates:
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    index = json.load(f)
+                return [tuple(index[str(i)]) for i in range(n_classes)]
+            except (OSError, KeyError, json.JSONDecodeError):
+                break
     return [(f"class_{i}", f"class_{i}") for i in range(n_classes)]

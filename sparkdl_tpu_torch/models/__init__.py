@@ -1,1 +1,1 @@
-"""The ported model zoo (Xception so far) and the weight bridge."""
+"""The ported model zoo (every Flax-native name of the reference's registry) and the weight bridge."""

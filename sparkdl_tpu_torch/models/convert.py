@@ -6,7 +6,7 @@
 the same name:
 
 - conv kernel HWIO → OIHW (a depthwise ``(3, 3, 1, C)`` becomes
-  ``(C, 1, 3, 3)`` by the same transpose);
+  ``(C, 1, 3, 3)`` by the same transpose), a conv's ``bias`` kept;
 - Dense kernel ``(in, out)`` → ``(out, in)``;
 - BN ``scale``/``bias`` → ``weight``/``bias`` and ``batch_stats``
   ``mean``/``var`` → ``running_mean``/``running_var``.
@@ -34,11 +34,20 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()
         yield path, np.asarray(tree)
 
 
-def _kernel(a: np.ndarray) -> np.ndarray:
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a float32 CPU tensor (a copy only where ``a`` is not
+    already a writable, contiguous float32 array)."""
+    return torch.from_numpy(np.require(a, np.float32, ["C", "W"]))
+
+
+def _kernel(a: np.ndarray) -> torch.Tensor:
+    """The layout change by torch's blocked, threaded copy: numpy's
+    transposed copy of a VGG ``fc1`` kernel (25,088 × 4,096) takes
+    seconds."""
     if a.ndim == 4:          # HWIO → OIHW
-        return a.transpose(3, 2, 0, 1)
+        return _tensor(a).permute(3, 2, 0, 1).contiguous()
     if a.ndim == 2:          # (in, out) → (out, in)
-        return a.T
+        return _tensor(a).t().contiguous()
     raise ValueError(f"unexpected kernel rank {a.ndim}")
 
 
@@ -53,17 +62,15 @@ def from_flax_variables(name: str, variables: Dict[str, Any]
     for path, leaf in _leaves(variables["params"]):
         *mod, leaf_name = path
         if leaf_name == "kernel":
-            key, arr = "weight", _kernel(leaf)
+            key, value = "weight", _kernel(leaf)
         elif leaf_name in _PARAM_NAMES:
-            key, arr = _PARAM_NAMES[leaf_name], leaf
+            key, value = _PARAM_NAMES[leaf_name], _tensor(leaf)
         else:
             raise ValueError(f"{name}: unknown parameter {'/'.join(path)}")
-        state[".".join(mod + [key])] = torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32))
+        state[".".join(mod + [key])] = value
     for path, leaf in _leaves(variables.get("batch_stats", {})):
         *mod, leaf_name = path
         if leaf_name not in _STAT_NAMES:
             raise ValueError(f"{name}: unknown statistic {'/'.join(path)}")
-        state[".".join(mod + [_STAT_NAMES[leaf_name]])] = torch.from_numpy(
-            np.ascontiguousarray(leaf, dtype=np.float32))
+        state[".".join(mod + [_STAT_NAMES[leaf_name]])] = _tensor(leaf)
     return state

@@ -1,7 +1,7 @@
 """Building blocks of the ported model zoo, in the reference's semantics.
 
-A port of the parts of ``sparkdl_tpu.models.layers`` that Xception and
-InceptionV3 use.
+A port of ``sparkdl_tpu.models.layers``: the blocks of the Flax-native
+model zoo (Xception, InceptionV3, ResNet, VGG, MobileNetV2, TestNet).
 Activations are NHWC throughout, as in the JAX package; each conv views
 them as NCHW (channels-last memory) for ``F.conv2d``. Weights use
 PyTorch's layouts (``models/convert.py`` maps the Flax tree onto them).
@@ -24,6 +24,7 @@ from torch import nn
 from sparkdl_tpu_torch.core import kernels
 
 KERAS_BN_EPS = 1e-3          # keras BatchNormalization default
+RESNET_BN_EPS = 1.001e-5     # keras resnet.py blocks
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -40,12 +41,13 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv2d(nn.Module):
-    """Conv without bias on NHWC activations, "VALID" or XLA "SAME"
-    padding; weight (Cout, Cin/groups, kh, kw); computes in ``dtype``
-    (None: the promoted type of input and weight)."""
+    """Conv on NHWC activations, "VALID" or XLA "SAME" padding; weight
+    (Cout, Cin/groups, kh, kw) and, with ``bias``, a bias (Cout,) added
+    in the conv's dtype (``flax.linen.Conv(use_bias=True)``); computes in
+    ``dtype`` (None: the promoted type of input and weight)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride=1,
-                 padding: str = "SAME", groups: int = 1,
+                 padding: str = "SAME", groups: int = 1, bias: bool = False,
                  dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.kernel = _pair(kernel)
@@ -55,11 +57,32 @@ class Conv2d(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(cout, cin // groups, *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return conv2d_nhwc(x.to(dtype), self.weight.to(dtype), self.stride,
-                           self.padding, self.groups)
+        y = conv2d_nhwc(x.to(dtype), self.weight.to(dtype), self.stride,
+                        self.padding, self.groups)
+        return y if self.bias is None else y + self.bias.to(dtype)
+
+
+def pad2d(x: torch.Tensor, pad) -> torch.Tensor:
+    """Keras ``ZeroPadding2D`` on NHWC: ``pad`` is an int, or ((top,
+    bottom), (left, right))."""
+    if isinstance(pad, int):
+        pad = ((pad, pad), (pad, pad))
+    (t, b), (l, r) = pad
+    return F.pad(x, (0, 0, l, r, t, b))
+
+
+def correct_pad(x: torch.Tensor, kernel_size: int
+                ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """Keras ``imagenet_utils.correct_pad`` for a stride-2 "VALID" conv on
+    NHWC: one cell less before along an even axis."""
+    h, w = x.shape[1], x.shape[2]
+    adjust = (1 - h % 2, 1 - w % 2)
+    correct = kernel_size // 2
+    return ((correct - adjust[0], correct), (correct - adjust[1], correct))
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1),

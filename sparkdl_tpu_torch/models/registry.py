@@ -11,16 +11,18 @@ sources for :func:`build_featurizer` / :func:`build_predictor`:
   ``models/convert.py`` — how the JAX package's weights come across;
 - a PyTorch state dict, or the path of one saved with ``torch.save``.
 
-Xception and InceptionV3 are ported so far; the reference's other names
-raise a clear "not yet ported" error. InceptionV3 builds its inference
-fast path (``models/inception_fast.py``) unless ``fast=False`` asks for
-the module, as in the reference.
+Every Flax-native name of the reference's registry is ported (Xception,
+InceptionV3, ResNet50/101/152, VGG16/19, MobileNetV2, TestNet); its
+ingestion-backed names raise a clear "not yet ported" error. InceptionV3
+builds its inference fast path (``models/inception_fast.py``) unless
+``fast=False`` asks for the module, as in the reference; ResNet's fast
+apply (``models/resnet_fast.py``) is not selected, as there.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +34,10 @@ from sparkdl_tpu_torch.models import layers
 from sparkdl_tpu_torch.models.convert import from_flax_variables
 from sparkdl_tpu_torch.models.inception import InceptionV3
 from sparkdl_tpu_torch.models.inception_fast import inception_v3_fast_apply
+from sparkdl_tpu_torch.models.mobilenet import MobileNetV2
+from sparkdl_tpu_torch.models.resnet import ResNet50, ResNet101, ResNet152
+from sparkdl_tpu_torch.models.testnet import TestNet
+from sparkdl_tpu_torch.models.vgg import VGG16, VGG19
 from sparkdl_tpu_torch.models.xception import Xception
 
 # ---------------------------------------------------------------------------
@@ -97,17 +103,42 @@ class ModelSpec:
     preprocess: Callable                 # device-side, on tensors
     feature_dim: int
     classes: int = 1000
+    # kwargs of the featurize variant (None: include_top=False,
+    # pooling="avg")
+    featurize_kwargs: Optional[Dict[str, Any]] = None
+    # forward FLOPs per image at the input size (2·MACs), the reference
+    # spec's figure; None = unknown
+    flops_per_image: Optional[float] = None
 
 
 SUPPORTED_MODELS: Dict[str, ModelSpec] = {
     "InceptionV3": ModelSpec(
-        "InceptionV3", InceptionV3, (299, 299), preprocess_tf_mode, 2048),
+        "InceptionV3", InceptionV3, (299, 299), preprocess_tf_mode, 2048,
+        flops_per_image=5.7e9),
+    "ResNet50": ModelSpec(
+        "ResNet50", ResNet50, (224, 224), preprocess_caffe_mode, 2048,
+        flops_per_image=7.75e9),
+    "ResNet101": ModelSpec(
+        "ResNet101", ResNet101, (224, 224), preprocess_caffe_mode, 2048),
+    "ResNet152": ModelSpec(
+        "ResNet152", ResNet152, (224, 224), preprocess_caffe_mode, 2048),
     "Xception": ModelSpec(
         "Xception", Xception, (299, 299), preprocess_tf_mode, 2048),
+    "VGG16": ModelSpec(
+        "VGG16", VGG16, (224, 224), preprocess_caffe_mode, 4096,
+        featurize_kwargs={"include_top": True, "features_at_fc2": True}),
+    "VGG19": ModelSpec(
+        "VGG19", VGG19, (224, 224), preprocess_caffe_mode, 4096,
+        featurize_kwargs={"include_top": True, "features_at_fc2": True}),
+    "MobileNetV2": ModelSpec(
+        "MobileNetV2", MobileNetV2, (224, 224), preprocess_tf_mode, 1280),
+    "TestNet": ModelSpec(
+        "TestNet", TestNet, (32, 32), preprocess_tf_mode, 16, classes=10),
 }
 
 #: Every name the JAX package's registry serves; those not in
-#: :data:`SUPPORTED_MODELS` are not ported yet.
+#: :data:`SUPPORTED_MODELS` (its ingestion-backed names) are not ported
+#: yet.
 REFERENCE_MODEL_NAMES = sorted([
     "InceptionV3", "ResNet50", "ResNet101", "ResNet152", "Xception",
     "VGG16", "VGG19", "MobileNetV2", "TestNet", "DenseNet121",
@@ -193,11 +224,11 @@ def _build(name: str, include_top: bool, weights, seed: int, dtype,
     spec = get_model_spec(name)
     compute = torch_dtype(dtype) if dtype is not None else None
     if include_top:
-        module = spec.builder(include_top=True, classes=spec.classes,
-                              dtype=compute)
+        kwargs = {"include_top": True, "classes": spec.classes}
     else:
-        module = spec.builder(include_top=False, pooling="avg",
-                              dtype=compute)
+        kwargs = dict(spec.featurize_kwargs
+                      or {"include_top": False, "pooling": "avg"})
+    module = spec.builder(**kwargs, dtype=compute)
     _resolve_weights(module, name, weights, seed)
     kind = "predict" if include_top else "featurize"
     fast_apply = _fast_inference_apply(name, include_top, dtype) if fast \

@@ -291,11 +291,12 @@ def _preproc_input(card, shape, dtype, seed=3):
 #: (B, H, W, C, TH, TW): odd batches (unaligned image bases); an upscale
 #: whose rows are 51 elements (no multiple of 16 bytes), a downscale at
 #: C = 4, the identity at C = 1, one output row, a steep downscale, the
-#: featurize path's 256×256 source, and rows too wide to stage in float32
+#: featurize path's 256×256 source, rows too wide to stage in float32,
+#: and the 224×224 models' resize of a batch of 16 256×256 sources
 PREPROC_EXACT = [(3, 13, 17, 3, 29, 23), (3, 40, 36, 4, 32, 32),
                  (5, 17, 13, 1, 17, 13), (3, 20, 30, 3, 1, 7),
                  (3, 600, 600, 3, 3, 3), (3, 256, 256, 3, 299, 299),
-                 (1, 2, 15000, 4, 1, 5)]
+                 (1, 2, 15000, 4, 1, 5), (16, 256, 256, 3, 224, 224)]
 
 
 @pytest.mark.cuda
@@ -393,6 +394,32 @@ def test_inception_module_path_matches_cpu(card, force_routes):
     gpu = mf.apply_batch(x, batch_size=2, device=card)
     # the first sight of the shape: one eager warm-up, then one replay
     assert kernels.launches["pw1x1"] == 2 * 39
+    assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,src,per", [
+    ("ResNet50", (224, 224), {}),
+    ("ResNet50", (256, 256), {"preproc_resize": 1}),
+    ("MobileNetV2", (224, 224), {}),
+])
+def test_zoo_features_match_cpu(card, force_routes, name, src, per):
+    """A whole ResNet50 or MobileNetV2 featurizer on the card (plain
+    cuDNN convs; ``preproc_resize`` once per forward where the source is
+    not 224×224) against the same weights on the CPU, float32, two
+    images: max|Δ| ≤ 1e-3·max|ref|."""
+    from sparkdl_tpu_torch.models.registry import build_featurizer
+
+    mf = build_featurizer(name, weights="random", seed=3).resized(src)
+    x = np.random.default_rng(4).integers(0, 256, (2, *src, 3), np.uint8)
+    cpu = mf.apply_batch(x, batch_size=2, device="cpu")
+    kernels.reset_launches()
+    gpu = mf.apply_batch(x, batch_size=2, device=card)
+    # the first sight of the shape: one eager warm-up, then one replay
+    assert {k: n for k, n in kernels.launches.items() if n} == \
+        {k: 2 * n for k, n in per.items()}
+    assert gpu.shape == cpu.shape == (2, 1280 if name == "MobileNetV2"
+                                      else 2048)
     assert np.max(np.abs(gpu - cpu)) <= 1e-3 * np.abs(cpu).max()
 
 

@@ -56,10 +56,11 @@ def test_featurize_on_cpu_loads_no_jax(tmp_path):
         "        for _ in range(2)]\n"
         "df = s.DataFrame.fromColumns(\n"
         "    {'image': imageIO.imageArraysToStructColumn(imgs, ['a', 'b'])})\n"
-        "for name in ('Xception', 'InceptionV3'):\n"
+        "for name, dim in (('Xception', 2048), ('InceptionV3', 2048),\n"
+        "                  ('TestNet', 16)):\n"
         "    rows = s.DeepImageFeaturizer(inputCol='image', outputCol='f',\n"
         "        modelName=name, batchSize=2).transform(df).collect()\n"
-        "    assert len(rows) == 2 and len(rows[0]['f']) == 2048\n"
+        "    assert len(rows) == 2 and len(rows[0]['f']) == dim\n"
         "top = {m.split('.')[0] for m in sys.modules}\n"
         "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "                    'sparkdl_tpu'}))\n")
@@ -90,9 +91,10 @@ def test_default_device_without_cuda_raises():
 
 
 def test_unported_models_say_so():
+    """The reference's ingestion-backed names are not ported yet."""
     import sparkdl_tpu_torch as s
 
     feat = s.DeepImageFeaturizer(inputCol="image", outputCol="f",
-                                 modelName="ResNet50")
+                                 modelName="DenseNet121")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         feat._model_function("featurize")

@@ -50,10 +50,13 @@ def _plain(tree):
 
 
 def headless(variables):
-    """The featurizer's part of a full (include_top) model's tree."""
-    return {"params": {k: v for k, v in variables["params"].items()
-                       if k != "predictions"},
-            "batch_stats": variables["batch_stats"]}
+    """The featurizer's part of a full (include_top) model's tree (BN-free
+    models such as VGG and TestNet have no ``batch_stats``)."""
+    out = {"params": {k: v for k, v in variables["params"].items()
+                      if k != "predictions"}}
+    if "batch_stats" in variables:
+        out["batch_stats"] = variables["batch_stats"]
+    return out
 
 
 def max_abs(a, b) -> float:
