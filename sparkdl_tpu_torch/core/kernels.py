@@ -20,10 +20,13 @@ PyTorch version (:func:`plain_sep2d`, :func:`plain_pw1x1`,
 :func:`plain_preproc`) only for a tensor on the CPU; there is no fallback
 on the card. :data:`launches` counts kernel launches, one per wrapper
 call that reached the card, and :data:`launches_by_body` the same by the
-body that ran. A kernel captured in a CUDA graph (``ModelFunction.jitted``)
-launches at each replay without its wrapper: the graph adds the launches
-its capture recorded at each replay (:func:`add_launches`), and the
-capture itself counts none.
+body that ran; both are updated under one lock, since partitions run on
+a pool of threads. A kernel captured in a CUDA graph
+(``ModelFunction.jitted``) launches at each replay without its wrapper:
+the capture counts none and keeps, per thread, the record of the
+launches its own thread's wrappers made (:func:`recording_launches`),
+and each replay adds that record (:func:`add_launches`).
+:data:`device_gate` gives a capture or an audition the card to itself.
 
 **Launch plans.** :func:`plan_sep2d` and :func:`plan_pw1x1` choose, from
 a call's shape and dtype alone, the body (bf16 on the Hopper tensor-core
@@ -125,40 +128,141 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _zero_counts() -> Dict[str, Any]:
+    return {"launches": {name: 0 for name in launches},
+            "by_body": {k: {b: 0 for b in v}
+                        for k, v in launches_by_body.items()}}
+
+
+# Guards every read-modify-write of the process counters: partitions run
+# on a pool of threads, and each replays graphs and counts its launches.
+_launch_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-    for bodies in launches_by_body.values():
-        for body in bodies:
-            bodies[body] = 0
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
+        for bodies in launches_by_body.values():
+            for body in bodies:
+                bodies[body] = 0
 
 
 def launch_counts() -> Dict[str, Any]:
     """A copy of :data:`launches` and :data:`launches_by_body`, for
     :func:`add_launches`."""
-    return {"launches": dict(launches),
-            "by_body": {k: dict(v) for k, v in launches_by_body.items()}}
-
-
-def launch_delta(before: Dict[str, Any]) -> Dict[str, Any]:
-    """The launches counted since ``before`` (a :func:`launch_counts`)."""
-    now = launch_counts()
-    return {"launches": {k: v - before["launches"][k]
-                         for k, v in now["launches"].items()},
-            "by_body": {k: {b: n - before["by_body"][k][b]
-                            for b, n in v.items()}
-                        for k, v in now["by_body"].items()}}
+    with _launch_lock:
+        return {"launches": dict(launches),
+                "by_body": {k: dict(v) for k, v in launches_by_body.items()}}
 
 
 def add_launches(delta: Dict[str, Any], times: int = 1) -> None:
-    """Add ``times`` × ``delta`` (a :func:`launch_delta`) to the counters:
-    a CUDA graph's replay launches the kernels its capture recorded
-    without running their wrappers, and a capture launches none."""
-    for name, n in delta["launches"].items():
-        launches[name] += times * n
-    for name, bodies in delta["by_body"].items():
-        for body, n in bodies.items():
-            launches_by_body[name][body] += times * n
+    """Add ``times`` × ``delta`` (a :func:`recording_launches` record) to
+    the counters: a CUDA graph's replay launches
+    the kernels its capture recorded without running their wrappers."""
+    with _launch_lock:
+        for name, n in delta["launches"].items():
+            launches[name] += times * n
+        for name, bodies in delta["by_body"].items():
+            for body, n in bodies.items():
+                launches_by_body[name][body] += times * n
+
+
+def _count_launch(kernel: str, body: Optional[str] = None) -> None:
+    """One launch of ``kernel`` (and of its ``body``) by a wrapper on this
+    thread: into the record of the capture open on this thread, if any
+    (a capture launches nothing; its graph launches the record at each
+    replay), else into the process counters."""
+    record = getattr(_captured, "launches", None)
+    if record is not None:
+        record["launches"][kernel] += 1
+        if body is not None:
+            record["by_body"][kernel][body] += 1
+        return
+    with _launch_lock:
+        launches[kernel] += 1
+        if body is not None:
+            launches_by_body[kernel][body] += 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, Any]]:
+    """While a CUDA graph is captured on this thread: the launches the
+    wrappers make on this thread go to the yielded record (the graph's
+    launches per replay) and not to the process counters. Launches made
+    meanwhile on other threads — replays of other graphs — are counted
+    as usual and never booked to this graph."""
+    record = _zero_counts()
+    prev = getattr(_captured, "launches", None)
+    _captured.launches = record
+    try:
+        yield record
+    finally:
+        _captured.launches = prev
+
+
+class _DeviceGate:
+    """The process-wide lock of work that must have the card to itself:
+    a graph capture (its device synchronize and cache release, then the
+    capture) and a kernel audition (timings taken while other threads
+    replay graphs would time the contention, not the kernel). Replays
+    take it shared, so they run together and wait only while a capture
+    or an audition runs. Exclusive is re-entrant for its owner (an
+    audition settles inside a capture), and the owner may replay."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._owner: Optional[int] = None
+        self._depth = 0
+        self._readers = 0
+        self._writers_waiting = 0
+
+    @contextlib.contextmanager
+    def exclusive(self) -> Iterator[None]:
+        me = threading.get_ident()
+        with self._cond:
+            if self._owner == me:
+                self._depth += 1
+            else:
+                self._writers_waiting += 1
+                try:
+                    while self._owner is not None or self._readers:
+                        self._cond.wait()
+                finally:
+                    self._writers_waiting -= 1
+                self._owner, self._depth = me, 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._owner = None
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def shared(self) -> Iterator[None]:
+        me = threading.get_ident()
+        with self._cond:
+            if self._owner == me:
+                owned = True
+            else:
+                owned = False
+                while self._owner is not None or self._writers_waiting:
+                    self._cond.wait()
+                self._readers += 1
+        try:
+            yield
+        finally:
+            if not owned:
+                with self._cond:
+                    self._readers -= 1
+                    if not self._readers:
+                        self._cond.notify_all()
+
+
+#: Captures and auditions hold it exclusively, replays shared.
+device_gate = _DeviceGate()
 
 
 _captured = threading.local()
@@ -685,8 +789,7 @@ def sep2d(x, dw9, pw, scale, shift, *, relu_in: bool = False):
                  int(plan.layout == "resident"), plan.producers,
                  plan.grid[0], stream)
     _raise_on_error(err, "sep2d")
-    launches["sep2d"] += 1
-    launches_by_body["sep2d"][plan.body] += 1
+    _count_launch("sep2d", plan.body)
     return out
 
 
@@ -771,8 +874,7 @@ def pw1x1(x, w2, scale, shift, *, relu: bool = False):
                  plan.bn, plan.stages, plan.splits, plan.bm, plan.producers,
                  plan.grid[0], stream)
     _raise_on_error(err, "pw1x1")
-    launches["pw1x1"] += 1
-    launches_by_body["pw1x1"][plan.body] += 1
+    _count_launch("pw1x1", plan.body)
     return out
 
 
@@ -1067,7 +1169,7 @@ def preproc_resize(x, target_hw: Tuple[int, int], out_dtype):
         return out
     launch_preproc(_preproc_fn(), x, out,
                    plan_preproc(b, h, w, c, th, tw, x.dtype, out_dtype))
-    launches["preproc_resize"] += 1
+    _count_launch("preproc_resize")
     return out
 
 
@@ -1503,7 +1605,8 @@ def _audition(site: Site, device) -> Dict[str, Any]:
     """One shootout: both candidates at the site's shape, the numeric
     contract, both timed, the decision. On the CPU it records a clean
     rejection; on the card a kernel that cannot build, launch or run
-    raises."""
+    raises. On the card it holds :data:`device_gate` exclusively, so no
+    other thread's replay runs inside its timings."""
     t0 = time.perf_counter()
     verdict: Dict[str, Any] = {"adopted": False,
                                "backend": _backend_tag(device)}
@@ -1511,7 +1614,7 @@ def _audition(site: Site, device) -> Dict[str, Any]:
         verdict["reason"] = (f"no CUDA device ({device}): the kernel runs "
                              "only on the card, so there is nothing to time")
     else:
-        with torch.inference_mode():
+        with device_gate.exclusive(), torch.inference_mode():
             kernel_fn, twin_fn, x = _build_shootout(site, device)
             y_twin = twin_fn(x)
             y_kernel = kernel_fn(x)

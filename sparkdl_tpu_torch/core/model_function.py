@@ -77,6 +77,10 @@ class ModelFunction:
         self._resize_cache: Dict[Tuple, "ModelFunction"] = {}
         self._precision_cache: Dict[str, "ModelFunction"] = {}
         self._programs: Dict[torch.device, "Compiled"] = {}
+        # partition threads share one model: each memoized variant must
+        # be built once, or two threads would hold two programs (and two
+        # coalescing queues) for the same function
+        self._memo_lock = threading.Lock()
 
     @classmethod
     def fromFunction(cls, fn: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -153,19 +157,21 @@ class ModelFunction:
                 f"precision must be one of {PRECISIONS}, got {precision!r}")
         if precision == "float32":
             return self
-        out = self._precision_cache.get(precision)
-        if out is None:
-            out = self.with_compute_dtype(precision)
-            self._precision_cache[precision] = out
+        with self._memo_lock:
+            out = self._precision_cache.get(precision)
+            if out is None:
+                out = self.with_compute_dtype(precision)
+                self._precision_cache[precision] = out
         return out
 
     def flattened(self) -> "ModelFunction":
         """Outputs flattened to (batch, -1) — the ``buildFlattener`` analog.
         Memoized, so its precision variants are built once."""
-        if self._flat_cache is None:
-            self._flat_cache = self.with_postprocess(
-                lambda y: y.reshape(y.shape[0], -1))
-        return self._flat_cache
+        with self._memo_lock:
+            if self._flat_cache is None:
+                self._flat_cache = self.with_postprocess(
+                    lambda y: y.reshape(y.shape[0], -1))
+            return self._flat_cache
 
     def resized(self, src_size: Tuple[int, int],
                 target_size: Optional[Tuple[int, int]] = None
@@ -181,26 +187,29 @@ class ModelFunction:
         if target is None or tuple(src_size) == target:
             return self
         key = (tuple(src_size), target)
-        if key not in self._resize_cache:
-            th, tw = target
-            out_dtype = torch_dtype(self.input_spec.dtype)
-            family = self.name
+        th, tw = target
+        with self._memo_lock:
+            wrapped = self._resize_cache.get(key)
+            if wrapped is None:
+                out_dtype = torch_dtype(self.input_spec.dtype)
+                family = self.name
 
-            def pre(x):
-                fused = kernels.route_preproc(x, (th, tw), out_dtype,
-                                              family=family)
-                if fused is not None:
-                    return fused
-                return kernels.twin_preproc(x, (th, tw), out_dtype)
+                def pre(x):
+                    fused = kernels.route_preproc(x, (th, tw), out_dtype,
+                                                  family=family)
+                    if fused is not None:
+                        return fused
+                    return kernels.twin_preproc(x, (th, tw), out_dtype)
 
-            spec = TensorSpec((None, int(src_size[0]), int(src_size[1]),
-                               self.input_spec.shape[3]),
-                              self.input_spec.dtype)
-            wrapped = self.with_preprocess(pre, input_spec=spec)
-            # pre() consults route_preproc whatever the parent's body holds
-            wrapped.kernel_routable = True
-            self._resize_cache[key] = wrapped
-        return self._resize_cache[key]
+                spec = TensorSpec((None, int(src_size[0]), int(src_size[1]),
+                                   self.input_spec.shape[3]),
+                                  self.input_spec.dtype)
+                wrapped = self.with_preprocess(pre, input_spec=spec)
+                # pre() consults route_preproc whatever the parent's body
+                # holds
+                wrapped.kernel_routable = True
+                self._resize_cache[key] = wrapped
+        return wrapped
 
     # -- execution -----------------------------------------------------------
 
@@ -208,15 +217,19 @@ class ModelFunction:
         """Move the weights to ``device`` (in place). A no-op when they are
         there already: the CUDA graphs captured over them read them where
         they lie, so weights that do move drop every graph captured over
-        them."""
+        them. The check and the move are one step under a process-wide
+        lock: of two threads making the first call on one model, one
+        moves it and the other finds it moved."""
         if isinstance(self.variables, torch.nn.Module):
             device = _resolved(torch.device(device))
-            tensors = itertools.chain(self.variables.parameters(),
-                                      self.variables.buffers())
-            if any(t.device != device for t in tensors):
-                for program in list(_PROGRAMS_OVER.get(self.variables, ())):
-                    program.drop()
-                self.variables.to(device)
+            with _MOVE_LOCK:
+                tensors = itertools.chain(self.variables.parameters(),
+                                          self.variables.buffers())
+                if any(t.device != device for t in tensors):
+                    for program in list(_PROGRAMS_OVER.get(self.variables,
+                                                           ())):
+                        program.drop()
+                    self.variables.to(device)
         return self
 
     def stage_inputs(self, array) -> np.ndarray:
@@ -237,8 +250,10 @@ class ModelFunction:
         device = _resolved(torch.device(device))
         program = self._programs.get(device)
         if program is None:
-            program = self._programs.setdefault(device,
-                                                Compiled(self, device))
+            with self._memo_lock:
+                program = self._programs.get(device)
+                if program is None:
+                    program = self._programs[device] = Compiled(self, device)
         return program
 
     def apply_batch(self, array, batch_size: int = 64, device="cuda",
@@ -282,6 +297,34 @@ def _resolved(device: torch.device) -> torch.device:
 # that move drop every graph that reads them, whichever wrapper moved them
 _PROGRAMS_OVER: "weakref.WeakKeyDictionary[torch.nn.Module, Any]" = \
     weakref.WeakKeyDictionary()
+_PROGRAMS_LOCK = threading.Lock()
+# ModelFunction.to: one check-and-move of a model's weights at a time
+_MOVE_LOCK = threading.Lock()
+
+
+def _pool_bytes(device: torch.device, pool) -> int:
+    """The bytes the caching allocator holds for the graph memory pool
+    ``pool`` on ``device``: the segments of that pool only, so another
+    thread's allocations meanwhile are not counted."""
+    want = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("device") == device.index
+               and tuple(seg.get("segment_pool_id") or ()) == want)
+
+
+def _oom_in_chain(err: BaseException) -> Optional[BaseException]:
+    """The allocator's out-of-memory error among ``err`` and the errors
+    it was raised while handling, if any: a capture that fails to
+    allocate is ended on the way out, and an error that ending raises
+    must not hide the OOM the re-chunk acts on."""
+    seen = 0
+    while err is not None and seen < 8:
+        if isinstance(err, torch.OutOfMemoryError) or \
+                "out of memory" in str(err).lower():
+            return err
+        err = err.__cause__ or err.__context__
+        seen += 1
+    return None
 
 
 @dataclass
@@ -342,8 +385,9 @@ class Compiled:
         self._lock = threading.Lock()
         self.__sparkdl_trace_target__ = self._abstract
         if isinstance(model.variables, torch.nn.Module):
-            _PROGRAMS_OVER.setdefault(model.variables,
-                                      weakref.WeakSet()).add(self)
+            with _PROGRAMS_LOCK:
+                _PROGRAMS_OVER.setdefault(model.variables,
+                                          weakref.WeakSet()).add(self)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x.to(self._spec_dtype))
@@ -378,29 +422,40 @@ class Compiled:
         key = self._key(chunk)
         if self.device.type != "cuda":
             x = chunk.to(self.device)
-            if key in self._seen:
+            with self._lock:
+                first = key not in self._seen
+                self._seen.add(key)
+            if not first:
                 return self._forward(x)[:n_valid]
             with profiling.annotate(telemetry.SPAN_COMPILE,
                                     model=self.model.name,
                                     shapes=repr(key[:2])):
                 self._settle(x)
                 out = self._forward(x)
-            self._seen.add(key)
             return out[:n_valid]
         with self._lock:
             graph = self._graphs.get(key)
             if graph is None:
                 graph = self._capture(chunk, key)
-            else:
+            with kernels.device_gate.shared():
                 graph.static_in.copy_(chunk, non_blocking=True)
-            graph.graph.replay()
-            kernels.add_launches(graph.launches)
-            return graph.static_out[:n_valid].clone()
+                graph.graph.replay()
+                kernels.add_launches(graph.launches)
+                return graph.static_out[:n_valid].clone()
 
     def _capture(self, chunk: torch.Tensor, key: Tuple) -> _Graph:
+        """Settle, warm up and capture one key, holding
+        ``kernels.device_gate`` exclusively: no other capture, audition
+        or replay runs meanwhile. The graph's launches are those its own
+        thread's wrappers recorded (``kernels.recording_launches``) and
+        its pool bytes those its own pool grew by. A capture that fails
+        (an allocation that does not fit among them) stores nothing: the
+        capture is ended, its tensors released, and an out-of-memory
+        error reaches the caller as such."""
         with profiling.annotate(telemetry.SPAN_COMPILE,
                                 model=self.model.name,
-                                shapes=repr(key[:2])):
+                                shapes=repr(key[:2])), \
+                kernels.device_gate.exclusive():
             static_in = torch.empty(chunk.shape, dtype=chunk.dtype,
                                     device=self.device)
             static_in.copy_(chunk, non_blocking=True)
@@ -416,17 +471,20 @@ class Compiled:
             graph = torch.cuda.CUDAGraph()
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()  # as the capture does, before counting
-            reserved = torch.cuda.memory_reserved(self.device)
-            before = kernels.launch_counts()
+            reserved = _pool_bytes(self.device, self._pool)
             try:
-                with kernels.holding_references() as held, torch.cuda.graph(
-                        graph, pool=self._pool,
-                        capture_error_mode="thread_local"):
+                with kernels.recording_launches() as launches, \
+                        kernels.holding_references() as held, \
+                        torch.cuda.graph(graph, pool=self._pool,
+                                         capture_error_mode="thread_local"):
                     static_out = self._forward(static_in)
-            finally:
-                launches = kernels.launch_delta(before)
-                kernels.add_launches(launches, times=-1)
-            pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            except BaseException as err:
+                del graph
+                oom = _oom_in_chain(err)
+                if oom is not None and oom is not err:
+                    raise oom from None
+                raise
+            pool_bytes = _pool_bytes(self.device, self._pool) - reserved
             stale = [k for k in self._graphs if k[:2] == key[:2]]
             for k in stale:
                 del self._graphs[k]

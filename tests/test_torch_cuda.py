@@ -673,3 +673,60 @@ def test_failing_kernel_raises_out_of_ensure_verdict(card, monkeypatch):
     with pytest.raises(RuntimeError, match="pw1x1 kernel launch failed"):
         kernels.ensure_verdict(site, card)
     assert kernels.verdict_for(site, card) is None
+
+
+@pytest.mark.cuda
+def test_threads_replay_two_programs_with_exact_launches(card,
+                                                         force_routes):
+    """8 threads × 2 programs (Xception in bf16: 34 ``sep2d`` a forward;
+    a scale behind ``preproc_resize``: 1), all starting together: each
+    program is captured once, its graph records exactly one forward's
+    launches whatever the other threads replayed meanwhile, and the
+    counters end at (1 warm-up + every call) × launches per forward.
+    Every output equals the single-threaded one."""
+    import threading
+
+    cases = []
+    for name in ("sep2d", "preproc_resize"):
+        mf, x, per = _graph_case(name)
+        mf = mf.with_dtype("bfloat16")
+        mf.to(card)
+        cases.append((mf.jitted(card), torch.from_numpy(x).pin_memory(),
+                      per))
+    calls = 4
+    outs = [[] for _ in range(8)]
+    errors = []
+    barrier = threading.Barrier(8, timeout=120)
+
+    def work(i):
+        compiled, chunk, _ = cases[i % 2]
+        try:
+            with torch.cuda.device(card), torch.inference_mode():
+                barrier.wait()
+                for _ in range(calls):
+                    outs[i].append(compiled(chunk, 2))
+                torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    kernels.reset_launches()
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    assert not errors, errors
+    expected = {"sep2d": 0, "pw1x1": 0, "preproc_resize": 0}
+    for compiled, _, per in cases:
+        (graph,) = compiled.graphs.values()
+        assert {k: n for k, n in graph.launches["launches"].items() if n} \
+            == per
+        assert graph.pool_bytes > 0
+        for k, n in per.items():
+            expected[k] += n * (1 + 4 * calls)
+    assert kernels.launches == expected
+    for i in range(2, 8):
+        for a, b in zip(outs[i], outs[i % 2]):
+            assert torch.equal(a, b)
+
