@@ -14,8 +14,14 @@ slot of a pinned host ring and does nothing else; the consumer copies
 the slot to the card and hands the slot back only after a CUDA event
 shows that copy finished.
 
-The mesh ``multiple=``, pytree inputs and the classified retry / OOM
-re-chunk of the reference are not ported yet.
+Per-chunk failures are classified (``core.resilience``): a transient
+error retries the same chunk with backoff (a ``chunk_retry`` health
+event), a device OOM re-pads the chunk's valid rows at half its bucket
+(an ``oom_rechunk`` event; on the card the smaller rung is one more
+captured graph), and a fatal error, or an OOM at a bucket of one row,
+propagates. Everything stays on the device: nothing re-runs on the CPU
+or eagerly. The mesh ``multiple=`` and pytree inputs of the reference
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, \
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.core import kernels, pipeline, profiling, telemetry
+from sparkdl_tpu_torch.core import (
+    health, kernels, pipeline, profiling, resilience, telemetry,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -499,12 +507,22 @@ class _PinnedRing:
               bucket: int) -> Tuple[int, torch.Tensor, int]:
         """Pad ``array[start:stop]`` into a free slot (staging thread);
         returns (slot, its first ``bucket`` rows, n_valid)."""
+        slot, chunk = self.stage_parts([array[start:stop]], bucket)
+        return slot, chunk, stop - start
+
+    def stage_parts(self, parts: List[np.ndarray], bucket: int
+                    ) -> Tuple[int, torch.Tensor]:
+        """Concatenate ``parts`` along dim 0 into a free slot and pad it
+        to ``bucket`` rows (the executor's coalesced window); returns
+        (slot, its first ``bucket`` rows)."""
         slot = self._free.get()
         host = self._host[slot, :bucket]
-        n = stop - start
-        host[:n] = array[start:stop]
+        n = 0
+        for part in parts:
+            host[n:n + part.shape[0]] = part
+            n += part.shape[0]
         host[n:] = 0
-        return slot, self._buf[slot, :bucket], n
+        return slot, self._buf[slot, :bucket]
 
     def retire(self, slot: int, stream) -> None:
         """The consumer has enqueued the copy out of ``slot`` on
@@ -558,10 +576,66 @@ def _give_ring(ring: _PinnedRing) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _dispatch_chunk(fn: Callable[[torch.Tensor, int], torch.Tensor],
+                    array: np.ndarray, start: int, chunk: torch.Tensor,
+                    n_valid: int, device: torch.device,
+                    policy: resilience.RetryPolicy) -> List[torch.Tensor]:
+    """Run one padded chunk (rows ``start:start + n_valid`` of
+    ``array``) with classified retry and OOM re-chunking; returns its
+    output rows on the device, in row order — one tensor normally,
+    several when an OOM made the chunk re-run as smaller sub-chunks.
+
+    - FATAL: propagate; retrying a shape or dtype error replays it.
+    - RETRYABLE: bounded backoff retry of the same chunk through
+      ``policy.execute`` (the same graph).
+    - OOM: halve the bucket and re-pad THIS chunk's valid rows at it
+      from the host array, recursing — the pad rows are zeros, so
+      the per-row values are the same. An OOM at a bucket of one row
+      propagates to ``apply_batch``'s whole-call re-run.
+    """
+    rows = chunk.shape[0]
+
+    def attempt():
+        resilience.inject("device_oom", rows=rows, valid=n_valid)
+        resilience.inject("transfer_stall", rows=rows)
+        return [fn(chunk, n_valid)]
+
+    try:
+        return policy.execute(
+            attempt, what=f"chunk dispatch (bucket {rows})",
+            on_retry=lambda a, e: health.record(
+                health.CHUNK_RETRY, bucket=rows, attempt=a,
+                error=type(e).__name__))
+    except Exception as e:  # noqa: BLE001 - classified below
+        if resilience.classify(e) != resilience.OOM:
+            raise
+        half = rows // 2
+        if half < 1:
+            raise
+        health.record(health.OOM_RECHUNK, bucket=rows, half=half)
+        logger.warning(
+            "device OOM at bucket %d (%s); re-chunking %d valid "
+            "row(s) at bucket %d", rows, e, n_valid, half)
+        out: List[torch.Tensor] = []
+        for sub_start in range(start, start + n_valid, half):
+            sub_stop = min(sub_start + half, start + n_valid)
+            padded, sub_valid = pad_batch(
+                array[sub_start:sub_stop],
+                bucket_size(sub_stop - sub_start, half))
+            sub = torch.from_numpy(padded)
+            if device.type == "cuda":
+                sub = sub.pin_memory()
+            out.extend(_dispatch_chunk(fn, array, sub_start, sub,
+                                       sub_valid, device, policy))
+        return out
+
+
 def run_batched(fn: Callable[[torch.Tensor, int], torch.Tensor],
                 array: np.ndarray, batch_size: int, device: torch.device,
                 prefetch: int = 2,
-                planner: Optional[BucketPlanner] = None) -> np.ndarray:
+                planner: Optional[BucketPlanner] = None,
+                retry_policy: Optional[resilience.RetryPolicy] = None
+                ) -> np.ndarray:
     """Apply ``fn`` over all rows of ``array`` in padded chunks; returns
     numpy.
 
@@ -574,7 +648,12 @@ def run_batched(fn: Callable[[torch.Tensor, int], torch.Tensor],
     one device-to-host copy (a bfloat16 result as float32). Zero rows
     give a zero-row array of the output's element shape
     (:func:`_empty_result`). ``planner``: the telemetry-tuned bucket
-    ladder in place of the power-of-two tail buckets."""
+    ladder in place of the power-of-two tail buckets. Each chunk goes
+    through :func:`_dispatch_chunk` (classified retry, OOM re-chunk)
+    under ``retry_policy``, by default
+    ``resilience.DEFAULT_INFERENCE_POLICY``."""
+    policy = (retry_policy if retry_policy is not None
+              else resilience.DEFAULT_INFERENCE_POLICY)
     n = array.shape[0]
     if n == 0:
         return _empty_result(fn, array, batch_size)
@@ -588,10 +667,10 @@ def run_batched(fn: Callable[[torch.Tensor, int], torch.Tensor],
         t0 = time.perf_counter()
         start, stop, bucket = item
         if ring is not None:
-            staged = ring.stage(array, start, stop, bucket)
+            staged = (start,) + ring.stage(array, start, stop, bucket)
         else:
             padded, n_valid = pad_batch(array[start:stop], bucket)
-            staged = (None, torch.from_numpy(padded), n_valid)
+            staged = (start, None, torch.from_numpy(padded), n_valid)
         profiling.add_phase_time(profiling.STAGE_BATCH,
                                  time.perf_counter() - t0)
         return staged
@@ -601,11 +680,16 @@ def run_batched(fn: Callable[[torch.Tensor, int], torch.Tensor],
         with torch.inference_mode(), pipeline.DevicePrefetcher(
                 _chunks(n, batch_size, planner), stage_fn=stage,
                 depth=prefetch, name="run_batched") as staged:
-            for slot, chunk, n_valid in staged:
+            for start, slot, chunk, n_valid in staged:
                 _record_chunk_metrics(chunk.shape[0], n_valid)
-                outs.append(fn(chunk, n_valid))
+                try:
+                    outs.extend(_dispatch_chunk(fn, array, start, chunk,
+                                                n_valid, device, policy))
+                finally:
+                    if ring is not None:
+                        ring.retire(slot,
+                                    torch.cuda.current_stream(device))
                 if ring is not None:
-                    ring.retire(slot, torch.cuda.current_stream(device))
                     ring.reclaim()
             result = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
             if result.dtype == torch.bfloat16:  # numpy has no bfloat16

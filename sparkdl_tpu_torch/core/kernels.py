@@ -1466,15 +1466,25 @@ class _Calls(torch.nn.Module):
         return self._fn(x)
 
 
+#: Held while a model's weights are moved (``ModelFunction.to``), swapped
+#: for meta tensors (:func:`collect_sites`, :func:`abstract_output`) or
+#: read by an eager forward (a warm-up, a capture, a forward on the CPU):
+#: partition threads share one model, and a forward on one thread must
+#: never see another thread's meta swap. Re-entrant; taken after
+#: :data:`device_gate` where both are held.
+weights_lock = threading.RLock()
+
+
 def _run_on_meta(fn: Callable, x: torch.Tensor, variables):
     meta_x = torch.empty_like(x, device="meta")
     if not isinstance(variables, torch.nn.Module):
         return fn(meta_x)
-    named = list(variables.named_parameters()) \
-        + list(variables.named_buffers())
-    meta = {f"variables.{name}": t.to("meta") for name, t in named}
-    return torch.func.functional_call(_Calls(fn, variables), meta,
-                                      (meta_x,))
+    with weights_lock:
+        named = list(variables.named_parameters()) \
+            + list(variables.named_buffers())
+        meta = {f"variables.{name}": t.to("meta") for name, t in named}
+        return torch.func.functional_call(_Calls(fn, variables), meta,
+                                          (meta_x,))
 
 
 def _abstract_pass(fn: Callable, x: torch.Tensor, variables
@@ -1495,8 +1505,7 @@ def collect_sites(fn: Callable, x: torch.Tensor,
     of its calls in one forward. ``fn`` runs on meta tensors: ``x``'s
     shape and dtype, and ``variables`` (the ``nn.Module`` that ``fn``
     runs, if any) with its parameters and buffers swapped for meta
-    tensors meanwhile, so the module must not be used by another thread
-    during the pass. Every route returns None before it touches a
+    tensors meanwhile, under :data:`weights_lock`. Every route returns None before it touches a
     tensor: no kernel launches. An operation with no meta version makes
     the pass raise."""
     return _abstract_pass(fn, x, variables)[0]

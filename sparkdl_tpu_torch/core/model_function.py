@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import logging
 import threading
 import weakref
 from dataclasses import dataclass
@@ -20,7 +21,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.core import batching, kernels, profiling, telemetry
+from sparkdl_tpu_torch.core import (
+    batching, kernels, profiling, resilience, telemetry,
+)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -217,12 +222,12 @@ class ModelFunction:
         """Move the weights to ``device`` (in place). A no-op when they are
         there already: the CUDA graphs captured over them read them where
         they lie, so weights that do move drop every graph captured over
-        them. The check and the move are one step under a process-wide
-        lock: of two threads making the first call on one model, one
-        moves it and the other finds it moved."""
+        them. The check and the move are one step under
+        ``kernels.weights_lock``: of two threads making the first call on
+        one model, one moves it and the other finds it moved."""
         if isinstance(self.variables, torch.nn.Module):
             device = _resolved(torch.device(device))
-            with _MOVE_LOCK:
+            with kernels.weights_lock:
                 tensors = itertools.chain(self.variables.parameters(),
                                           self.variables.buffers())
                 if any(t.device != device for t in tensors):
@@ -258,7 +263,8 @@ class ModelFunction:
 
     def apply_batch(self, array, batch_size: int = 64, device="cuda",
                     prefetch: int = 2,
-                    planner: Optional[batching.BucketPlanner] = None
+                    planner: Optional[batching.BucketPlanner] = None,
+                    retry_policy: Optional[resilience.RetryPolicy] = None
                     ) -> np.ndarray:
         """Run over N rows in padded chunks on ``device``; returns numpy.
 
@@ -268,15 +274,36 @@ class ModelFunction:
         :meth:`jitted`: cast on the device to the spec dtype, then the
         body, as the JAX package's compiled program does. ``planner``:
         the telemetry-tuned bucket ladder (``batching.planner_for``),
-        dropped when built for another batch size."""
+        dropped when built for another batch size.
+
+        Failures are classified per chunk (``core.resilience``, under
+        ``retry_policy``): transient errors retry with backoff, a device
+        OOM re-chunks at a halved bucket, fatal errors propagate. An OOM
+        that still escapes re-runs the whole call at half
+        ``batch_size`` (the inputs are on the host, so the re-run is
+        idempotent) and drops the planner, whose ladder no longer
+        matches; at a ``batch_size`` of one it propagates."""
         device = torch.device(device)
         array = self.stage_inputs(array)
         self.to(device)
         if planner is not None and planner.batch_size != batch_size:
             planner = None  # foreign ladder: fall back to pow2
-        return batching.run_batched(self.jitted(device), array, batch_size,
-                                    device, prefetch=prefetch,
-                                    planner=planner)
+        fn = self.jitted(device)
+        while True:
+            try:
+                return batching.run_batched(fn, array, batch_size, device,
+                                            prefetch=prefetch,
+                                            planner=planner,
+                                            retry_policy=retry_policy)
+            except Exception as e:  # noqa: BLE001 - classified below
+                half = batch_size // 2
+                if resilience.classify(e) != resilience.OOM or half < 1:
+                    raise
+                logger.warning(
+                    "%s: device OOM at batch_size %d (%s); re-running at %d",
+                    self.name, batch_size, e, half)
+                batch_size = half
+                planner = None  # halved ladder: planner no longer matches
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_fn(self.variables, x)
@@ -298,8 +325,6 @@ def _resolved(device: torch.device) -> torch.device:
 _PROGRAMS_OVER: "weakref.WeakKeyDictionary[torch.nn.Module, Any]" = \
     weakref.WeakKeyDictionary()
 _PROGRAMS_LOCK = threading.Lock()
-# ModelFunction.to: one check-and-move of a model's weights at a time
-_MOVE_LOCK = threading.Lock()
 
 
 def _pool_bytes(device: torch.device, pool) -> int:
@@ -426,10 +451,12 @@ class Compiled:
                 first = key not in self._seen
                 self._seen.add(key)
             if not first:
-                return self._forward(x)[:n_valid]
+                with kernels.weights_lock:
+                    return self._forward(x)[:n_valid]
             with profiling.annotate(telemetry.SPAN_COMPILE,
                                     model=self.model.name,
-                                    shapes=repr(key[:2])):
+                                    shapes=repr(key[:2])), \
+                    kernels.weights_lock:
                 self._settle(x)
                 out = self._forward(x)
             return out[:n_valid]
@@ -445,8 +472,9 @@ class Compiled:
 
     def _capture(self, chunk: torch.Tensor, key: Tuple) -> _Graph:
         """Settle, warm up and capture one key, holding
-        ``kernels.device_gate`` exclusively: no other capture, audition
-        or replay runs meanwhile. The graph's launches are those its own
+        ``kernels.device_gate`` exclusively (no other capture, audition
+        or replay runs meanwhile) and ``kernels.weights_lock`` (no other
+        thread swaps the weights for meta tensors meanwhile). The graph's launches are those its own
         thread's wrappers recorded (``kernels.recording_launches``) and
         its pool bytes those its own pool grew by. A capture that fails
         (an allocation that does not fit among them) stores nothing: the
@@ -455,7 +483,7 @@ class Compiled:
         with profiling.annotate(telemetry.SPAN_COMPILE,
                                 model=self.model.name,
                                 shapes=repr(key[:2])), \
-                kernels.device_gate.exclusive():
+                kernels.device_gate.exclusive(), kernels.weights_lock:
             static_in = torch.empty(chunk.shape, dtype=chunk.dtype,
                                     device=self.device)
             static_in.copy_(chunk, non_blocking=True)

@@ -56,10 +56,14 @@ TELEMETRY_DIR_ENV = "SPARKDL_TELEMETRY_DIR"
 
 SPAN_RUN = "sparkdl.run"                      # telemetry scope root
 SPAN_MATERIALIZE = "sparkdl.materialize"      # DataFrame._materialize barrier
+SPAN_TASK = "sparkdl.task"                    # one pool attempt (or hedge)
+SPAN_TASK_ATTEMPT = "sparkdl.task_attempt"    # one retry-loop attempt
 SPAN_COMPILE = "sparkdl.compile"              # first launch of a new shape
+SPAN_COALESCED_LAUNCH = "sparkdl.coalesced_launch"  # core/executor.py
 
 CANONICAL_SPAN_NAMES = frozenset({
-    SPAN_RUN, SPAN_MATERIALIZE, SPAN_COMPILE,
+    SPAN_RUN, SPAN_MATERIALIZE, SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
+    SPAN_COALESCED_LAUNCH,
     # phase names (core/profiling.py constants + literal call sites)
     "sparkdl.decode", "sparkdl.stage", "sparkdl.stage_batch",
     "sparkdl.host_stage", "sparkdl.host_resize", "sparkdl.host_wait",
@@ -70,6 +74,7 @@ CANONICAL_SPAN_NAMES = frozenset({
 # histograms use POW2_BOUNDS. Health-event mirrors are dynamic:
 # "sparkdl.health.<event>" per core/health.py event name, bumped in
 # health.record so telemetry counters equal HealthMonitor counts exactly.
+M_TASK_DURATION_S = "sparkdl.task.duration_s"          # histogram
 M_PREFETCH_DEPTH = "sparkdl.prefetch.queue_depth"      # gauge
 M_PREFETCH_STALL_S = "sparkdl.prefetch.stall_s"        # histogram
 M_BATCH_ROWS = "sparkdl.batching.rows"                 # counter (valid rows)
@@ -81,6 +86,25 @@ M_PADDING_WASTE = "sparkdl.batching.padding_waste"     # gauge (pad fraction)
 # the ladder it just adopted.
 M_BUCKET_LADDER_UPDATE = "sparkdl.batching.bucket_ladder_update"  # counter
 M_PLANNER_WASTE = "sparkdl.batching.planner_waste"     # gauge (pad fraction)
+M_ENGINE_ROWS_OUT = "sparkdl.engine.rows_out"          # counter
+M_ENGINE_BYTES_OUT = "sparkdl.engine.bytes_out"        # counter
+# Device execution service (core/executor.py): the coalesced launches'
+# sizes in requests and rows, the hedge dedup hits, each request's wait
+# in the queue, the coalescer's host time per drained window, and the
+# service's instantaneous in-flight launches, queued requests and shed
+# fraction. The shed/deadline/breaker counts arrive as sparkdl.health.*
+# mirrors of the core/health.py events.
+M_COALESCE_REQUESTS = "sparkdl.executor.coalesce_requests"  # histogram
+M_COALESCE_ROWS = "sparkdl.executor.coalesce_rows"     # histogram
+M_COALESCE_DEDUP = "sparkdl.executor.dedup_hits"       # counter (hedges)
+M_QUEUE_WAIT_S = "sparkdl.executor.queue_wait_s"       # histogram
+M_LAUNCH_S = "sparkdl.executor.launch_s"               # histogram (host)
+M_EXECUTOR_OCCUPANCY = "sparkdl.executor.occupancy"    # gauge (in-flight)
+M_EXECUTOR_QUEUE_DEPTH = "sparkdl.executor.queue_depth"  # gauge (queued reqs)
+M_EXECUTOR_SHED_RATE = "sparkdl.executor.shed_rate"    # gauge (shed fraction)
+# Bytes handed to the executor per execute() call as staged by the host
+# (raw uint8 pixels on the image path).
+M_STAGED_BYTES = "sparkdl.executor.staged_bytes"       # counter
 # The kernel gate (core/kernels.py): one histogram observation per
 # audition and one adopted/rejected counter bump per settled verdict.
 M_KERNEL_AUTOTUNE_S = "sparkdl.kernel.autotune_s"      # histogram
@@ -89,6 +113,7 @@ M_KERNEL_REJECTED = "sparkdl.kernel.rejected"          # counter
 HEALTH_METRIC_PREFIX = "sparkdl.health."
 
 CANONICAL_METRIC_KINDS: Dict[str, str] = {
+    M_TASK_DURATION_S: "histogram",
     M_PREFETCH_DEPTH: "gauge",
     M_PREFETCH_STALL_S: "histogram",
     M_BATCH_ROWS: "counter",
@@ -97,12 +122,53 @@ CANONICAL_METRIC_KINDS: Dict[str, str] = {
     M_PADDING_WASTE: "gauge",
     M_BUCKET_LADDER_UPDATE: "counter",
     M_PLANNER_WASTE: "gauge",
+    M_ENGINE_ROWS_OUT: "counter",
+    M_ENGINE_BYTES_OUT: "counter",
+    M_COALESCE_REQUESTS: "histogram",
+    M_COALESCE_ROWS: "histogram",
+    M_COALESCE_DEDUP: "counter",
+    M_QUEUE_WAIT_S: "histogram",
+    M_LAUNCH_S: "histogram",
+    M_EXECUTOR_OCCUPANCY: "gauge",
+    M_EXECUTOR_QUEUE_DEPTH: "gauge",
+    M_EXECUTOR_SHED_RATE: "gauge",
+    M_STAGED_BYTES: "counter",
     M_KERNEL_AUTOTUNE_S: "histogram",
     M_KERNEL_ADOPTED: "counter",
     M_KERNEL_REJECTED: "counter",
 }
 
 CANONICAL_METRIC_NAMES = frozenset(CANONICAL_METRIC_KINDS)
+
+_declare_lock = threading.Lock()
+
+
+def declare_metric(name: str, kind: str) -> str:
+    """Declare a DYNAMIC metric name (the per-tenant queue-wait histogram)
+    into the catalog. Idempotent; re-declaring with a DIFFERENT kind
+    raises. Returns ``name``."""
+    if kind not in ("histogram", "counter", "gauge"):
+        raise ValueError(
+            f"declare_metric kind must be 'histogram', 'counter' or "
+            f"'gauge', got {kind!r}")
+    global CANONICAL_METRIC_NAMES
+    with _declare_lock:
+        have = CANONICAL_METRIC_KINDS.get(name)
+        if have is not None and have != kind:
+            raise ValueError(
+                f"metric {name!r} already declared as {have!r}, cannot "
+                f"re-declare as {kind!r}")
+        if have is None:
+            CANONICAL_METRIC_KINDS[name] = kind
+            CANONICAL_METRIC_NAMES = frozenset(CANONICAL_METRIC_KINDS)
+    return name
+
+
+def tenant_queue_wait_metric(tenant: str) -> str:
+    """The per-tenant queue-wait histogram name: metrics carry no labels,
+    so per-tenant fairness gets per-tenant NAMES, observed by the
+    executor's coalescer beside the aggregate ``M_QUEUE_WAIT_S``."""
+    return M_QUEUE_WAIT_S + "." + tenant
 
 # ---------------------------------------------------------------------------
 # Span tracing

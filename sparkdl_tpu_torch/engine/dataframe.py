@@ -4,25 +4,109 @@ A port of the parts of ``sparkdl_tpu.engine.dataframe`` that the
 featurize path uses. A frame is a list of partitions, each a
 :class:`Batch` of plain columns — numpy arrays (dim 0 = rows), Python
 lists, or :class:`~sparkdl_tpu_torch.image.imageIO.ImageColumn` — plus a
-lazy chain of per-partition ops. Partitions run in order on the calling
-thread; the supervisor, durability and the cluster are not ported yet.
+lazy chain of per-partition ops.
+
+Materializing a frame runs each partition's op chain as one supervised
+task (``engine/supervisor.py``) on a shared thread pool
+(``EngineConfig.max_workers`` threads named ``sparkdl-part-*``): the
+classified task retry, the deadline watchdog, hedging of stragglers and
+quarantine are the reference's, with its knobs. Each task enters the
+card through ``core.executor.execute``, where concurrent partitions of
+one model coalesce into one launch. A materialization started from a
+partition thread runs inline, as in the reference, since waiting on the
+pool from one of its own threads could deadlock. Durability, the
+cluster dispatch and ``streamPartitions`` are not ported yet.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as _futures
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from sparkdl_tpu_torch.core import telemetry
+from sparkdl_tpu_torch.core import resilience, telemetry
+from sparkdl_tpu_torch.engine import supervisor as _sup
 from sparkdl_tpu_torch.image.imageIO import (
     ImageColumn, imageFields, imageStructsToColumn,
 )
 
 
 class EngineConfig:
-    """Engine-wide knobs the featurize path reads (class attributes)."""
+    """Engine-wide knobs (class attributes), the reference's names,
+    defaults and validation for every knob the port has."""
+
+    # -- task retry (engine/supervisor.run_partition_task) -------------------
+    max_task_retries: int = 2
+    # Backoff between retryable attempts; 0 retries immediately.
+    # task_retry_policy overrides both.
+    task_retry_delay_s: float = 0.0
+    task_retry_policy: Optional[resilience.RetryPolicy] = None
+    # -- deadline watchdog ----------------------------------------------------
+    # Per-task wall-clock budget (seconds); None disables. Enforced
+    # cooperatively inside the task and preemptively by the supervisor's
+    # watchdog, so a hung op fails the task instead of wedging the run.
+    task_timeout_s: Optional[float] = None
+    # -- speculative execution (straggler hedging) ----------------------------
+    # Off by default: hedging re-runs ops, which must be pure.
+    speculation: bool = False
+    speculation_quantile: float = 0.75
+    speculation_multiplier: float = 1.5
+    speculation_min_runtime_s: float = 0.05
+    # -- quarantine (opt-in skip-and-degrade) ---------------------------------
+    # Drop a partition that fails FATALLY (after quarantine_max_fatal
+    # classified-fatal attempts) instead of failing the job: a zero-row
+    # batch with the op chain's output columns stands in, and the drop is
+    # recorded in the active HealthMonitor.
+    quarantine: bool = False
+    quarantine_max_fatal: int = 1
+    # -- cross-partition coalescing (core/executor.py) ------------------------
+    # Concurrent partition tasks submitting small chunks against the same
+    # compiled program coalesce into one padded bucket launch (one graph
+    # replay). A solo request under no contention takes the inline path.
+    coalesce: bool = True
+    # Bounded wait (milliseconds) for sibling requests before launching;
+    # None = adaptive (a fraction of the observed request latency).
+    coalesce_window_ms: Optional[float] = None
+    # Row cap of one coalesced launch; None = the request's batch_size.
+    coalesce_max_rows: Optional[int] = None
+    # -- executor overload protection (core/executor.py) ----------------------
+    # Admission control: per-program bounds on queued requests / rows.
+    # None (default) = unbounded.
+    executor_max_queued_requests: Optional[int] = None
+    executor_max_queued_rows: Optional[int] = None
+    # Over the bound: "block" (default) waits with backpressure, bounded
+    # by the caller's task deadline; "shed" fails fast with
+    # ExecutorOverloaded (RETRYABLE — the task retry absorbs the spike).
+    executor_overload_mode: str = "block"
+    # Priority lane of requests that don't say: "interactive" drains
+    # first and sheds last, "bulk" (default) the other way round.
+    executor_default_priority: str = "bulk"
+    # Per-model circuit breaker: open after this many terminal launch
+    # failures within executor_breaker_window_s, fail fast for
+    # executor_breaker_cooldown_s, then admit one half-open probe. 0
+    # (default) disables it.
+    executor_breaker_threshold: int = 0
+    executor_breaker_window_s: float = 30.0
+    executor_breaker_cooldown_s: float = 1.0
+    # A model's coalescing state (and its coalescer thread) is dropped
+    # after this many idle seconds.
+    executor_idle_retire_s: float = 5.0
+    # -- per-tenant fair queueing (core/executor.py) --------------------------
+    # Relative deficit-round-robin weights per tenant tag; absent tenants
+    # (and all tenants when None) weigh 1.
+    executor_tenant_weights: Optional[Dict[str, int]] = None
+    # Tenant tag of requests that carry none (explicit execute(tenant=)
+    # > ambient executor.tenant_scope > this).
+    executor_default_tenant: str = "default"
+    # Threads of the shared partition pool.
+    max_workers: int = max(2, (os.cpu_count() or 4) // 2)
+    # Compat hook: callable(partition_index, attempt) that may raise to
+    # simulate a task failure; new code arms the resilience.FaultInjector
+    # "engine_task" / "task_stall" points.
+    fault_injector: Optional[Callable[[int, int], None]] = None
 
     # Precision the executor applies to every model
     # (ModelFunction.with_dtype): "bfloat16" (the default) or "float32".
@@ -56,17 +140,103 @@ class EngineConfig:
 
     @classmethod
     def snapshot(cls) -> Dict[str, Any]:
-        return {k: getattr(cls, k) for k in
-                ("inference_precision", "fused_preprocess", "device",
-                 "pallas_kernels", "bucket_ladder")}
+        """Every public knob's current value — the one save/restore idiom
+        for code that mutates the class-wide config (a new knob is
+        covered without listing it). A callable knob value (a set
+        ``fault_injector``) is left out, as in the reference."""
+        return {k: getattr(cls, k) for k in vars(cls)
+                if not k.startswith("_") and not callable(getattr(cls, k))}
 
     @classmethod
     def restore(cls, saved: Dict[str, Any]) -> None:
+        """Reapply a :meth:`snapshot`."""
         for k, v in saved.items():
             setattr(cls, k, v)
 
     @classmethod
     def validate(cls) -> None:
+        """Validate every knob at READ time with a clear ``ValueError``
+        (instead of undefined downstream behavior: a negative timeout
+        expiring every task, a zero queue cap wedging admission). Called
+        per materialization and per device entry."""
+
+        def positive(name, value, allow_none=True, minimum=0.0,
+                     exclusive=True):
+            if value is None:
+                if not allow_none:
+                    raise ValueError(f"EngineConfig.{name} must be set")
+                return
+            bad = value <= minimum if exclusive else value < minimum
+            if bad:
+                op = ">" if exclusive else ">="
+                raise ValueError(
+                    f"EngineConfig.{name} must be {op} {minimum} (or "
+                    f"None), got {value!r}")
+
+        if cls.max_task_retries < 0:
+            raise ValueError("EngineConfig.max_task_retries must be >= 0, "
+                             f"got {cls.max_task_retries!r}")
+        positive("task_retry_delay_s", cls.task_retry_delay_s,
+                 exclusive=False)
+        positive("task_timeout_s", cls.task_timeout_s)
+        if not 0.0 <= cls.speculation_quantile <= 1.0:
+            raise ValueError(
+                "EngineConfig.speculation_quantile must be in [0, 1], "
+                f"got {cls.speculation_quantile!r}")
+        positive("speculation_multiplier", cls.speculation_multiplier)
+        positive("speculation_min_runtime_s", cls.speculation_min_runtime_s,
+                 exclusive=False)
+        if cls.quarantine_max_fatal < 1:
+            raise ValueError(
+                "EngineConfig.quarantine_max_fatal must be >= 1, got "
+                f"{cls.quarantine_max_fatal!r}")
+        positive("coalesce_window_ms", cls.coalesce_window_ms,
+                 exclusive=False)
+        positive("coalesce_max_rows", cls.coalesce_max_rows)
+        positive("executor_max_queued_requests",
+                 cls.executor_max_queued_requests)
+        positive("executor_max_queued_rows", cls.executor_max_queued_rows)
+        if cls.executor_overload_mode not in ("block", "shed"):
+            raise ValueError(
+                "EngineConfig.executor_overload_mode must be 'block' or "
+                f"'shed', got {cls.executor_overload_mode!r}")
+        if cls.executor_default_priority not in ("interactive", "bulk"):
+            raise ValueError(
+                "EngineConfig.executor_default_priority must be "
+                "'interactive' or 'bulk', got "
+                f"{cls.executor_default_priority!r}")
+        if cls.executor_breaker_threshold < 0:
+            raise ValueError(
+                "EngineConfig.executor_breaker_threshold must be >= 0 "
+                f"(0 disables), got {cls.executor_breaker_threshold!r}")
+        positive("executor_breaker_window_s", cls.executor_breaker_window_s)
+        positive("executor_breaker_cooldown_s",
+                 cls.executor_breaker_cooldown_s, exclusive=False)
+        positive("executor_idle_retire_s", cls.executor_idle_retire_s,
+                 allow_none=False)
+        if cls.executor_tenant_weights is not None:
+            if not isinstance(cls.executor_tenant_weights, dict):
+                raise ValueError(
+                    "EngineConfig.executor_tenant_weights must be None "
+                    "or a dict of tenant -> positive int weight, got "
+                    f"{cls.executor_tenant_weights!r}")
+            for t, w in cls.executor_tenant_weights.items():
+                if not isinstance(t, str) or not t:
+                    raise ValueError(
+                        "EngineConfig.executor_tenant_weights keys must "
+                        f"be non-empty tenant strings, got {t!r}")
+                if not isinstance(w, int) or isinstance(w, bool) or w < 1:
+                    raise ValueError(
+                        "EngineConfig.executor_tenant_weights values "
+                        f"must be positive ints, got {t!r}={w!r}")
+        if (not isinstance(cls.executor_default_tenant, str)
+                or not cls.executor_default_tenant):
+            raise ValueError(
+                "EngineConfig.executor_default_tenant must be a "
+                f"non-empty string, got {cls.executor_default_tenant!r}")
+        if cls.max_workers < 1:
+            raise ValueError("EngineConfig.max_workers must be >= 1, got "
+                             f"{cls.max_workers!r}")
         if cls.inference_precision not in cls._PRECISIONS:
             raise ValueError(
                 f"EngineConfig.inference_precision must be one of "
@@ -79,6 +249,68 @@ class EngineConfig:
             raise ValueError(
                 "EngineConfig.bucket_ladder must be 'tuned' or 'pow2', "
                 f"got {cls.bucket_ladder!r}")
+
+
+def _task_policy() -> resilience.RetryPolicy:
+    if EngineConfig.task_retry_policy is not None:
+        return EngineConfig.task_retry_policy
+    return resilience.RetryPolicy(
+        max_retries=EngineConfig.max_task_retries,
+        base_delay_s=EngineConfig.task_retry_delay_s, jitter=0.0)
+
+
+def _supervisor_config() -> _sup.SupervisorConfig:
+    EngineConfig.validate()  # read-time knob validation
+    return _sup.SupervisorConfig(
+        task_timeout_s=EngineConfig.task_timeout_s,
+        speculation=EngineConfig.speculation,
+        speculation_quantile=EngineConfig.speculation_quantile,
+        speculation_multiplier=EngineConfig.speculation_multiplier,
+        speculation_min_runtime_s=EngineConfig.speculation_min_runtime_s,
+        quarantine=EngineConfig.quarantine,
+        quarantine_max_fatal=EngineConfig.quarantine_max_fatal)
+
+
+# Process-wide partition pool, reused across materializations; rebuilt
+# when EngineConfig.max_workers changes.
+_pool: Optional[_futures.ThreadPoolExecutor] = None
+_pool_workers: Optional[int] = None
+_pool_lock = threading.Lock()
+_POOL_PREFIX = "sparkdl-part"
+
+
+def _executor() -> _futures.ThreadPoolExecutor:
+    global _pool, _pool_workers
+    with _pool_lock:
+        if _pool is None or _pool_workers != EngineConfig.max_workers:
+            if _pool is not None:
+                _pool.shutdown(wait=False)
+            _pool = _futures.ThreadPoolExecutor(
+                EngineConfig.max_workers, thread_name_prefix=_POOL_PREFIX)
+            _pool_workers = EngineConfig.max_workers
+        return _pool
+
+
+def _run_partition(index: int, batch: "Batch",
+                   ops: Sequence[Callable[["Batch"], "Batch"]],
+                   cancelled: Optional[threading.Event] = None) -> "Batch":
+    """One partition task: classified retry per engine/supervisor.py
+    (FATAL never retried, OOM surfaced, RETRYABLE backed off; the
+    terminal TaskFailure carries the per-attempt history). ``cancelled``
+    is the supervisor watchdog's abandonment signal (None inline)."""
+    out = _sup.run_partition_task(
+        index, batch, ops, policy=_task_policy(),
+        deadline_s=EngineConfig.task_timeout_s,
+        legacy_injector=EngineConfig.fault_injector,
+        max_fatal_attempts=(EngineConfig.quarantine_max_fatal
+                            if EngineConfig.quarantine else 1),
+        cancelled=cancelled)
+    if cancelled is None and telemetry.active() is not None:
+        # inline paths only — supervised tasks are counted once per
+        # WINNING attempt by the supervisor
+        telemetry.count(telemetry.M_ENGINE_ROWS_OUT, out.num_rows)
+        telemetry.count(telemetry.M_ENGINE_BYTES_OUT, out.nbytes)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +367,18 @@ class Batch:
 
     def select(self, names: Sequence[str]) -> "Batch":
         return Batch({n: self.column(n) for n in names}, self.num_rows)
+
+    def slice(self, start: int, stop: int) -> "Batch":
+        stop = min(stop, self.num_rows)
+        return Batch({n: _col_slice(c, start, stop)
+                      for n, c in self.columns.items()},
+                     max(0, stop - start))
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the numpy and image columns (list columns count 0)."""
+        return sum(int(getattr(c, "nbytes", 0) or 0)
+                   for c in self.columns.values())
 
 
 def _split(columns: Dict[str, Any], num_partitions: Optional[int]
@@ -198,18 +442,45 @@ class DataFrame:
 
     # -- execution -----------------------------------------------------------
 
+    def _quarantine_probe(self, index: int) -> Batch:
+        """Zero-row stand-in for a quarantined partition: the op chain
+        run on an empty slice keeps the chain's output columns and the
+        partition alignment while dropping the poisoned rows (if even
+        this fails, the supervisor propagates the original failure)."""
+        out = self._partitions[index].slice(0, 0)
+        for op in self._ops:
+            out = op(out)
+        return out
+
     def _materialize(self) -> List[Batch]:
         with self._lock:
-            if self._materialized is None:
-                out = []
-                with telemetry.span(telemetry.SPAN_MATERIALIZE,
-                                    partitions=len(self._partitions),
-                                    ops=len(self._ops)):
-                    for batch in self._partitions:
-                        for op in self._ops:
-                            batch = op(batch)
-                        out.append(batch)
-                self._materialized = out
+            if self._materialized is not None:
+                return self._materialized
+            if not self._ops:
+                self._materialized = self._partitions
+                return self._materialized
+            ops = self._ops
+            if threading.current_thread().name.startswith(_POOL_PREFIX):
+                # nested materialization from inside a partition task:
+                # run inline — waiting on the shared pool from one of its
+                # own threads could deadlock. Classified retry still
+                # applies; the deadline is cooperative only (no watchdog).
+                self._materialized = [
+                    _run_partition(i, b, ops)
+                    for i, b in enumerate(self._partitions)]
+                return self._materialized
+            sup = _sup.PartitionSupervisor(
+                _executor(), _supervisor_config(),
+                quarantine_probe=self._quarantine_probe)
+            # the span is open while tasks are CREATED, so every
+            # partition task's trace context parents under it
+            with telemetry.span(telemetry.SPAN_MATERIALIZE,
+                                partitions=len(self._partitions),
+                                ops=len(ops)):
+                self._materialized = sup.run_all(
+                    [(i, lambda cancel, i=i, b=b: _run_partition(
+                        i, b, ops, cancel))
+                     for i, b in enumerate(self._partitions)])
             return self._materialized
 
     def collect(self) -> List[Dict[str, Any]]:

@@ -1,0 +1,629 @@
+"""Task-level supervision for the engine data plane.
+
+A port of ``sparkdl_tpu.engine.supervisor``: Spark gave every partition
+task a supervisor — bounded retry with failure classification, task
+deadlines, speculative re-execution of stragglers, and blacklisting. This
+module is the engine's analog, built on ``core.resilience``'s taxonomy so
+task retry and chunk retry agree on what is worth retrying:
+
+- :func:`run_partition_task`: FATAL is never retried (a replay reproduces
+  the traceback), OOM propagates (the batching layer already owns the
+  shrink-and-retry response; an OOM that escapes the op chain has
+  exhausted it), RETRYABLE backs off through a
+  :class:`~sparkdl_tpu_torch.core.resilience.RetryPolicy`. The terminal
+  :class:`TaskFailure` carries the full per-attempt history.
+- :class:`PartitionSupervisor` schedules tasks on the shared pool with a
+  **deadline watchdog** (a hung op fails the task instead of wedging the
+  materialization — the supervising thread enforces the budget, since a
+  Python worker thread cannot be interrupted), **speculative hedging** of
+  stragglers (once a quantile of sibling tasks has finished, a task
+  running far past their typical duration gets a duplicate attempt; the
+  first result wins and the loser is discarded, so output stays
+  identical and order-preserving — ops are pure by the engine's
+  contract), and opt-in **quarantine** (a partition that fails fatally
+  is dropped — replaced by a zero-row batch with the op chain's output
+  columns — and recorded, instead of failing the job).
+
+The watchdog cannot interrupt the thread it abandons, here as in the
+reference: a task abandoned while it holds a ``Compiled`` lock
+(``core/model_function.py``) or waits in a CUDA synchronize keeps
+holding it until the op returns, and the next caller of that program
+waits for it. Only the barrier mode is ported (``DataFrame._materialize``);
+the reference's streaming mode serves ``streamPartitions``, which is not
+ported yet.
+
+Everything reports into :mod:`sparkdl_tpu_torch.core.health`.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as _futures
+import itertools
+import logging
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from sparkdl_tpu_torch.core import executor as _executor
+from sparkdl_tpu_torch.core import health, resilience, telemetry
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class TaskAttempt:
+    """One attempt of a partition task: classification + timing.
+
+    ``kind`` is ``"ok"`` for a successful attempt, otherwise the
+    ``resilience.classify`` result (``fatal`` / ``oom`` / ``retryable``)
+    of the error recorded in ``error``.
+    """
+
+    kind: str
+    error: Optional[str]
+    duration_s: float
+
+
+class TaskFailure(RuntimeError):
+    """A partition task failed terminally; carries per-attempt history.
+
+    ``attempts`` records every attempt's classification, error and
+    duration (what was retried and why — the health report and test
+    assertions read it). ``failure_kind`` is the terminal attempt's
+    classification; ``resilience.classify`` trusts it, so a fatal task
+    failure stays fatal through upstream retry layers (a runner must not
+    restart a gang to replay a shape error). ``deadline_exceeded`` marks
+    a deadline (timeout) failure — FATAL for retry purposes, but
+    excluded from quarantine: a timeout is slowness, not poison.
+    """
+
+    def __init__(self, message: str, index: Optional[int] = None,
+                 attempts: Sequence[TaskAttempt] = (),
+                 kind: Optional[str] = None,
+                 deadline: bool = False) -> None:
+        super().__init__(message)
+        self.index = index
+        self.attempts = list(attempts)
+        self.failure_kind = kind or (
+            self.attempts[-1].kind if self.attempts else resilience.RETRYABLE)
+        self.deadline_exceeded = deadline
+
+    def retries(self) -> int:
+        """How many times the task was re-attempted (attempts - 1)."""
+        return max(0, len(self.attempts) - 1)
+
+
+# Upper bound on an injected task_stall's sleep: long enough that any
+# reasonable test deadline expires first, short enough that the wedged
+# pool thread frees up without a real hang.
+_MAX_STALL_S = 30.0
+
+
+def _maybe_stall(index: int, attempt: int,
+                 deadline: resilience.Deadline) -> None:
+    """The ``task_stall`` behavioral injection point: hang, don't raise.
+
+    Sleeps past the task's deadline so the *supervisor's watchdog* — not
+    this thread — decides the task's fate, then raises a retryable stall
+    as a backstop for the inline (unsupervised) execution paths, where
+    the cooperative deadline check on the retry fails the task instead.
+    """
+    if not resilience.should_fire("task_stall", partition=index,
+                                  attempt=attempt):
+        return
+    budget = deadline.remaining()
+    if budget == float("inf"):
+        budget = 0.05  # no deadline armed: brief stall, then fail retryably
+    time.sleep(min(max(budget, 0.0) * 2 + 0.05, _MAX_STALL_S))
+    raise resilience.TransferStall(
+        f"injected task_stall: partition {index} op hung")
+
+
+def run_partition_task(index: int, batch: Any, ops: Sequence[Callable],
+                       policy: resilience.RetryPolicy,
+                       deadline_s: Optional[float] = None,
+                       legacy_injector: Optional[Callable[[int, int], None]]
+                       = None,
+                       max_fatal_attempts: int = 1,
+                       cancelled: Optional[threading.Event] = None,
+                       sleep: Callable[[float], None] = time.sleep) -> Any:
+    """Run the op chain on one partition with classified retry.
+
+    The deadline here is *cooperative* (checked between ops and before
+    each retry); :class:`PartitionSupervisor`'s watchdog enforces the
+    same budget preemptively for ops that hang. ``legacy_injector`` is
+    the compat shim for the old ``EngineConfig.fault_injector``
+    ``(index, attempt)`` hook — new code arms the ``engine_task`` /
+    ``task_stall`` points of ``resilience.FaultInjector`` instead (one
+    injection mechanism, one seeding story).
+
+    ``max_fatal_attempts`` (quarantine mode only, > 1): a FATAL failure
+    is re-attempted — immediately, no backoff — up to this many total
+    fatal attempts to *confirm the poison* before the partition is
+    dropped. At the default 1, FATAL is never retried.
+
+    ``cancelled`` (set by the supervisor's watchdog after it abandons
+    this task): once set, the task bails out quietly between ops and
+    between attempts — no further retries, and no health records, since
+    the watchdog already recorded the outcome and discarded the result.
+    """
+    deadline = resilience.Deadline(deadline_s)
+    attempts: List[TaskAttempt] = []
+    attempt = 0
+
+    def abandoned() -> bool:
+        return cancelled is not None and cancelled.is_set()
+
+    health.record(health.TASK_STARTED, partition=index)
+    while True:
+        t0 = time.monotonic()
+        # each retry-loop attempt re-runs the op chain from the top, so
+        # its device calls restart at call 0 — realign the executor's
+        # hedge-dedup sequence, or a retried primary's call 0 (seq N)
+        # could cross-dedup a fresh hedge's call N onto the wrong output
+        _executor.reset_call_sequence()
+        try:
+            # one telemetry span per retry-loop attempt (ambient-parented
+            # under the pool thread's sparkdl.task span, so a retried or
+            # hedged task's attempts all share the task's trace); an
+            # exception unwinding through it stamps an `error` attribute
+            # the task's Deadline rides into the device execution service
+            # ambiently (core/executor.py): a queued device request whose
+            # budget expires is dropped at drain time — before paying for
+            # a launch — and the blocking-admission wait is bounded by it
+            with telemetry.span(telemetry.SPAN_TASK_ATTEMPT,
+                                partition=index, attempt=attempt), \
+                    _executor.deadline_scope(deadline):
+                if legacy_injector is not None:
+                    legacy_injector(index, attempt)
+                resilience.inject("engine_task", partition=index,
+                                  attempt=attempt, phase="start")
+                _maybe_stall(index, attempt, deadline)
+                out = batch
+                for op in ops:
+                    if abandoned():
+                        raise TaskFailure(
+                            f"partition {index} task abandoned by the "
+                            "supervisor", index=index, attempts=attempts,
+                            kind=resilience.FATAL, deadline=True)
+                    deadline.check(f"partition {index} task")
+                    out = op(out)
+                resilience.inject("engine_task", partition=index,
+                                  attempt=attempt, phase="finish")
+                return out
+        except Exception as e:  # noqa: BLE001 - classified below
+            if abandoned():
+                # The watchdog already failed this task, recorded the
+                # event, and discarded the result — bail quietly instead
+                # of retrying (and double-counting) into the void.
+                raise
+            kind = resilience.classify(e)
+            attempts.append(TaskAttempt(kind, repr(e),
+                                        time.monotonic() - t0))
+            if isinstance(e, resilience.DeadlineExceeded):
+                # Cooperative expiry (the op chain crossed the budget
+                # between watchdog ticks): FATAL for retry purposes but
+                # marked as a deadline failure — quarantine must not
+                # treat slowness as poison. Supervised runs (cancelled
+                # is not None) leave the event recording to the
+                # supervisor — it records EITHER at resolution OR from
+                # the watchdog, never both — so the count stays exact.
+                if cancelled is None:
+                    health.record(health.TASK_DEADLINE_EXCEEDED,
+                                  partition=index)
+                raise TaskFailure(
+                    str(e), index=index, attempts=attempts,
+                    kind=resilience.FATAL, deadline=True) from e
+            if kind == resilience.FATAL:
+                fatal_seen = sum(1 for a in attempts
+                                 if a.kind == resilience.FATAL)
+                if fatal_seen < max_fatal_attempts and not deadline.expired():
+                    # quarantine confirmation: deliberately replay the
+                    # deterministic failure before dropping the partition
+                    health.record(health.TASK_RETRIED, partition=index,
+                                  attempt=attempt + 1, kind=kind,
+                                  error=type(e).__name__)
+                    logger.warning(
+                        "partition %d task failed fatally (%s: %s); "
+                        "confirming poison, attempt %d/%d", index,
+                        type(e).__name__, e, fatal_seen + 1,
+                        max_fatal_attempts)
+                    attempt += 1
+                    continue
+                health.record(health.TASK_FAILED, partition=index, kind=kind)
+                raise TaskFailure(
+                    f"partition {index} failed with a fatal error on "
+                    f"attempt {attempt + 1} "
+                    + ("(never retried)" if max_fatal_attempts == 1 else
+                       f"({fatal_seen} fatal attempt(s))")
+                    + f": {e}",
+                    index=index, attempts=attempts, kind=kind) from e
+            if kind == resilience.OOM:
+                # The batching layer's bucket-halving already ran inside
+                # the op; an OOM surfacing here reproduces at these shapes.
+                health.record(health.TASK_FAILED, partition=index, kind=kind)
+                raise TaskFailure(
+                    f"partition {index} exhausted device memory past the "
+                    f"batching layer's fallback: {e}",
+                    index=index, attempts=attempts, kind=kind) from e
+            attempt += 1
+            if attempt > policy.max_retries:
+                health.record(health.TASK_FAILED, partition=index, kind=kind)
+                raise TaskFailure(
+                    f"partition {index} failed after {attempt} attempts: "
+                    f"{e}", index=index, attempts=attempts, kind=kind) from e
+            if deadline.expired():
+                if cancelled is None:  # supervised: recorder is the
+                    health.record(     # supervisor (see above)
+                        health.TASK_DEADLINE_EXCEEDED, partition=index)
+                raise TaskFailure(
+                    f"partition {index} task exceeded its {deadline_s}s "
+                    f"deadline after {attempt} attempt(s) (last: {e})",
+                    index=index, attempts=attempts,
+                    kind=resilience.FATAL, deadline=True) from e
+            health.record(health.TASK_RETRIED, partition=index,
+                          attempt=attempt, kind=kind,
+                          error=type(e).__name__)
+            d = policy.delay(attempt)
+            logger.warning(
+                "partition %d task failed (%s: %s); retry %d/%d in %.2fs",
+                index, type(e).__name__, e, attempt, policy.max_retries, d)
+            if d > 0:
+                sleep(d)
+
+
+# ---------------------------------------------------------------------------
+# Scheduling-level supervision: watchdog, hedging, quarantine
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SupervisorConfig:
+    """Scheduling knobs, snapshotted from ``EngineConfig`` per run."""
+
+    task_timeout_s: Optional[float] = None
+    speculation: bool = False
+    speculation_quantile: float = 0.75
+    speculation_multiplier: float = 1.5
+    speculation_min_runtime_s: float = 0.05
+    quarantine: bool = False
+    quarantine_max_fatal: int = 1
+
+    @property
+    def poll_interval_s(self) -> float:
+        """Watchdog tick: tight when a deadline or hedging is armed (they
+        need timely checks), relaxed otherwise (completions wake the wait
+        regardless)."""
+        if self.task_timeout_s is not None:
+            return min(0.05, self.task_timeout_s / 4)
+        if self.speculation:
+            return 0.02
+        return 0.5
+
+
+class _Task:
+    """One logical partition task: primary attempt + optional hedge.
+
+    ``runner`` receives the task's cancellation event (set by the
+    watchdog when the task is abandoned) so an attempt can bail out
+    quietly instead of retrying into the void.
+    """
+
+    __slots__ = ("index", "runner", "_submit", "holders", "futures",
+                 "hedged", "done", "result", "error", "duration",
+                 "deadline_failed", "cancel_event", "trace_ctx",
+                 "task_seq")
+
+    _task_counter = itertools.count(1)
+
+    def __init__(self, index: int,
+                 runner: Callable[[threading.Event], Any],
+                 submit: Callable) -> None:
+        self.index = index
+        self.runner = runner
+        self._submit = submit
+        self.task_seq = next(_Task._task_counter)
+        # Captured on the SCHEDULING thread: every attempt of this task
+        # (primary, retries inside it, a hedge duplicate) opens its pool-
+        # thread span under this context, so they all share the task's
+        # trace (core.telemetry cross-thread handoff).
+        self.trace_ctx = telemetry.current_context()
+        self.holders: List[Dict[str, float]] = []
+        self.futures: List[_futures.Future] = []
+        self.hedged = False
+        self.done = False
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
+        self.duration: Optional[float] = None
+        self.deadline_failed = False
+        self.cancel_event = threading.Event()
+
+    def launch(self) -> _futures.Future:
+        holder: Dict[str, float] = {}
+        runner = self.runner
+        cancel_event = self.cancel_event
+        attempt = len(self.holders)  # 0 = primary, 1 = the hedge
+        ctx = self.trace_ctx
+        index = self.index
+
+        # every attempt of this task (primary, hedge) shares one executor
+        # task token, so a hedged duplicate's device requests DEDUP onto
+        # the primary's still-queued coalescing request instead of
+        # launching the same rows twice (core/executor.py). The id comes
+        # from a monotonic counter, NOT id(self): a freed _Task's address
+        # can be recycled while a hedge loser's request is still queued,
+        # and a colliding token could hand a new task stale rows.
+        token = ("task", self.task_seq, index)
+
+        def run(h=holder):
+            h["started"] = time.monotonic()
+            # explicit parent (NOT telemetry.attach): pool threads are
+            # reused, an attached base would leak into the next task
+            with telemetry.span(telemetry.SPAN_TASK, parent=ctx,
+                                partition=index, pool_attempt=attempt):
+                with _executor.task_scope(token):
+                    return runner(cancel_event)
+
+        self.holders.append(holder)
+        fut = self._submit(run)
+        self.futures.append(fut)
+        return fut
+
+    def first_started(self) -> Optional[float]:
+        ts = [h["started"] for h in self.holders if "started" in h]
+        return min(ts) if ts else None
+
+
+class PartitionSupervisor:
+    """Supervises a set of partition tasks on the shared pool.
+
+    ``quarantine_probe(partition_index)`` builds the zero-row stand-in for
+    a quarantined partition (the op chain run on an empty slice — keeps
+    the chain's output schema and partition alignment while dropping the
+    poisoned rows); when even the probe fails, the original failure
+    propagates.
+    """
+
+    def __init__(self, pool: _futures.ThreadPoolExecutor,
+                 config: SupervisorConfig,
+                 quarantine_probe: Optional[Callable[[int], Any]] = None
+                 ) -> None:
+        self._pool = pool
+        self._cfg = config
+        self._probe = quarantine_probe
+        self._durations: List[float] = []
+        # Hedge losers still running after their task resolved: their pure
+        # ops are harmless and their results are discarded, so a CLEAN run
+        # returns without waiting for them (the latency win hedging
+        # exists for). A FAILURE unwind waits them out — user ops must
+        # not still be running when the caller starts cleanup.
+        self._lingering: List[_futures.Future] = []
+
+    # -- barrier mode (materialize) ------------------------------------------
+
+    def run_all(self, indexed_runners:
+                Sequence[Tuple[int, Callable[[threading.Event], Any]]]
+                ) -> List[Any]:
+        """Run every task; results in input order. First failure raises
+        (after the barrier drain), unless quarantine absorbs it. Each
+        runner receives the task's cancellation event."""
+        tasks: List[_Task] = []
+        outstanding: Dict[_futures.Future, _Task] = {}
+        for index, runner in indexed_runners:
+            task = _Task(index, runner, self._pool.submit)
+            outstanding[task.launch()] = task
+            tasks.append(task)
+        try:
+            while not all(t.done for t in tasks):
+                self._tick(outstanding, tasks, len(tasks))
+        except BaseException:
+            self._drain(outstanding, include_lingering=True)
+            raise
+        self._drain(outstanding,
+                    include_lingering=any(t.error is not None
+                                          for t in tasks))
+        return [self._terminal(t) for t in tasks]
+
+    # -- the supervision tick ------------------------------------------------
+
+    def _tick(self, outstanding: Dict[_futures.Future, _Task],
+              tasks: List[_Task], total: int) -> None:
+        live = [f for f in outstanding]
+        if live:
+            _futures.wait(live, timeout=self._cfg.poll_interval_s,
+                          return_when=_futures.FIRST_COMPLETED)
+        self._resolve_ready(outstanding)
+        self._check_deadlines(tasks, outstanding)
+        self._maybe_hedge(tasks, outstanding, total)
+
+    def _resolve_ready(self, outstanding: Dict[_futures.Future, _Task]
+                       ) -> None:
+        for fut in [f for f in outstanding if f.done()]:
+            task = outstanding.pop(fut, None)
+            if task is None or task.done or fut.cancelled():
+                continue
+            # the WINNING attempt's own runtime (a hedge win must not
+            # feed the primary's straggle into the speculation baseline)
+            attempt_idx = task.futures.index(fut)
+            started = task.holders[attempt_idx].get(
+                "started", task.first_started())
+            task.done = True
+            task.duration = (time.monotonic() - started
+                             if started is not None else 0.0)
+            telemetry.observe(telemetry.M_TASK_DURATION_S, task.duration)
+            err = fut.exception()
+            if err is not None:
+                # First terminal outcome wins, success or failure: the
+                # sibling attempt runs the same pure ops and would fail
+                # the same way.
+                task.error = err
+                if isinstance(err, TaskFailure) and err.deadline_exceeded:
+                    # cooperative expiry inside a supervised task: the
+                    # worker deferred recording to us (single recorder —
+                    # the watchdog path can't also fire, its guard sees
+                    # this resolved task)
+                    health.record(health.TASK_DEADLINE_EXCEEDED,
+                                  partition=task.index)
+            else:
+                task.result = fut.result()
+                self._durations.append(task.duration)
+                if telemetry.active() is not None:
+                    # rows/bytes of the WINNING attempt only (a hedge
+                    # loser's identical result is discarded above and
+                    # must not double-count the partition)
+                    num_rows = getattr(task.result, "num_rows", None)
+                    if num_rows is not None:
+                        telemetry.count(telemetry.M_ENGINE_ROWS_OUT,
+                                        num_rows)
+                        telemetry.count(telemetry.M_ENGINE_BYTES_OUT,
+                                        task.result.nbytes)
+                if task.hedged and fut is not task.futures[0]:
+                    health.record(health.HEDGE_WON, partition=task.index)
+                    logger.info("hedge won for partition %d", task.index)
+            # deterministic dedup: only the winner is kept. Signal the
+            # cancel event so a RUNNING loser bails quietly at its next
+            # op/except boundary instead of retrying (and recording
+            # failure events) for a task that already resolved.
+            task.cancel_event.set()
+            for other in task.futures:
+                if other is not fut:
+                    # An unstarted loser is dropped outright; a running
+                    # loser is remembered so a failure unwind can wait it
+                    # out (its result is discarded by the task.done guard
+                    # above either way).
+                    outstanding.pop(other, None)
+                    if not other.cancel():
+                        self._lingering.append(other)
+
+    def _check_deadlines(self, tasks: List[_Task],
+                         outstanding: Dict[_futures.Future, _Task]) -> None:
+        timeout = self._cfg.task_timeout_s
+        if timeout is None:
+            return
+        now = time.monotonic()
+        for task in tasks:
+            if task.done:
+                continue
+            if any(f.done() for f in task.futures):
+                # an attempt completed between ticks (possibly via the
+                # cooperative deadline check, which already recorded the
+                # event) — let the next _resolve_ready claim it rather
+                # than double-reporting the same task
+                continue
+            started = task.first_started()
+            if started is None or now - started <= timeout:
+                continue
+            task.done = True
+            task.deadline_failed = True
+            task.cancel_event.set()  # abandoned attempts bail quietly
+            elapsed = now - started
+            task.duration = elapsed
+            # watchdog kills feed the duration histogram too: it must
+            # show the stall tail, not just the tasks that resolved on
+            # their own
+            telemetry.observe(telemetry.M_TASK_DURATION_S, elapsed)
+            cause = resilience.DeadlineExceeded(
+                f"partition {task.index} task exceeded its {timeout}s "
+                f"deadline ({elapsed:.2f}s elapsed)")
+            failure = TaskFailure(
+                str(cause), index=task.index,
+                attempts=[TaskAttempt(resilience.FATAL, repr(cause),
+                                      elapsed)],
+                kind=resilience.FATAL, deadline=True)
+            failure.__cause__ = cause
+            task.error = failure
+            health.record(health.TASK_DEADLINE_EXCEEDED, partition=task.index,
+                          timeout_s=timeout)
+            logger.error("watchdog: %s — failing the task (its thread may "
+                         "still be running the hung op)", cause)
+            for fut in task.futures:
+                fut.cancel()
+                outstanding.pop(fut, None)
+
+    def _maybe_hedge(self, tasks: List[_Task],
+                     outstanding: Dict[_futures.Future, _Task],
+                     total: int) -> None:
+        cfg = self._cfg
+        if not cfg.speculation:
+            return
+        done = len(self._durations)
+        running = [t for t in tasks if not t.done and not t.hedged]
+        if not running or done < 2:
+            return
+        if done < cfg.speculation_quantile * total:
+            return
+        durs = sorted(self._durations)
+        q = durs[min(len(durs) - 1,
+                     int(cfg.speculation_quantile * len(durs)))]
+        threshold = max(q * cfg.speculation_multiplier,
+                        cfg.speculation_min_runtime_s)
+        now = time.monotonic()
+        for task in running:
+            started = task.first_started()
+            if started is None or now - started < threshold:
+                continue
+            task.hedged = True
+            outstanding[task.launch()] = task
+            health.record(health.TASK_HEDGED, partition=task.index,
+                          elapsed_s=round(now - started, 4),
+                          threshold_s=round(threshold, 4))
+            logger.info(
+                "hedging straggler partition %d (%.2fs running > %.2fs "
+                "threshold over %d completed siblings)", task.index,
+                now - started, threshold, done)
+
+    def _drain(self, outstanding: Dict[_futures.Future, _Task],
+               include_lingering: bool) -> None:
+        """Barrier before the caller unwinds: cancel what never started,
+        wait out attempts already running user ops — plus, on a failure
+        unwind, the remembered hedge losers. Watchdog-failed tasks'
+        futures were already removed — their threads may be wedged on the
+        hung op, and waiting for them would undo the deadline."""
+        for fut in list(outstanding):
+            if fut.cancel():
+                outstanding.pop(fut, None)
+        if outstanding:
+            _futures.wait(list(outstanding))
+            outstanding.clear()
+        if include_lingering:
+            live = [f for f in self._lingering if not f.done()]
+            if live:
+                _futures.wait(live)
+            self._lingering.clear()
+
+    # -- terminal outcome ----------------------------------------------------
+
+    def _terminal(self, task: _Task) -> Any:
+        if task.error is None:
+            return task.result
+        err = task.error
+        # Deadline failures never quarantine: a timeout is slowness, not
+        # the deterministic poison quarantine targets — dropping rows on
+        # a transient straggle would be silent data loss. Both the
+        # watchdog flag and the TaskFailure marker (cooperative expiry
+        # between watchdog ticks) are honored.
+        if (self._cfg.quarantine and self._probe is not None
+                and not task.deadline_failed
+                and isinstance(err, TaskFailure)
+                and not err.deadline_exceeded
+                and err.failure_kind == resilience.FATAL
+                and sum(1 for a in err.attempts
+                        if a.kind == resilience.FATAL)
+                >= self._cfg.quarantine_max_fatal):
+            try:
+                sub = self._probe(task.index)
+            except Exception as probe_err:  # noqa: BLE001 - degrade path
+                logger.error(
+                    "cannot quarantine partition %d (zero-row probe of the "
+                    "op chain failed: %s); propagating the original "
+                    "failure", task.index, probe_err)
+                raise err
+            health.record(health.TASK_QUARANTINED, partition=task.index,
+                          error=str(err),
+                          attempts=[a.kind for a in err.attempts])
+            logger.error(
+                "quarantining poisoned partition %d after %d fatal "
+                "attempt(s): %s — dropping its rows (skip-and-degrade)",
+                task.index, len(err.attempts), err)
+            return sub
+        raise err

@@ -7,7 +7,9 @@ reference's ``TFImageTransformer``):
     device: cast → resize (preproc_resize) → preprocess → model → flatten
 
 run per partition through ``DataFrame.withColumnBatch``, with every
-device call going through ``core.executor.execute``.
+device call going through ``core.executor.execute`` (where concurrent
+partitions of one model coalesce), in the lane of the ``priority``
+param.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from sparkdl_tpu_torch.param.base import Param, keyword_only
 from sparkdl_tpu_torch.param.converters import TypeConverters
 from sparkdl_tpu_torch.param.shared_params import (
     HasBatchSize, HasInputCol, HasModelFunction, HasOutputCol,
-    HasOutputMode,
+    HasOutputMode, HasPriority,
 )
 
 logger = logging.getLogger(__name__)
@@ -37,7 +39,8 @@ _PREFETCH_DEPTH = 2
 
 
 class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
-                            HasModelFunction, HasOutputMode, HasBatchSize):
+                            HasModelFunction, HasOutputMode, HasBatchSize,
+                            HasPriority):
     """Apply a ModelFunction to an image-struct column.
 
     ``outputMode="vector"`` flattens model output per row into a float
@@ -57,7 +60,8 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
                  modelFunction=None,
                  outputMode: str = "vector",
                  batchSize: int = 64,
-                 inputSize: Optional[Tuple[int, int]] = None) -> None:
+                 inputSize: Optional[Tuple[int, int]] = None,
+                 priority: Optional[str] = None) -> None:
         super().__init__()
         self._setDefault(outputMode="vector", batchSize=64, inputSize=None)
         self.setParams(**self._input_kwargs)
@@ -68,7 +72,8 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
                   modelFunction=None,
                   outputMode: str = "vector",
                   batchSize: int = 64,
-                  inputSize: Optional[Tuple[int, int]] = None
+                  inputSize: Optional[Tuple[int, int]] = None,
+                  priority: Optional[str] = None
                   ) -> "TorchImageTransformer":
         return self._set(**self._input_kwargs)
 
@@ -97,6 +102,7 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
         mode = self.getOutputMode()
         batch_size = self.getBatchSize()
         target_size = self._target_size(model)
+        priority = self.getPriority()  # None: EngineConfig default lane
         run = model.flattened() if mode == "vector" else model
         if input_col not in dataset.columns:
             raise KeyError(f"No such column: {input_col!r}")
@@ -114,7 +120,7 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
                                         rows=len(stacked)):
                     out = device_executor.execute(
                         run_fast, stacked, batch_size=batch_size,
-                        prefetch=_PREFETCH_DEPTH)
+                        prefetch=_PREFETCH_DEPTH, priority=priority)
                 if mode == "vector":
                     return _vectors_with_nulls(out, valid, batch.num_rows)
                 return _images_with_nulls(out, valid, batch.num_rows,
@@ -143,7 +149,8 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
                                     rows=len(stacked)):
                 out = device_executor.execute(run, stacked,
                                               batch_size=batch_size,
-                                              prefetch=_PREFETCH_DEPTH)
+                                              prefetch=_PREFETCH_DEPTH,
+                                              priority=priority)
             if mode == "vector":
                 return _vectors_with_nulls(out, valid, batch.num_rows)
             return _images_with_nulls(out, valid, batch.num_rows,

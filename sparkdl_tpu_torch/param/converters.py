@@ -82,3 +82,11 @@ class SparkDLTypeConverters:
             raise TypeError(
                 f"outputMode must be 'vector' or 'image', got {mode!r}")
         return mode
+
+    @staticmethod
+    def toPriority(value: Any) -> str:
+        lane = TypeConverters.toString(value)
+        if lane not in ("interactive", "bulk"):
+            raise TypeError(
+                f"priority must be 'interactive' or 'bulk', got {lane!r}")
+        return lane

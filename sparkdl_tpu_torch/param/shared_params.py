@@ -7,7 +7,7 @@ featurize path reads; the payload of ``HasModelFunction`` is the port's
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 from sparkdl_tpu_torch.param.base import Param, Params
 from sparkdl_tpu_torch.param.converters import (
@@ -64,6 +64,30 @@ class HasBatchSize(Params):
 
     def getBatchSize(self) -> int:
         return self.getOrDefault(self.batchSize)
+
+
+class HasPriority(Params):
+    """The device execution service's admission lane for this
+    component's requests (``core/executor.py``): the coalescer drains
+    ``"interactive"`` requests first and sheds ``"bulk"`` first. ``None``
+    (unset) falls back to ``EngineConfig.executor_default_priority``."""
+
+    priority = Param(
+        "HasPriority", "priority",
+        "executor admission lane: 'interactive' (drained first, shed "
+        "last) or 'bulk' (the batch default). None falls back to "
+        "EngineConfig.executor_default_priority",
+        typeConverter=SparkDLTypeConverters.toPriority)
+
+    def setPriority(self, value: Optional[str]) -> "HasPriority":
+        if value is None:
+            self.clear(self.priority)
+            return self
+        return self._set(priority=value)
+
+    def getPriority(self) -> Optional[str]:
+        return (self.getOrDefault(self.priority)
+                if self.isDefined(self.priority) else None)
 
 
 class HasModelFunction(Params):
