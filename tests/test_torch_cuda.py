@@ -730,3 +730,54 @@ def test_threads_replay_two_programs_with_exact_launches(card,
         for a, b in zip(outs[i], outs[i % 2]):
             assert torch.equal(a, b)
 
+
+
+_OOM_IN_CAPTURE = r'''
+import torch
+from sparkdl_tpu_torch.core import resilience
+from sparkdl_tpu_torch.core.model_function import ModelFunction, TensorSpec
+
+def fn(vs, x):
+    if torch.cuda.is_current_stream_capturing():
+        torch.empty(1 << 45, dtype=torch.uint8, device=x.device)
+    return x * 2
+
+mf = ModelFunction(fn, None, TensorSpec((None, 4)))
+compiled = mf.jitted("cuda")
+chunk = torch.ones(8, 4)
+try:
+    with torch.inference_mode():
+        compiled(chunk, 8)
+except Exception as e:
+    assert resilience.classify(e) == resilience.OOM, repr(e)
+    assert not compiled.graphs
+    ok = ModelFunction(lambda vs, x: x * 3, None, TensorSpec((None, 4)))
+    with torch.inference_mode():
+        y = ok.jitted("cuda")(chunk, 8)
+    assert torch.equal(y.cpu(), chunk * 3)
+    print("raised", type(e).__name__)
+else:
+    print("no error")
+'''
+
+
+@pytest.mark.cuda
+def test_oom_inside_capture_stores_no_graph(card, tmp_path):
+    """An allocation that fails inside the capture (and not in the eager
+    warm-up) raises an error ``classify`` calls OOM, stores no graph,
+    and leaves the context able to capture and replay another program.
+    It runs in a process of its own, as a failed capture may leave the
+    context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "oom_in_capture.py"
+    script.write_text(_OOM_IN_CAPTURE)
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1].startswith("raised"), \
+        out.stdout

@@ -41,26 +41,38 @@ def test_no_forbidden_imports_in_source():
 
 
 def test_featurize_on_cpu_loads_no_jax(tmp_path):
-    """Featurizing with each ported model on the CPU in a fresh process
-    leaves no JAX and no ``sparkdl_tpu`` in ``sys.modules``."""
+    """Featurizing with each ported model on the CPU in a fresh process,
+    over a frame of three partitions (so the partition pool, the
+    supervisor and the coalescing executor run), leaves no JAX and no
+    ``sparkdl_tpu`` in ``sys.modules``."""
     script = tmp_path / "probe.py"
     script.write_text(
-        "import sys\n"
+        "import sys, threading\n"
         "import numpy as np\n"
         "import sparkdl_tpu_torch as s\n"
+        "from sparkdl_tpu_torch.core import executor, health\n"
         "from sparkdl_tpu_torch.image import imageIO\n"
         "s.EngineConfig.device = 'cpu'\n"
         "s.EngineConfig.inference_precision = 'float32'\n"
+        "s.EngineConfig.max_workers = 3\n"
         "rng = np.random.default_rng(0)\n"
         "imgs = [rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)\n"
-        "        for _ in range(2)]\n"
+        "        for _ in range(3)]\n"
         "df = s.DataFrame.fromColumns(\n"
-        "    {'image': imageIO.imageArraysToStructColumn(imgs, ['a', 'b'])})\n"
+        "    {'image': imageIO.imageArraysToStructColumn(imgs, list('abc'))},\n"
+        "    numPartitions=3)\n"
         "for name, dim in (('Xception', 2048), ('InceptionV3', 2048),\n"
         "                  ('TestNet', 16)):\n"
-        "    rows = s.DeepImageFeaturizer(inputCol='image', outputCol='f',\n"
-        "        modelName=name, batchSize=2).transform(df).collect()\n"
-        "    assert len(rows) == 2 and len(rows[0]['f']) == dim\n"
+        "    with health.HealthMonitor() as mon:\n"
+        "        rows = s.DeepImageFeaturizer(inputCol='image',\n"
+        "            outputCol='f', modelName=name,\n"
+        "            batchSize=2).transform(df).collect()\n"
+        "    assert len(rows) == 3 and len(rows[0]['f']) == dim\n"
+        "    assert mon.count(health.TASK_STARTED) == 3\n"
+        "assert any(t.name.startswith('sparkdl-part')\n"
+        "           for t in threading.enumerate())\n"
+        "assert executor.status()['models']\n"
+        "executor.shutdown()\n"
         "top = {m.split('.')[0] for m in sys.modules}\n"
         "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "                    'sparkdl_tpu'}))\n")
