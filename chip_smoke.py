@@ -118,6 +118,37 @@ times ResNet50's fast apply (``models/resnet_fast.py``, BN folded) beside
 the module through the same graphs, in bf16: a number only, since the
 registry does not select it, as in the reference.
 
+Partition-parallel featurize follows: three frames of 64 images in 16
+partitions of 4, featurized through ``transform(df).collect()`` on 8
+partition threads (``EngineConfig.max_workers``) at batch 16, each once
+with ``EngineConfig.coalesce`` on (the default) and once off, each run
+after its own warm-up pass: ``featurize_partitioned`` (Xception,
+299×299, ``"force"``, bf16: ``sep2d``'s tensor-core body, 34 a
+forward), ``resnet50_partitioned_resized`` (ResNet50, 256×256,
+``"force"``: ``preproc_resize`` once a forward) and
+``resnet50_partitioned`` (ResNet50, 224×224, ``"autotune"``, bf16: no
+kernel of ours). Each run's line gives images/s, its forwards (the
+program's replays in the pass, ``Compiled.replays``) and the graphs
+captured in it, the executor's instruments (coalesced requests and rows
+per launch, queue wait p50/p99, the coalescer's host ms per window),
+its phase timers summed over threads beside the wall and the worker
+count, and the two runs' features against each other (``torch.equal``,
+max|Δ|). The coalesced run must make fewer forwards than there are
+partitions; in both, every launch count equals per-forward × forwards
+(a capture in the pass adds its warm-up forward), no task fails, the
+executor ends empty, and two rows agree with the CPU run within the
+phase's tolerance. Every earlier phase is one partition, a solo
+request: its line's ``executor`` instruments must stay empty.
+
+``oom_rechunk`` then arms the ``device_oom`` injection point once at
+bucket 16 on one partition of 32 Xception images (the chunk re-chunks
+at 8, one ``oom_rechunk`` event, rung 8 captured, the features within
+bf16 tolerance of the uninjected run), once inside a coalesced window of
+``featurize_partitioned``'s frame (the window splits back per request,
+each replayed on its own partition thread), and makes one real
+allocation fail (32 TiB): ``classify`` must call it OOM, and a graph's
+replay after it must equal the one before.
+
 ``--profile`` adds device times from ``torch.profiler`` beside each event
 time, and one profiled pass per phase: device time by kernel, the device
 time of each of the port's kernels by body, and the device's idle share
@@ -705,7 +736,7 @@ def check_probes(probe, dev):
     return rows
 
 
-def featurize(s, model, images, weights, batch_size):
+def featurize(s, model, images, weights, batch_size, parts=1):
     """The user-facing transformer of one phase and its frame. ``model``
     is (name, "named") for ``DeepImageFeaturizer(modelName=name)``,
     (name, "predict") for ``DeepImagePredictor(modelName=name,
@@ -713,12 +744,13 @@ def featurize(s, model, images, weights, batch_size):
     ``TorchImageTransformer`` over ``build_featurizer(name, fast=False)``
     (``"module_bf16"``: built with ``dtype="bfloat16"``, every layer
     computing in bf16 as the reference's Flax ``dtype``). The output
-    column is ``features`` in each."""
+    column is ``features`` in each; the frame has ``parts`` partitions."""
     from sparkdl_tpu_torch.image import imageIO
     from sparkdl_tpu_torch.models import registry
 
     df = s.DataFrame.fromColumns({"image": imageIO.imageArraysToStructColumn(
-        images, [f"img_{i}" for i in range(len(images))])})
+        images, [f"img_{i}" for i in range(len(images))])},
+        numPartitions=parts)
     name, path = model
     if path == "named":
         feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
@@ -949,14 +981,41 @@ def prefetch_totals(streams):
     return out
 
 
-def host_ms(phase_stats, seconds):
-    """The counted pass's ms by phase timer, its wall ms, and the ms of
-    its wall outside ``sparkdl.device_apply`` (the frame's own work: the
-    column's stack, ``collect()``'s rows)."""
+def host_ms(phase_stats, seconds, workers=1):
+    """The counted pass's ms by phase timer and its wall ms. With one
+    partition thread, also the ms of its wall outside
+    ``sparkdl.device_apply`` (the frame's own work: the column's stack,
+    ``collect()``'s rows); with several, the timers are summed over
+    threads that overlap, so they stand beside the wall and the worker
+    count and nothing is subtracted."""
     out = {k: v["total_s"] * 1e3 for k, v in phase_stats.items()}
     out["pass"] = seconds * 1e3
-    out["outside_device_apply"] = out["pass"] - out.get(
-        "sparkdl.device_apply", 0.0)
+    if workers > 1:
+        out["workers"] = workers
+        out["timers_summed_over_threads"] = True
+    else:
+        out["outside_device_apply"] = out["pass"] - out.get(
+            "sparkdl.device_apply", 0.0)
+    return out
+
+
+def executor_metrics(tel):
+    """The coalescing executor's instruments of a telemetry scope: each
+    histogram's count, mean, max, p50 and p99 (None where nothing was
+    observed), and its gauges."""
+    from sparkdl_tpu_torch.core import telemetry
+
+    snap = tel.metrics.snapshot()
+    out = {}
+    for key, name in (("coalesce_requests", telemetry.M_COALESCE_REQUESTS),
+                      ("coalesce_rows", telemetry.M_COALESCE_ROWS),
+                      ("queue_wait_s", telemetry.M_QUEUE_WAIT_S),
+                      ("launch_s", telemetry.M_LAUNCH_S)):
+        h = snap["histograms"].get(name)
+        out[key] = None if h is None else {
+            "count": h["count"], "mean": h["sum"] / h["count"],
+            "max": h["max"], "p50": h["p50"], "p99": h["p99"]}
+    out["dedup_hits"] = snap["counters"].get(telemetry.M_COALESCE_DEDUP, 0)
     return out
 
 
@@ -976,7 +1035,7 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     CPU run's). The line carries the counted pass's phase timers, staging
     streams and health counters, and the graphs' forward rate in TFLOP/s
     where the spec has the model's FLOPs per image."""
-    from sparkdl_tpu_torch.core import health, profiling
+    from sparkdl_tpu_torch.core import health, profiling, telemetry
     from sparkdl_tpu_torch.models import registry
 
     spec = registry.get_model_spec(model[0])
@@ -1003,11 +1062,17 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     kernels.reset_launches()
     profiling.reset_phase_stats()
     del STREAMS[:]
-    with health.HealthMonitor(name) as monitor:
+    with health.HealthMonitor(name) as monitor, \
+            telemetry.Telemetry(name) as tel:
         t0 = time.perf_counter()
         rows = feat.transform(df).collect()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+    # one partition is a solo request: the inline path, no coalescing
+    coalescing = executor_metrics(tel)
+    assert coalescing["coalesce_requests"] is None \
+        and coalescing["queue_wait_s"] is None, \
+        f"{name}: a one-partition frame went through the coalescer"
     counts = dict(kernels.launches)
     phase_stats = profiling.phase_stats()
     overlap = profiling.overlap_stats()
@@ -1081,6 +1146,7 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
            "host_ms_per_partition": host_ms(phase_stats, seconds),
            "phase_stats": phase_stats, "overlap": overlap,
            "prefetch": prefetch, "health": monitor.counters(),
+           "executor": coalescing,
            "launches": counts, "launches_by_body": by_body,
            "max_abs_err_vs_cpu": err,
            "tolerance": limit, "feature_max_abs": float(np.abs(cpu).max())}
@@ -1182,6 +1248,271 @@ def resnet_fast_vs_module(dev, n_images=4 * BATCH, repeats=5):
            "max_abs_diff": diff,
            "feature_max_abs": float(outs["module"].abs().max()),
            "registry_selects_fast": module_mf.fast_path}
+    emit(out)
+    return out
+
+
+#: the partitioned frames: images, partitions, partition threads
+PART_IMAGES = 64
+PARTITIONS = 16
+WORKERS = 8
+# (phase, (model, path), source size, launches per forward, tolerance,
+# gate, precision): each run with coalescing on and off
+PARTITIONED_PHASES = [
+    ("featurize_partitioned", ("Xception", "named"), TARGET, {"sep2d": 34},
+     BF16_REL, "force", "bfloat16"),
+    ("resnet50_partitioned_resized", ("ResNet50", "named"), (256, 256),
+     {"preproc_resize": 1}, F32_REL, "force", "bfloat16"),
+    ("resnet50_partitioned", ("ResNet50", "named"), (224, 224), {},
+     BF16_REL, "autotune", "bfloat16"),
+]
+
+
+def partitioned_pass(s, kernels, name, feat, df, compiled, per_forward):
+    """One counted pass of a partitioned frame on the card: launches,
+    forwards (the program's replays, its first sights included), the
+    graphs captured during the pass, the executor's instruments, phase
+    timers and health. Every launch count must be per-forward ×
+    forwards."""
+    from sparkdl_tpu_torch.core import executor, health, profiling, \
+        telemetry
+
+    kernels.reset_launches()
+    profiling.reset_phase_stats()
+    replays = compiled.replays
+    with health.HealthMonitor(name) as monitor, \
+            telemetry.Telemetry(name) as tel:
+        t0 = time.perf_counter()
+        rows = feat.transform(df).collect()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
+    stats = profiling.phase_stats()
+    captures = stats.get("sparkdl.compile", {"count": 0})["count"]
+    # a capture runs one eager warm-up forward (counted by the wrappers)
+    # before the graph's first replay
+    forwards = compiled.replays - replays
+    expected = {k: per_forward.get(k, 0) * (forwards + captures)
+                for k in counts}
+    assert counts == expected, \
+        f"{name}: launches {counts} != per-forward × forwards {expected}"
+    for kernel in ("sep2d", "pw1x1"):
+        assert by_body[kernel]["wgmma"] == counts[kernel], \
+            f"{name}: bf16 {kernel} off the tensor-core body: {by_body}"
+    failed = monitor.count(health.TASK_FAILED)
+    assert failed == 0, f"{name}: {failed} task(s) failed"
+    status = executor.status()
+    assert status["queued_requests"] == 0 and status["inflight"] == 0, \
+        f"{name}: requests left in the executor: {status}"
+    gpu, _ = row_vectors(rows)
+    return gpu, {
+        "seconds": seconds, "images_per_s": len(rows) / seconds,
+        "forwards": forwards, "captures_in_pass": captures,
+        "launches": counts, "launches_by_body": by_body,
+        "executor": executor_metrics(tel), "health": monitor.counters(),
+        "host_ms": host_ms(stats, seconds, workers=WORKERS),
+        "phase_stats": stats}
+
+
+def partitioned_path(s, kernels, name, model, size, per_forward, rel_tol,
+                     mode, precision):
+    """Featurize PART_IMAGES seeded images of ``size`` in PARTITIONS
+    partitions on WORKERS partition threads, through ``transform(df).
+    collect()``, once with ``EngineConfig.coalesce`` on (the default) and
+    once off, each after its own warm-up pass. The coalesced run must
+    make fewer forwards than there are partitions; both runs' launches
+    are per-forward × forwards; both agree with the port's CPU run of the
+    same weights on two images within ``rel_tol``; the two runs' features
+    are compared (``torch.equal`` and max|Δ|). Emits one line per run
+    and returns both."""
+    from sparkdl_tpu_torch.models import registry
+
+    spec = registry.get_model_spec(model[0])
+    s.EngineConfig.inference_precision = precision
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = mode
+    s.EngineConfig.max_workers = WORKERS
+    rng = np.random.default_rng(SEED + 100 + size[0])
+    images = [rng.integers(0, 256, size=(*size, 3), dtype=np.uint8)
+              for _ in range(PART_IMAGES)]
+    feat, df = featurize(s, model, images, "random", BATCH,
+                         parts=PARTITIONS)
+    assert df.numPartitions == PARTITIONS
+    dev = torch.device("cuda")
+    run = executed_model(s, feat, size)
+    compiled = run.jitted(dev)
+    results, feats = {}, {}
+    for coalesce in (True, False):
+        s.EngineConfig.coalesce = coalesce
+        t0 = time.perf_counter()
+        feat.transform(df).collect()  # warm-up: graphs of new rungs
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        label = name if coalesce else f"{name}_uncoalesced"
+        feats[coalesce], out = partitioned_pass(s, kernels, label, feat, df,
+                                                compiled, per_forward)
+        out.update({"phase": label, "model": model[0], "path": model[1],
+                    "coalesce": coalesce, "images": PART_IMAGES,
+                    "partitions": PARTITIONS, "workers": WORKERS,
+                    "source_size": list(size), "batch_size": BATCH,
+                    "pallas_kernels": mode, "precision": precision,
+                    "warmup_s": warmup_s})
+        if PROFILE:
+            out["idle_share"] = profile_pass(label, feat, df)
+        results[coalesce] = out
+    s.EngineConfig.coalesce = True
+    coalesced, plain = results[True], results[False]
+    assert plain["forwards"] >= PARTITIONS, plain["forwards"]
+    assert coalesced["forwards"] < PARTITIONS, \
+        f"{name}: {coalesced['forwards']} forwards for {PARTITIONS} " \
+        f"partitions: nothing coalesced"
+    assert coalesced["executor"]["coalesce_requests"]["max"] >= 2
+
+    graphs = sorted(((k[0][0], g) for k, g in compiled.graphs.items()),
+                    key=lambda item: item[0])
+    graph_equal, rates, _ = graph_vs_eager(run, images, dev)
+    assert graph_equal, f"{name}: a graph's output differs from the " \
+                        f"eager forward of the same chunk"
+    s.EngineConfig.device = "cpu"
+    s.EngineConfig.max_workers = 1
+    cpu_feat, cpu_df = featurize(s, model, images[:2], model_state(s, feat),
+                                 2)
+    cpu, _ = row_vectors(cpu_feat.transform(cpu_df).collect())
+    s.EngineConfig.device = "cuda"
+    limit = rel_tol * float(np.max(np.abs(cpu)))
+    a, b = torch.from_numpy(feats[True]), torch.from_numpy(feats[False])
+    between = {"torch_equal": bool(torch.equal(a, b)),
+               "max_abs_diff": float((a - b).abs().max()),
+               "feature_max_abs": float(b.abs().max())}
+    for coalesce, out in results.items():
+        gpu = feats[coalesce]
+        assert gpu.shape == (PART_IMAGES, spec.feature_dim), gpu.shape
+        assert np.isfinite(gpu).all(), f"{name}: non-finite features"
+        err = float(np.max(np.abs(gpu[:2] - cpu)))
+        assert err <= limit, f"{out['phase']}: features differ from the " \
+                             f"CPU run by {err} > {limit}"
+        out.update({"max_abs_err_vs_cpu": err, "tolerance": limit,
+                    "graphs": len(graphs),
+                    "rungs": [rung for rung, _ in graphs],
+                    "graph_equal": graph_equal,
+                    "graph_forward_images_per_s": rates["graph"],
+                    "coalesced_vs_uncoalesced": between})
+        emit(out)
+    return coalesced, plain, df, feat
+
+
+def oom_rechunk(s, kernels, part_frame):
+    """The resilience paths on the card, on Xception (force, bf16):
+
+    1. one partition of 32 299×299 images at batch 16, with the
+       ``device_oom`` injection point armed once at bucket 16: the chunk
+       re-chunks at 8 (one ``oom_rechunk`` event), rung 8 is captured,
+       and the features agree with the uninjected run;
+    2. ``device_oom`` armed once inside a coalesced window of
+       ``featurize_partitioned``'s frame: the window splits back per
+       request, each request completing on its own partition thread;
+    3. one real allocation that cannot fit: ``classify`` calls it OOM,
+       and a replay after it equals the one before, so the context
+       survived."""
+    import threading
+
+    from sparkdl_tpu_torch.core import executor, health, resilience
+
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.coalesce = True
+    rng = np.random.default_rng(SEED + 7)
+    images = [rng.integers(0, 256, size=(*TARGET, 3), dtype=np.uint8)
+              for _ in range(2 * BATCH)]
+    feat, df = featurize(s, ("Xception", "named"), images, "random", BATCH)
+    dev = torch.device("cuda")
+    compiled = executed_model(s, feat, TARGET).jitted(dev)
+    clean, _ = row_vectors(feat.transform(df).collect())
+    rungs_before = sorted(k[0][0] for k in compiled.graphs)
+    assert BATCH // 2 not in rungs_before, rungs_before
+    kernels.reset_launches()
+    with resilience.FaultInjector.seeded(0, device_oom=resilience.Fault(
+            times=1, when=lambda c: c["rows"] == BATCH)) as inj, \
+            health.HealthMonitor("oom_rechunk") as mon:
+        injected, _ = row_vectors(feat.transform(df).collect())
+    torch.cuda.synchronize()
+    rungs_after = sorted(k[0][0] for k in compiled.graphs)
+    a, b = torch.from_numpy(clean), torch.from_numpy(injected)
+    diff = float((a - b).abs().max())
+    limit = BF16_REL * float(a.abs().max())
+    assert inj.fired["device_oom"] == 1
+    assert mon.count(health.OOM_RECHUNK) == 1, mon.counters()
+    (event,) = mon.events(health.OOM_RECHUNK)
+    assert (event["bucket"], event["half"]) == (BATCH, BATCH // 2), event
+    assert BATCH // 2 in rungs_after, rungs_after
+    assert diff <= limit, f"oom_rechunk: {diff} > {limit}"
+    injected_launches = dict(kernels.launches)
+    injected_by_body = {k: dict(v)
+                        for k, v in kernels.launches_by_body.items()}
+
+    # a coalesced window of the partitioned frame, failed once
+    feat_p, df_p = part_frame
+    s.EngineConfig.max_workers = WORKERS
+    replayed = []
+    replay_alone = executor.DeviceExecutor._replay_alone
+
+    def recording(self, state, request):
+        replayed.append(threading.current_thread().name)
+        return replay_alone(self, state, request)
+
+    executor.DeviceExecutor._replay_alone = recording
+    try:
+        reference, _ = row_vectors(feat_p.transform(df_p).collect())
+        replayed.clear()
+        with resilience.FaultInjector.seeded(
+                0, device_oom=resilience.Fault(
+                    times=1, when=lambda c: threading.current_thread().name
+                    .startswith("sparkdl-exec"))) as inj_w, \
+                health.HealthMonitor("oom_window") as mon_w:
+            split, _ = row_vectors(feat_p.transform(df_p).collect())
+    finally:
+        executor.DeviceExecutor._replay_alone = replay_alone
+    assert inj_w.fired["device_oom"] == 1, "no coalesced window formed"
+    (window,) = mon_w.events(health.OOM_RECHUNK)
+    assert mon_w.count(health.TASK_FAILED) == 0, mon_w.counters()
+    assert len(replayed) >= window["requests"] >= 2, (replayed, window)
+    assert all(n.startswith("sparkdl-part") for n in replayed), replayed
+    ra, rb = torch.from_numpy(reference), torch.from_numpy(split)
+    window_diff = float((ra - rb).abs().max())
+    assert window_diff <= BF16_REL * float(ra.abs().max()), window_diff
+
+    # a real allocation failure, then a replay of a captured graph
+    chunk = torch.from_numpy(np.stack(images[:BATCH])).pin_memory()
+    with torch.inference_mode():
+        before = compiled(chunk, BATCH)
+        try:
+            torch.empty(1 << 45, dtype=torch.uint8, device=dev)
+            raise AssertionError("a 32 TiB allocation succeeded")
+        except torch.OutOfMemoryError as e:
+            real_kind = resilience.classify(e)
+            real_error = str(e).splitlines()[0][:160]
+        after = compiled(chunk, BATCH)
+        torch.cuda.synchronize()
+    assert real_kind == resilience.OOM, real_kind
+    survived = bool(torch.equal(before, after))
+    assert survived, "a replay after the failed allocation differs"
+    out = {"phase": "oom_rechunk", "images": len(images),
+           "batch_size": BATCH, "injected_at_bucket": BATCH,
+           "rechunk_event": event, "rungs_before": rungs_before,
+           "rungs_after": rungs_after,
+           "torch_equal_vs_uninjected": bool(torch.equal(a, b)),
+           "max_abs_diff_vs_uninjected": diff, "tolerance": limit,
+           "launches": injected_launches,
+           "launches_by_body": injected_by_body,
+           "window_event": window, "window_requests_replayed": len(replayed),
+           "window_replay_threads": sorted(set(replayed)),
+           "window_torch_equal": bool(torch.equal(ra, rb)),
+           "window_max_abs_diff": window_diff,
+           "window_health": mon_w.counters(),
+           "real_oom_classified": real_kind, "real_oom_error": real_error,
+           "replay_equal_after_real_oom": survived}
     emit(out)
     return out
 
@@ -1325,6 +1656,20 @@ def main() -> int:
         main_path(s, kernels, f"depth_{name}", (name, "named"), (224, 224),
                   {}, BF16_REL, n_images=BATCH)
     resnet_fast_vs_module(dev)
+
+    # partition-parallel featurize: each frame coalesced and not, then
+    # the resilience paths
+    part_frame = None
+    for (name, model, size, per_forward, tol, mode,
+         precision) in PARTITIONED_PHASES:
+        coalesced, plain, df, feat = partitioned_path(
+            s, kernels, name, model, size, per_forward, tol, mode,
+            precision)
+        phases[name] = coalesced
+        phases[f"{name}_uncoalesced"] = plain
+        if name == "featurize_partitioned":
+            part_frame = (feat, df)
+    phases["oom_rechunk"] = oom_rechunk(s, kernels, part_frame)
     s.EngineConfig.inference_precision = "bfloat16"
 
     def summary(name, source, replaces, rows, headline, by_phase=None,

@@ -1498,6 +1498,28 @@ def execute(model: Any, array: Any, *, batch_size: int = 64,
 
     EngineConfig.validate()  # read-time knob validation (clear ValueError)
     device = resolve_device()
+    if device.type != "cuda":
+        return _execute(model, array, device, batch_size, retry_policy,
+                        prefetch, coalesce, priority, deadline, tenant,
+                        coalesce_window_ms)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    # the current device is per thread: pin this call's on its thread (a
+    # partition thread), so the model, its graphs, the staging ring and
+    # the coalescer all see one device
+    with torch.cuda.device(device):
+        return _execute(model, array, device, batch_size, retry_policy,
+                        prefetch, coalesce, priority, deadline, tenant,
+                        coalesce_window_ms)
+
+
+def _execute(model: Any, array: Any, device: torch.device, batch_size: int,
+             retry_policy: Optional[resilience.RetryPolicy], prefetch: int,
+             coalesce: Optional[bool], priority: Optional[str],
+             deadline: Optional[resilience.Deadline], tenant: Optional[str],
+             coalesce_window_ms: Optional[float]) -> np.ndarray:
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
     array = model.stage_inputs(array)
     if telemetry.active() is not None:
         # bytes as staged by the HOST: raw uint8 pixels on the image path

@@ -408,6 +408,8 @@ class Compiled:
         self._seen: set = set()
         self._pool = None
         self._lock = threading.Lock()
+        #: forwards run (replays on the card), first sights included
+        self.replays = 0
         self.__sparkdl_trace_target__ = self._abstract
         if isinstance(model.variables, torch.nn.Module):
             with _PROGRAMS_LOCK:
@@ -450,6 +452,7 @@ class Compiled:
             with self._lock:
                 first = key not in self._seen
                 self._seen.add(key)
+                self.replays += 1
             if not first:
                 with kernels.weights_lock:
                     return self._forward(x)[:n_valid]
@@ -464,6 +467,7 @@ class Compiled:
             graph = self._graphs.get(key)
             if graph is None:
                 graph = self._capture(chunk, key)
+            self.replays += 1
             with kernels.device_gate.shared():
                 graph.static_in.copy_(chunk, non_blocking=True)
                 graph.graph.replay()

@@ -294,6 +294,15 @@ class Deadline:
 # RetryPolicy
 # ---------------------------------------------------------------------------
 
+def _jitter_seed(seed: int, attempt: int) -> int:
+    """The integer the reference's ``random.Random((seed, attempt))``
+    seeded from: before Python 3.11 a tuple seeded by its hash, cast to
+    an unsigned 64-bit integer (a tuple of ints hashes the same in every
+    process). Python 3.11 refuses a tuple seed, so the port passes the
+    integer itself and keeps the reference's delays bit for bit."""
+    return hash((seed, attempt)) & 0xFFFFFFFFFFFFFFFF
+
+
 @dataclass(frozen=True)
 class RetryPolicy:
     """Exponential backoff with deterministic jitter.
@@ -321,7 +330,8 @@ class RetryPolicy:
                    self.max_delay_s)
         if not self.jitter or base <= 0:
             return base
-        frac = random.Random((self.seed, attempt)).uniform(0.0, self.jitter)
+        frac = random.Random(_jitter_seed(self.seed, attempt)).uniform(
+            0.0, self.jitter)
         return base * (1.0 + frac)
 
     def execute(self, fn: Callable[[], Any], *,
