@@ -586,9 +586,11 @@ class DeviceExecutor:
         this thread's stream waits on before the copy).
 
         A copy that fails (an error the replay left on the stream)
-        re-runs THIS request alone through ``apply_batch``. Errors
-        delivered via ``set_exception`` already went through per-request
-        isolation and propagate as-is."""
+        re-runs THIS request alone through ``apply_batch``, unless it is
+        FATAL (a sticky CUDA error: the context is dead, and a re-run
+        would fail the same way). Errors delivered via ``set_exception``
+        already went through per-request isolation and propagate
+        as-is."""
         try:
             out = request.future.result()  # isolated failures raise here
         except BaseException as e:  # noqa: BLE001 - breaker accounting, re-raised
