@@ -106,30 +106,14 @@ _WINDOW_FRACTION = 0.25
 _WINDOW_MIN_S = 0.0005
 _WINDOW_MAX_S = 0.02
 _WINDOW_DEFAULT_S = 0.002
-# Idle coalescer threads exit after this long with an empty queue (and
-# restart on the next queued request), so tests and long-lived processes
-# don't accumulate one parked thread per model ever served. The live
-# value is the EngineConfig.executor_idle_retire_s knob (the serving
-# residency manager shortens it to make eviction prompt); this constant
-# is only the fallback when the engine layer isn't importable.
-_IDLE_EXIT_S = 5.0
-
-
 def _idle_exit_s() -> float:
-    """The idle-retirement interval, read from EngineConfig per use so a
-    knob flip (tests, residency manager) takes effect on parked threads
-    at their next wakeup — no service restart needed. Core must stay
-    importable without the engine, hence the lazy import."""
-    try:
-        from sparkdl_tpu_torch.engine.dataframe import EngineConfig
-    except ImportError:  # pragma: no cover - engine always ships
-        return _IDLE_EXIT_S
-    value = getattr(EngineConfig, "executor_idle_retire_s", _IDLE_EXIT_S)
-    try:
-        value = float(value)
-    except (TypeError, ValueError):
-        return _IDLE_EXIT_S
-    return value if value > 0 else _IDLE_EXIT_S
+    """How long an idle coalescer thread (and its state) lives:
+    ``EngineConfig.executor_idle_retire_s``, read at each use so a knob
+    flip reaches parked threads at their next wakeup (imported here:
+    core imports no engine module at load)."""
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    return float(EngineConfig.executor_idle_retire_s)
 
 
 class ExecutorShutdown(RuntimeError):
@@ -272,9 +256,7 @@ DEFAULT_TENANT = "default"
 
 def current_tenant() -> Optional[str]:
     """The ambient tenant tag for THIS thread's executor calls (set by
-    :class:`tenant_scope`; cluster workers enter one per dispatched
-    partition so worker-side metrics stay tenant-attributed). None
-    outside a scope."""
+    :class:`tenant_scope`). None outside a scope."""
     return getattr(_tls, "tenant", None)
 
 
@@ -593,7 +575,7 @@ class DeviceExecutor:
         as-is."""
         try:
             out = request.future.result()  # isolated failures raise here
-        except BaseException as e:  # noqa: BLE001 - breaker accounting, re-raised
+        except BaseException as e:  # noqa: BLE001 - breaker, re-raised
             # once per REQUEST, not per waiter: two hedged waiters share
             # one dedup'd future
             with state.cond:
@@ -853,7 +835,7 @@ class DeviceExecutor:
         chain ends in one success note)."""
         try:
             yield
-        except BaseException as e:  # noqa: BLE001 - breaker accounting, re-raised
+        except BaseException as e:  # noqa: BLE001 - breaker, re-raised
             self._breaker_note(state, e, is_probe=is_probe)
             raise
         else:
@@ -1085,7 +1067,7 @@ class DeviceExecutor:
                     continue  # the whole window expired unlaunched
                 try:
                     self._launch(state, batch, total)
-                except BaseException as e:  # noqa: BLE001 - delivered to every drained future
+                except BaseException as e:  # noqa: BLE001 - delivered below
                     # a failure in the launch plumbing itself (concat,
                     # slicing) must still complete every drained future —
                     # the batch already left `pending`, so the terminal
@@ -1349,9 +1331,9 @@ class DeviceExecutor:
     # -- introspection -------------------------------------------------------
 
     def status(self) -> Dict[str, Any]:
-        """Instantaneous queue/breaker state. Lock order honored: ``self._lock`` is released
-        before any state's cond is taken (canonical order is
-        cond→lock)."""
+        """Instantaneous queue/breaker state. Lock order honored:
+        ``self._lock`` is released before any state's cond is taken
+        (canonical order is cond→lock)."""
         with self._lock:
             states = list(self._states.values())
             out: Dict[str, Any] = {
@@ -1500,75 +1482,63 @@ def execute(model: Any, array: Any, *, batch_size: int = 64,
 
     EngineConfig.validate()  # read-time knob validation (clear ValueError)
     device = resolve_device()
-    if device.type != "cuda":
-        return _execute(model, array, device, batch_size, retry_policy,
-                        prefetch, coalesce, priority, deadline, tenant,
-                        coalesce_window_ms)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    # the current device is per thread: pin this call's on its thread (a
-    # partition thread), so the model, its graphs, the staging ring and
-    # the coalescer all see one device
-    with torch.cuda.device(device):
-        return _execute(model, array, device, batch_size, retry_policy,
-                        prefetch, coalesce, priority, deadline, tenant,
-                        coalesce_window_ms)
-
-
-def _execute(model: Any, array: Any, device: torch.device, batch_size: int,
-             retry_policy: Optional[resilience.RetryPolicy], prefetch: int,
-             coalesce: Optional[bool], priority: Optional[str],
-             deadline: Optional[resilience.Deadline], tenant: Optional[str],
-             coalesce_window_ms: Optional[float]) -> np.ndarray:
-    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
-
-    array = model.stage_inputs(array)
-    if telemetry.active() is not None:
-        # bytes as staged by the HOST: raw uint8 pixels on the image path
-        telemetry.count(telemetry.M_STAGED_BYTES, int(array.nbytes))
-    if EngineConfig.inference_precision != "float32":
-        model = model.with_dtype(EngineConfig.inference_precision)
-    planner = batching.default_planner(getattr(model, "name", "model"),
-                                       batch_size)
-    if coalesce is None:
-        coalesce = EngineConfig.coalesce
-    cap = batch_size
-    if EngineConfig.coalesce_max_rows is not None:
-        cap = min(cap, int(EngineConfig.coalesce_max_rows))
-    rows = array.shape[0]
-    if not coalesce or rows == 0 or rows > cap:
-        # nothing to coalesce (empty partitions hit the memoized empty
-        # template) / already a full bucket or more: chunked path
-        return model.apply_batch(array, batch_size=batch_size,
-                                 device=device, retry_policy=retry_policy,
-                                 prefetch=prefetch, planner=planner)
-    window_ms = (coalesce_window_ms if coalesce_window_ms is not None
-                 else EngineConfig.coalesce_window_ms)
-    window_s = None if window_ms is None else max(0.0, window_ms / 1e3)
-    policy = (retry_policy if retry_policy is not None
-              else resilience.DEFAULT_INFERENCE_POLICY)
-    if (EngineConfig.executor_max_queued_requests is None
-            and EngineConfig.executor_max_queued_rows is None
-            and EngineConfig.executor_breaker_threshold <= 0):
-        overload = _NO_OVERLOAD  # defaults: no per-call allocation
-    else:
-        overload = OverloadPolicy(
-            max_queued_requests=EngineConfig.executor_max_queued_requests,
-            max_queued_rows=EngineConfig.executor_max_queued_rows,
-            shed=EngineConfig.executor_overload_mode == "shed",
-            breaker_threshold=EngineConfig.executor_breaker_threshold,
-            breaker_window_s=EngineConfig.executor_breaker_window_s,
-            breaker_cooldown_s=EngineConfig.executor_breaker_cooldown_s)
-    if priority is None:
-        priority = EngineConfig.executor_default_priority
-    if deadline is None:
-        deadline = current_deadline()
-    if tenant is None:
-        tenant = current_tenant()
+    pinned = contextlib.nullcontext()
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        # the current device is per thread: pin this call's on its thread
+        # (a partition thread), so the model, its graphs, the staging ring
+        # and the coalescer all see one device
+        pinned = torch.cuda.device(device)
+    with pinned:
+        array = model.stage_inputs(array)
+        if telemetry.active() is not None:
+            # bytes as staged by the HOST: raw uint8 pixels on the image path
+            telemetry.count(telemetry.M_STAGED_BYTES, int(array.nbytes))
+        if EngineConfig.inference_precision != "float32":
+            model = model.with_dtype(EngineConfig.inference_precision)
+        planner = batching.default_planner(getattr(model, "name", "model"),
+                                           batch_size)
+        if coalesce is None:
+            coalesce = EngineConfig.coalesce
+        cap = batch_size
+        if EngineConfig.coalesce_max_rows is not None:
+            cap = min(cap, int(EngineConfig.coalesce_max_rows))
+        rows = array.shape[0]
+        if not coalesce or rows == 0 or rows > cap:
+            # nothing to coalesce (empty partitions hit the memoized empty
+            # template) / already a full bucket or more: chunked path
+            return model.apply_batch(array, batch_size=batch_size,
+                                     device=device, retry_policy=retry_policy,
+                                     prefetch=prefetch, planner=planner)
+        window_ms = (coalesce_window_ms if coalesce_window_ms is not None
+                     else EngineConfig.coalesce_window_ms)
+        window_s = None if window_ms is None else max(0.0, window_ms / 1e3)
+        policy = (retry_policy if retry_policy is not None
+                  else resilience.DEFAULT_INFERENCE_POLICY)
+        if (EngineConfig.executor_max_queued_requests is None
+                and EngineConfig.executor_max_queued_rows is None
+                and EngineConfig.executor_breaker_threshold <= 0):
+            overload = _NO_OVERLOAD  # defaults: no per-call allocation
+        else:
+            overload = OverloadPolicy(
+                max_queued_requests=EngineConfig.executor_max_queued_requests,
+                max_queued_rows=EngineConfig.executor_max_queued_rows,
+                shed=EngineConfig.executor_overload_mode == "shed",
+                breaker_threshold=EngineConfig.executor_breaker_threshold,
+                breaker_window_s=EngineConfig.executor_breaker_window_s,
+                breaker_cooldown_s=EngineConfig.executor_breaker_cooldown_s)
+        if priority is None:
+            priority = EngineConfig.executor_default_priority
+        if deadline is None:
+            deadline = current_deadline()
         if tenant is None:
-            tenant = EngineConfig.executor_default_tenant
-    return _service.submit(model, array, rows, batch_size, device, policy,
-                           window_s, cap, prefetch, priority=priority,
-                           deadline=deadline, tenant=tenant,
-                           tenant_weights=EngineConfig.executor_tenant_weights,
-                           overload=overload, planner=planner)
+            tenant = current_tenant()
+            if tenant is None:
+                tenant = EngineConfig.executor_default_tenant
+        return _service.submit(model, array, rows, batch_size, device, policy,
+                               window_s, cap, prefetch, priority=priority,
+                               deadline=deadline, tenant=tenant,
+                               tenant_weights=(
+                                   EngineConfig.executor_tenant_weights),
+                               overload=overload, planner=planner)

@@ -478,12 +478,12 @@ class Compiled:
         """Settle, warm up and capture one key, holding
         ``kernels.device_gate`` exclusively (no other capture, audition
         or replay runs meanwhile) and ``kernels.weights_lock`` (no other
-        thread swaps the weights for meta tensors meanwhile). The graph's launches are those its own
-        thread's wrappers recorded (``kernels.recording_launches``) and
-        its pool bytes those its own pool grew by. A capture that fails
-        (an allocation that does not fit among them) stores nothing: the
-        capture is ended, its tensors released, and an out-of-memory
-        error reaches the caller as such."""
+        thread swaps the weights for meta tensors meanwhile). The graph's
+        launches are those its own thread's wrappers recorded
+        (``kernels.recording_launches``) and its pool bytes those its own
+        pool grew by. A capture that fails (an allocation that does not
+        fit) stores nothing: the capture is ended, its tensors released,
+        and an out-of-memory error reaches the caller as such."""
         with profiling.annotate(telemetry.SPAN_COMPILE,
                                 model=self.model.name,
                                 shapes=repr(key[:2])), \

@@ -58,9 +58,8 @@ def test_featurize_on_cpu_loads_no_jax(tmp_path):
         "rng = np.random.default_rng(0)\n"
         "imgs = [rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)\n"
         "        for _ in range(3)]\n"
-        "df = s.DataFrame.fromColumns(\n"
-        "    {'image': imageIO.imageArraysToStructColumn(imgs, list('abc'))},\n"
-        "    numPartitions=3)\n"
+        "col = imageIO.imageArraysToStructColumn(imgs, list('abc'))\n"
+        "df = s.DataFrame.fromColumns({'image': col}, numPartitions=3)\n"
         "for name, dim in (('Xception', 2048), ('InceptionV3', 2048),\n"
         "                  ('TestNet', 16)):\n"
         "    with health.HealthMonitor() as mon:\n"

@@ -160,7 +160,7 @@ def test_run_all_matches_reference(quarantine):
         assert ours[0] == ("TaskFailure", resilience.FATAL, 1)
 
 
-# -- the port's engine ---------------------------------------------------------
+# -- the port's engine -------------------------------------------------------
 
 
 def make_df(n=12, parts=4):
