@@ -439,9 +439,12 @@ class Compiled:
         return dict(self._graphs)
 
     def drop(self) -> None:
-        """Forget every captured graph (the weights moved)."""
-        with self._lock:
-            self._graphs.clear()
+        """Forget every captured graph (the weights moved). Takes no lock:
+        :meth:`ModelFunction.to` calls it under ``kernels.weights_lock``,
+        which a capture takes after this program's lock, so taking that
+        lock here would invert the order. One rebinding swaps the table;
+        a replay holding a graph of the old one finishes with it."""
+        self._graphs = {}
 
     def __call__(self, chunk: torch.Tensor,
                  n_valid: Optional[int] = None) -> torch.Tensor:

@@ -12,8 +12,7 @@ plain version at its path's shapes, CUDA-event ms and, from
 ``torch.profiler``, device ms: a kernel of a few µs is hidden by its
 host launch in event ms) and the probe script's ``main()`` (the three
 probes and their yardsticks, µs per application chained in CUDA
-graphs). Turns in this order put a drift of the card's clocks on both
-checkouts alike. Prints one JSON row per (kernel, shape, dtype, relu,
+graphs). Prints one JSON row per (kernel, shape, dtype, relu,
 body) with the four times of each kind, in turn order (None in the
 turns of a checkout without that row); needs the card.
 """
@@ -25,7 +24,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 #: run in the checkout's root, which comes first on sys.path
 _CHILD = """
@@ -54,17 +53,33 @@ print(json.dumps({"phase": "probe_main", "us_per_app": {
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def run_turn(checkout: Path) -> Dict[str, Dict[str, float]]:
-    """The kernel times of one checkout: ``{row key: {"ms": event ms,
-    "device_ms": device ms}}`` (the probes' µs per application chained
-    in CUDA graphs, under "ms")."""
-    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=checkout,
+def run_child(checkout: Path, code: str) -> str:
+    """Run ``code`` in a child Python in ``checkout`` (its root comes
+    first on ``sys.path``); returns the child's standard output."""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=checkout,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"
                            + proc.stderr[-3000:])
+    return proc.stdout
+
+
+def in_turns(other: Path, code: str) -> List[Tuple[str, str]]:
+    """``code`` run in the order OTHER, this, this, OTHER, a child process
+    per turn: ``(turn label, the child's standard output)`` in that
+    order. Turns in this order put a drift of the card's clocks on both
+    checkouts alike."""
+    turns = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    return [(label, run_child(path, code)) for label, path in turns]
+
+
+def kernel_times(stdout: str) -> Dict[str, Dict[str, float]]:
+    """The kernel times of one turn: ``{row key: {"ms": event ms,
+    "device_ms": device ms}}`` (the probes' µs per application chained
+    in CUDA graphs, under "ms")."""
     times = {}
-    for line in proc.stdout.splitlines():
+    for line in stdout.splitlines():
         if not line.startswith("{"):
             continue
         row = json.loads(line)
@@ -80,9 +95,8 @@ def run_turn(checkout: Path) -> Dict[str, Dict[str, float]]:
 
 
 def main(other: Path) -> List[dict]:
-    turns = [("other", other), ("this", ROOT), ("this", ROOT),
-             ("other", other)]
-    results = [run_turn(path) for _, path in turns]
+    turns = in_turns(other, _CHILD)
+    results = [kernel_times(stdout) for _, stdout in turns]
     rows = []
     # rows of either checkout, the other's first (a row only one has
     # shows None in the other's turns)

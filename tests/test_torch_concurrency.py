@@ -212,6 +212,36 @@ def test_first_move_of_a_model_happens_once():
     assert mf.variables.weight.device.type == "meta"
 
 
+def test_a_move_completes_while_a_capture_holds_its_program():
+    """A capture holds its program's lock and then takes
+    ``kernels.weights_lock``; a move of the same weights holds
+    ``weights_lock`` and drops the program's graphs. The move must not
+    wait for the program's lock, or the two threads deadlock: here one
+    thread holds the program's lock, as a capture does, until the move
+    has finished, then takes ``weights_lock``."""
+    mf = ModelFunction(lambda vs, x: vs(x), torch.nn.Linear(4, 3),
+                       TensorSpec((None, 4)))
+    program = mf.jitted("cpu")
+    program._graphs[("stale",)] = object()
+    holding, moved = threading.Event(), threading.Event()
+
+    def work(i):
+        if i == 0:  # the capture
+            with program._lock:
+                holding.set()
+                assert moved.wait(JOIN_S), "the move waited for the capture"
+                with kernels.weights_lock:
+                    pass
+        else:  # the move
+            assert holding.wait(JOIN_S)
+            mf.to("meta")
+            moved.set()
+
+    _run_threads(work, n=2)
+    assert program.graphs == {}
+    assert mf.variables.weight.device.type == "meta"
+
+
 def test_threads_apply_two_programs_on_the_cpu_as_one_thread_does():
     """The same 2 programs applied from 8 threads at once give each
     thread the single-threaded outputs bit for bit."""
