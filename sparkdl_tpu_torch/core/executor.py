@@ -1189,7 +1189,15 @@ class DeviceExecutor:
         per shape), and rows only concatenate within a shape. A group of
         one is handed back to run inline on its requester's thread;
         larger groups concatenate into one padded launch whose outputs
-        are sliced back per request ON THE DEVICE."""
+        are sliced back per request ON THE DEVICE. A handed-back request
+        gets the replay sentinel, so the REQUESTER'S thread runs the
+        model's own chunked path in `_await` (its classified retry and
+        OOM re-chunk apply unchanged), and the requests of a split window
+        replay concurrently on their own pool threads instead of
+        serializing through the coalescer. Every future is delivered
+        after the window's launch time is recorded: a requester that
+        tears its telemetry scope down the moment its result arrives
+        still finds it."""
         t0 = time.monotonic()
         now = t0
         for r in batch:
@@ -1207,6 +1215,7 @@ class DeviceExecutor:
         for r in batch:
             groups.setdefault(batching.element_signature(r.tree),
                               []).append(r)
+        results: List[Tuple[_Request, Any]] = []
         for signature, group in groups.items():
             rows = sum(r.rows for r in group)
             telemetry.observe(telemetry.M_COALESCE_REQUESTS, len(group),
@@ -1214,20 +1223,14 @@ class DeviceExecutor:
             telemetry.observe(telemetry.M_COALESCE_ROWS, rows,
                               bounds=telemetry.POW2_BOUNDS)
             if len(group) == 1:
-                self._hand_back(group[0])
+                results.append((group[0], _REPLAY_INLINE))
             else:
-                self._run_coalesced(state, group, rows, signature)
+                results.extend(self._run_coalesced(state, group, rows,
+                                                   signature))
         telemetry.observe(telemetry.M_LAUNCH_S, time.monotonic() - t0)
-
-    @staticmethod
-    def _hand_back(r: _Request) -> None:
-        """Per-request sub-launch: deliver the replay sentinel so the
-        REQUESTER'S thread runs the model's own chunked path in `_await`
-        (its classified retry and OOM re-chunk apply unchanged).
-        Requests of a split window replay concurrently on their own pool
-        threads instead of serializing through the coalescer."""
-        if not r.future.done():
-            r.future.set_result(_REPLAY_INLINE)
+        for r, result in results:
+            if not r.future.done():
+                r.future.set_result(result)
 
     def _stage(self, state: _FnState, batch: List[_Request], bucket: int,
                signature: Tuple) -> Tuple[Optional[int], Any, torch.Tensor]:
@@ -1252,7 +1255,12 @@ class DeviceExecutor:
         return slot, ring, chunk
 
     def _run_coalesced(self, state: _FnState, batch: List[_Request],
-                       total_rows: int, signature: Tuple) -> None:
+                       total_rows: int, signature: Tuple
+                       ) -> List[Tuple[_Request, Any]]:
+        """One padded launch of ``batch``'s rows; returns each request's
+        result for `_launch` to deliver: its rows sliced on the device
+        and the event recorded after them, or, when the launch failed,
+        the replay sentinel."""
         failure: Optional[Exception] = None
         slices: List[torch.Tensor] = []
         done: Any = None
@@ -1273,8 +1281,9 @@ class DeviceExecutor:
                 bucket = batching.bucket_size(total_rows, state.cap)
             # the HEAD request's policy decides whether a transient
             # counts as a retry for accounting; the actual retries run
-            # per request under each request's OWN policy (the hand-back
-            # below) — never as a backoff sleep on the coalescer thread
+            # per request under each request's OWN policy (the replay
+            # sentinel returned below) — never as a backoff sleep on the
+            # coalescer thread
             policy = batch[0].policy
             try:
                 resilience.inject("device_oom", rows=bucket,
@@ -1321,12 +1330,8 @@ class DeviceExecutor:
                 "coalesced launch of %d request(s) failed (%s: %s); "
                 "splitting back to per-request sub-launches",
                 len(batch), type(failure).__name__, failure)
-            for r in batch:
-                self._hand_back(r)
-            return
-        for r, sliced in zip(batch, slices):
-            if not r.future.done():
-                r.future.set_result((sliced, done))
+            return [(r, _REPLAY_INLINE) for r in batch]
+        return [(r, (sliced, done)) for r, sliced in zip(batch, slices)]
 
     # -- introspection -------------------------------------------------------
 

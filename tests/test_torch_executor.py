@@ -204,6 +204,41 @@ def test_a_coalesced_window_is_one_forward_of_the_padded_bucket():
         np.testing.assert_array_equal(outcome[i], _apply(mf, x))
 
 
+def test_a_window_records_its_launch_time_before_delivering(monkeypatch):
+    """The coalescer records a window's launch time before it delivers
+    any of the window's results, so a requester that tears its telemetry
+    scope down as soon as its rows arrive still finds the launch: while
+    the launch time is recorded, no queued requester may have returned."""
+    mf = _model(sleep_s=0.1)
+    EngineConfig.coalesce_window_ms = 200.0
+    returned = threading.Event()
+    returned_before_record = []
+    observe = telemetry.observe
+
+    def observing(name, *args, **kwargs):
+        if name == telemetry.M_LAUNCH_S:
+            returned_before_record.append(returned.wait(0.3))
+        return observe(name, *args, **kwargs)
+
+    monkeypatch.setattr(telemetry, "observe", observing)
+    inputs = [_rows(3, seed=i) for i in range(2)]
+    outcome = {}
+
+    def run(name, x):
+        outcome[name] = executor.execute(mf, x, batch_size=32)
+        if name != "busy":
+            returned.set()
+
+    with Telemetry() as tel:
+        busy = _start(run, "busy", _rows(2, seed=9))
+        time.sleep(0.03)
+        _join(busy, *[_start(run, i, x) for i, x in enumerate(inputs)])
+    assert returned_before_record and not any(returned_before_record)
+    assert _histograms(tel)[telemetry.M_LAUNCH_S]["count"] >= 1
+    for i, x in enumerate(inputs):
+        np.testing.assert_array_equal(outcome[i], _apply(mf, x))
+
+
 def test_hedged_duplicate_dedups_before_coalescing():
     mf = _model(sleep_s=0.15)
     EngineConfig.coalesce_window_ms = 250.0
