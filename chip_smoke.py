@@ -150,6 +150,33 @@ each replayed on its own partition thread), and makes one real
 allocation fail (32 TiB): ``classify`` must call it OOM, and a graph's
 replay after it must equal the one before.
 
+int8 weight-only quantization (``EngineConfig.inference_precision =
+"int8"``: per-channel int8 weights dequantized to bf16 inside each
+graph) runs as four more phases, each over the weights of a bf16 phase
+of the same model: ``featurize_native_int8`` (Xception, 299×299,
+``"force"``: the network in bf16, ``sep2d``'s tensor-core body 34 times
+a forward), ``featurize_resized_int8`` (256×256: ``preproc_resize`` once
+a forward, then the network in float32 with the bf16-dequantized
+weights, ``sep2d``'s ``simt_f32`` 34 times a forward),
+``featurize_native_int8_autotune`` (``"autotune"`` with a fresh store:
+int8 stays kernel-routable, so its bf16 sites are auditioned) and
+``vgg16_native_int8`` (fc2). Each ``*_weights`` line gives the model's
+``weight_bytes`` in float32, bf16 and int8 (int8 at most 0.27 of
+float32), and the graph pool MiB, images/s and error against the CPU
+run beside those of the bf16 phase.
+
+Streaming consumption of ``featurize_partitioned``'s frame follows:
+``featurize_streamed`` loops over ``streamPartitions(prefetch=2)``, then
+``prefetch=7``, each after a warm-up loop: images/s, forwards, the peak
+of partitions started and not yet yielded (at most prefetch + 1), queue
+wait p50/p99, every row against the CPU run of the partitioned phase and
+the two runs against each other. ``stream_early_break`` leaves the loop
+after two partitions: at most 2 + prefetch + 1 partitions' op chains may
+have run (``partitions_started``, the health counters), and the pool's
+``sparkdl-part`` threads are as many as before.
+
+The line ``{"phase": "total", ...}`` gives the script's seconds so far.
+
 ``--profile`` adds device times from ``torch.profiler`` beside each event
 time, and one profiled pass per phase: device time by kernel, the device
 time of each of the port's kernels by body, and the device's idle share
@@ -161,6 +188,8 @@ summary and the card's ``name, power.limit``; the last line is the
 no result line). Exits 2 when CUDA is not available.
 """
 
+import concurrent.futures
+import functools
 import json
 import os
 import subprocess
@@ -200,7 +229,14 @@ COUNTER_OF_SITE = {"sep2d": "sep2d", "pw1x1": "pw1x1", "pw1x1_relu": "pw1x1",
                    "preproc": "preproc_resize"}
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line gets ``t_s``, the script's seconds
+    when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -298,9 +334,10 @@ def sass_hgmma(name) -> int:
     return sum(sass_hgmma_by_function(name).values())
 
 
+@functools.lru_cache(maxsize=None)
 def sass_hgmma_by_function(name) -> dict:
     """HGMMA instructions by kernel (mangled name) in the SASS of the
-    library built from ``csrc/<name>.cu``."""
+    library built from ``csrc/<name>.cu`` (disassembled once)."""
     import shutil
 
     from sparkdl_tpu_torch.core import cuda_build
@@ -801,17 +838,17 @@ def model_state(s, feat):
             for k, v in model_function(s, feat).variables.state_dict().items()}
 
 
-def executed_model(s, feat, size):
+def executed_model(s, feat, size, precision=None):
     """The model the executor ran: flattened, resized to the model's own
-    input size if needed, in the configured precision (each wrapper is
-    memoized, so these are the same objects, holding the same captured
-    graphs)."""
+    input size if needed, in ``precision`` (None: the configured one;
+    each wrapper is memoized, so these are the same objects, holding the
+    same captured graphs)."""
     mf = model_function(s, feat)
     target = mf.input_spec.spatial_size()
     run = mf.flattened()
     if tuple(size) != target:
         run = run.resized(size, target)
-    return run.with_dtype(s.EngineConfig.inference_precision)
+    return run.with_dtype(precision or s.EngineConfig.inference_precision)
 
 
 def autotune_expectation(s, kernels, feat, size, dev):
@@ -1020,8 +1057,15 @@ def executor_metrics(tel):
     return out
 
 
+#: each main-path phase's transformer, by phase: a later phase over the
+#: same model (the int8 phases) reuses it, and with it the model's
+#: float32 weights
+FEATURIZERS = {}
+
+
 def main_path(s, kernels, name, model, size, per_forward, rel_tol,
-              mode="force", precision="bfloat16", n_images=N_IMAGES):
+              mode="force", precision="bfloat16", n_images=N_IMAGES,
+              feat=None):
     """Featurize ``n_images`` seeded images of ``size`` on the card under
     the kernel gate's ``mode`` and ``EngineConfig.inference_precision``
     (one warm-up pass, which captures a CUDA graph per bucket rung, then
@@ -1035,7 +1079,8 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     predictions: their TOP_K probabilities, and their classes against the
     CPU run's). The line carries the counted pass's phase timers, staging
     streams and health counters, and the graphs' forward rate in TFLOP/s
-    where the spec has the model's FLOPs per image."""
+    where the spec has the model's FLOPs per image. ``feat``: the
+    transformer of an earlier phase over the same model, reused."""
     from sparkdl_tpu_torch.core import health, profiling, telemetry
     from sparkdl_tpu_torch.models import registry
 
@@ -1046,7 +1091,11 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
               for _ in range(n_images)]
     s.EngineConfig.device = "cuda"
     s.EngineConfig.pallas_kernels = mode
-    feat, df = featurize(s, model, images, "random", BATCH)
+    if feat is None:
+        feat, df = featurize(s, model, images, "random", BATCH)
+    else:
+        df = featurize(s, model, images, "random", BATCH)[1]
+    FEATURIZERS[name] = feat
     # warm-up (builds, allocator, cuDNN plans; under "autotune", the
     # auditions of every site at its first sight; a graph per rung)
     profiling.reset_phase_stats()
@@ -1081,12 +1130,12 @@ def main_path(s, kernels, name, model, size, per_forward, rel_tol,
     by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
     for kernel, bodies in by_body.items():
         assert sum(bodies.values()) == counts[kernel], (name, by_body)
-        # the network's dtype: bf16 when built so, or under the bf16
-        # precision when no resize brings it back to float32 (ROADMAP
+        # the network's dtype: bf16 when built so, or under the bf16 or
+        # int8 precision when no resize brings it back to float32 (ROADMAP
         # Queue 3)
         if kernel not in ("sep2d", "pw1x1"):
             continue
-        if model[1] == "module_bf16" or (precision == "bfloat16"
+        if model[1] == "module_bf16" or (precision in ("bfloat16", "int8")
                                          and tuple(size) == spec.input_size):
             assert bodies["wgmma"] == counts[kernel], \
                 f"{name}: bf16 {kernel} launches off the tensor-core " \
@@ -1253,6 +1302,45 @@ def resnet_fast_vs_module(dev, n_images=4 * BATCH, repeats=5):
     return out
 
 
+# int8 weight-only quantization under "force": (phase, (model, path),
+# source size, launches per forward, tolerance, the bf16 phase whose
+# transformer, and so whose float32 weights, it reuses). Without a resize
+# the network runs in bf16 (sep2d's tensor-core body); behind the resize
+# in float32 with the bf16-dequantized weights (simt_f32), as the
+# reference's flow does (ROADMAP Queue 3).
+INT8_PHASES = [
+    ("featurize_native_int8", ("Xception", "named"), TARGET, {"sep2d": 34},
+     BF16_REL, "featurize_native"),
+    ("featurize_resized_int8", ("Xception", "named"), (256, 256),
+     {"sep2d": 34, "preproc_resize": 1}, F32_REL, "featurize_resized"),
+    ("vgg16_native_int8", ("VGG16", "named"), (224, 224), {}, BF16_REL,
+     "vgg16_native"),
+]
+#: int8 holds a model's weights in at most this share of float32's bytes
+INT8_WEIGHT_SHARE = 0.27
+
+
+def int8_weights(s, phases, name, size, against):
+    """``weight_bytes`` of the int8 phase's model in each precision, the
+    graph pool MiB and images/s beside those of the bf16 phase
+    ``against`` over the same weights; int8 must hold at most
+    INT8_WEIGHT_SHARE of float32's bytes."""
+    feat = FEATURIZERS[name]
+    held = {p: (model_function(s, feat) if p == "float32"
+                else executed_model(s, feat, size, p)).weight_bytes()
+            for p in ("float32", "bfloat16", "int8")}
+    share = held["int8"] / held["float32"]
+    out = {"phase": f"{name}_weights", "weight_bytes": held,
+           "int8_over_float32": share, "against": against}
+    for key in ("graph_pool_mib", "images_per_s",
+                "graph_forward_images_per_s", "max_abs_err_vs_cpu"):
+        out[key] = {name: phases[name][key], against: phases[against][key]}
+    emit(out)
+    assert share <= INT8_WEIGHT_SHARE, \
+        f"{name}: int8 holds {share:.3f} of float32's weight bytes"
+    return out
+
+
 #: the partitioned frames: images, partitions, partition threads
 PART_IMAGES = 64
 PARTITIONS = 16
@@ -1409,7 +1497,168 @@ def partitioned_path(s, kernels, name, model, size, per_forward, rel_tol,
                     "graph_forward_images_per_s": rates["graph"],
                     "coalesced_vs_uncoalesced": between})
         emit(out)
-    return coalesced, plain, df, feat
+    return coalesced, plain, df, feat, cpu
+
+
+#: the prefetch of each streamed run, and the partitions a loop takes
+#: before it breaks
+STREAM_PREFETCH = (2, 7)
+STREAM_BREAK_AFTER = 2
+
+
+class InFlight:
+    """Partitions started and not yet yielded: ``start`` runs first in
+    each partition's op chain (it adds a column), the consumer calls
+    ``took`` for each partition it gets."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.started = self.yielded = self.peak = 0
+
+    def start(self, batch):
+        with self.lock:
+            self.started += 1
+            self.peak = max(self.peak, self.started - self.yielded)
+        return np.zeros(batch.num_rows, np.int8)
+
+    def took(self):
+        with self.lock:
+            self.yielded += 1
+
+
+def part_threads() -> int:
+    import threading
+
+    return sum(t.name.startswith("sparkdl-part")
+               for t in threading.enumerate())
+
+
+def stream_pass(s, kernels, label, feat, df, compiled, prefetch,
+                per_forward, break_after=None):
+    """One loop over ``feat.transform(df).streamPartitions(prefetch)``
+    on the card, left after ``break_after`` partitions if given: the
+    features it took, and its line's numbers. Launches must be
+    per-forward × forwards, every bf16 launch on the tensor-core body,
+    the executor must end empty and no task may fail."""
+    from sparkdl_tpu_torch.core import executor, health, profiling, \
+        telemetry
+
+    tracker = InFlight()
+    out = feat.transform(df.withColumnBatch("started", tracker.start))
+    kernels.reset_launches()
+    profiling.reset_phase_stats()
+    replays = compiled.replays
+    taken = []
+    with health.HealthMonitor(label) as monitor, \
+            telemetry.Telemetry(label) as tel:
+        t0 = time.perf_counter()
+        stream = out.streamPartitions(prefetch=prefetch)
+        for part in stream:
+            tracker.took()
+            taken.append(np.asarray(part.column("features"), np.float32))
+            if len(taken) == break_after:
+                break
+        stream.close()  # an abandoned stream: cancel, then drain
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
+    stats = profiling.phase_stats()
+    captures = stats.get("sparkdl.compile", {"count": 0})["count"]
+    forwards = compiled.replays - replays
+    expected = {k: per_forward.get(k, 0) * (forwards + captures)
+                for k in counts}
+    assert counts == expected, \
+        f"{label}: launches {counts} != per-forward × forwards {expected}"
+    assert by_body["sep2d"]["wgmma"] == counts["sep2d"], by_body
+    assert monitor.count(health.TASK_FAILED) == 0, monitor.counters()
+    status = executor.status()
+    assert status["queued_requests"] == 0 and status["inflight"] == 0, \
+        f"{label}: requests left in the executor: {status}"
+    rows = sum(len(t) for t in taken)
+    return np.concatenate(taken), {
+        "phase": label, "prefetch": prefetch, "seconds": seconds,
+        "images_per_s": rows / seconds, "rows": rows,
+        "partitions_taken": len(taken), "forwards": forwards,
+        "captures_in_pass": captures,
+        "partitions_started": tracker.started,
+        "peak_in_flight": tracker.peak, "launches": counts,
+        "launches_by_body": by_body, "executor": executor_metrics(tel),
+        "health": monitor.counters(),
+        "host_ms": host_ms(stats, seconds, workers=WORKERS)}
+
+
+def streamed_path(s, kernels, feat, df, cpu, rel_tol):
+    """``featurize_partitioned``'s frame (Xception, 64 299×299 images in
+    16 partitions of 4, "force", bf16, WORKERS partition threads)
+    consumed by a loop over ``streamPartitions``, once at each prefetch
+    of STREAM_PREFETCH after a warm-up loop: images/s, forwards, the
+    peak of partitions started and not yet yielded (at most prefetch +
+    1), queue wait p50/p99; every row against ``cpu`` (the port's CPU run
+    of the same weights on the same images) and the runs against each
+    other. Then ``stream_early_break``: a loop that breaks after
+    STREAM_BREAK_AFTER partitions must have started at most
+    STREAM_BREAK_AFTER + prefetch + 1 partitions' op chains, and leaves
+    the pool's threads as it found them."""
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.max_workers = WORKERS
+    s.EngineConfig.coalesce = True
+    compiled = executed_model(s, feat, TARGET).jitted(torch.device("cuda"))
+    per_forward = {"sep2d": 34}
+    limit = rel_tol * float(np.max(np.abs(cpu)))
+    runs = {}
+    for prefetch in STREAM_PREFETCH:
+        t0 = time.perf_counter()
+        stream_pass(s, kernels, "warmup", feat, df, compiled, prefetch,
+                    per_forward)
+        warmup_s = time.perf_counter() - t0
+        label = "featurize_streamed"
+        if prefetch != STREAM_PREFETCH[0]:
+            label += f"_prefetch{prefetch}"
+        gpu, out = stream_pass(s, kernels, label, feat, df, compiled,
+                               prefetch, per_forward)
+        assert gpu.shape == cpu.shape and np.isfinite(gpu).all()
+        assert out["peak_in_flight"] <= prefetch + 1, out
+        per_row = np.max(np.abs(gpu - cpu), axis=1)
+        err = float(per_row.max())
+        assert err <= limit, f"{label}: row {int(per_row.argmax())} " \
+            f"differs from the CPU run by {err} > {limit}"
+        out.update({"images": PART_IMAGES, "partitions": PARTITIONS,
+                    "workers": WORKERS, "warmup_s": warmup_s,
+                    "max_abs_err_vs_cpu": err, "rows_vs_cpu": len(per_row),
+                    "tolerance": limit})
+        runs[prefetch] = (gpu, out)
+    (a, first), (b, second) = (runs[p] for p in STREAM_PREFETCH)
+    between = {"torch_equal": bool(np.array_equal(a, b)),
+               "max_abs_diff": float(np.max(np.abs(a - b)))}
+    assert between["max_abs_diff"] <= limit, between
+    for _, out in runs.values():
+        out["prefetch_runs_against_each_other"] = between
+        emit(out)
+
+    threads_before = part_threads()
+    prefetch = STREAM_PREFETCH[0]
+    taken, out = stream_pass(s, kernels, "stream_early_break", feat, df,
+                             compiled, prefetch, per_forward,
+                             break_after=STREAM_BREAK_AFTER)
+    bound = STREAM_BREAK_AFTER + prefetch + 1
+    out.update({"partitions": PARTITIONS, "bound": bound,
+                "partitions_never_started": PARTITIONS
+                - out["partitions_started"],
+                "part_threads_before": threads_before,
+                "part_threads_after": part_threads()})
+    emit(out)
+    assert out["partitions_taken"] == STREAM_BREAK_AFTER, out
+    assert out["partitions_started"] <= bound, out
+    assert out["health"].get("task_started", 0) \
+        == out["partitions_started"], out  # health.TASK_STARTED
+    assert out["part_threads_after"] == threads_before, out
+    assert np.max(np.abs(taken - cpu[:len(taken)])) <= limit
+    return first, second, out
 
 
 def oom_rechunk(s, kernels, part_frame):
@@ -1543,6 +1792,10 @@ AUTOTUNE_PHASES = [
     # kernel-routable, so its bf16 sites are auditioned as the reference's
     ("featurize_module_bf16_autotune", ("Xception", "module_bf16"), TARGET,
      BF16_REL, "float32"),
+    # int8 keeps the model kernel-routable, as the reference's does: its
+    # bf16 sites are auditioned
+    ("featurize_native_int8_autotune", ("Xception", "named"), TARGET,
+     BF16_REL, "int8"),
 ]
 
 
@@ -1574,7 +1827,8 @@ def main() -> int:
     ptxas = [line.strip() for n in per_source
              for line in cuda_build.build_log(n).splitlines()
              if "registers" in line or "spill" in line]
-    hgmma = {n: sass_hgmma(n) for n in per_source}
+    with concurrent.futures.ThreadPoolExecutor(len(per_source)) as pool:
+        hgmma = dict(zip(per_source, pool.map(sass_hgmma, per_source)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "sass_hgmma": hgmma, "ptxas": ptxas})
     assert hgmma["sep2d"] > 0 and hgmma["pw1x1"] > 0, \
@@ -1667,20 +1921,33 @@ def main() -> int:
                   {}, BF16_REL, n_images=BATCH)
     resnet_fast_vs_module(dev)
 
+    # int8 weight-only quantization over the bf16 phases' weights
+    for name, model, size, per_forward, tol, against in INT8_PHASES:
+        phases[name] = main_path(s, kernels, name, model, size, per_forward,
+                                 tol, precision="int8",
+                                 feat=FEATURIZERS[against])
+        int8_weights(s, phases, name, size, against)
+
     # partition-parallel featurize: each frame coalesced and not, then
     # the resilience paths
     part_frame = None
     for (name, model, size, per_forward, tol, mode,
          precision) in PARTITIONED_PHASES:
-        coalesced, plain, df, feat = partitioned_path(
+        coalesced, plain, df, feat, cpu = partitioned_path(
             s, kernels, name, model, size, per_forward, tol, mode,
             precision)
         phases[name] = coalesced
         phases[f"{name}_uncoalesced"] = plain
         if name == "featurize_partitioned":
             part_frame = (feat, df)
+            part_cpu = cpu
+    # the same frame streamed, at two prefetches, then left early
+    (phases["featurize_streamed"], phases["featurize_streamed_prefetch7"],
+     phases["stream_early_break"]) = streamed_path(
+        s, kernels, *part_frame, part_cpu, BF16_REL)
     phases["oom_rechunk"] = oom_rechunk(s, kernels, part_frame)
     s.EngineConfig.inference_precision = "bfloat16"
+    emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 
     def summary(name, source, replaces, rows, headline, by_phase=None,
                 on_path=True):

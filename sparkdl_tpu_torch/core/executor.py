@@ -1454,6 +1454,17 @@ def _fetch(out: torch.Tensor, done: Any) -> np.ndarray:
     return out.cpu().numpy()
 
 
+def _payload_bytes(obj: Any) -> int:
+    """The bytes of every array leaf of ``obj`` (an array, or a tuple,
+    list or dict of them): the reference's count, summed over the leaves
+    of its payload; a leaf without ``nbytes`` counts 0."""
+    if isinstance(obj, dict):
+        return sum(_payload_bytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_payload_bytes(v) for v in obj)
+    return int(getattr(obj, "nbytes", 0) or 0)
+
+
 def execute(model: Any, array: Any, *, batch_size: int = 64,
             retry_policy: Optional[resilience.RetryPolicy] = None,
             prefetch: int = 2, coalesce: Optional[bool] = None,
@@ -1495,11 +1506,14 @@ def execute(model: Any, array: Any, *, batch_size: int = 64,
         # (a partition thread), so the model, its graphs, the staging ring
         # and the coalescer all see one device
         pinned = torch.cuda.device(device)
+    if telemetry.active() is not None:
+        # the input as the caller gave it, before any staging cast: raw
+        # uint8 pixels on the image path, as the reference counts
+        payload = _payload_bytes(array)
+        if payload:
+            telemetry.count(telemetry.M_STAGED_BYTES, payload)
     with pinned:
         array = model.stage_inputs(array)
-        if telemetry.active() is not None:
-            # bytes as staged by the HOST: raw uint8 pixels on the image path
-            telemetry.count(telemetry.M_STAGED_BYTES, int(array.nbytes))
         if EngineConfig.inference_precision != "float32":
             model = model.with_dtype(EngineConfig.inference_precision)
         planner = batching.default_planner(getattr(model, "name", "model"),

@@ -42,9 +42,162 @@ class TensorSpec:
         return None
 
 
-#: Inference precisions :meth:`ModelFunction.with_dtype` accepts (int8
-#: post-training quantization is not ported yet).
-PRECISIONS = ("float32", "bfloat16")
+#: Inference precisions :meth:`ModelFunction.with_dtype` accepts, the
+#: vocabulary ``EngineConfig.inference_precision`` validates.
+PRECISIONS = ("float32", "bfloat16", "int8")
+
+# Marker keys of a quantized leaf of a plain variables tree (a tensor, or
+# dicts, lists and tuples of tensors, as ``fromFunction`` takes them): a
+# {_Q8_WEIGHTS: int8 tensor, _Q8_SCALE: float32 per-channel scales} dict
+# stands in for the float leaf, the reference's markers.
+_Q8_WEIGHTS = "__sparkdl_q8_weights__"
+_Q8_SCALE = "__sparkdl_q8_scale__"
+
+
+def _is_q8_leaf(x) -> bool:
+    return isinstance(x, dict) and _Q8_WEIGHTS in x
+
+
+def _channel_shape(ndim: int, axis: int) -> List[int]:
+    shape = [1] * ndim
+    shape[axis] = -1
+    return shape
+
+
+def _quantize(w: torch.Tensor, axis: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel int8 of ``w`` along ``axis`` (the output
+    channel's), in the reference's float32 arithmetic, bit for bit:
+    ``scale = max|w| / 127`` over every other axis (a zero scale becomes
+    1), ``q = clip(rint(w / scale), -127, 127)``."""
+    w = w.detach().float()
+    axis %= w.dim()
+    scale = w.abs().amax(dim=[d for d in range(w.dim()) if d != axis])
+    scale = scale / 127.0
+    scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    q = torch.round(w / scale.reshape(_channel_shape(w.dim(), axis)))
+    return q.clamp_(-127, 127).to(torch.int8), scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    """``q · scale`` in bf16, as the reference's ``_dequantize_tree``: one
+    elementwise product of the int8 ``q`` (promoted to bf16, exactly) and
+    the bf16 scales, so a weight's dequantization reads its int8 once and
+    writes one bf16 copy."""
+    shape = _channel_shape(q.dim(), axis)
+    return q * scale.to(torch.bfloat16).reshape(shape)
+
+
+def _map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of nested dicts, lists and tuples, a
+    quantized leaf taken as one leaf."""
+    if isinstance(tree, dict) and not _is_q8_leaf(tree):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a plain tree, a quantized leaf's two tensors among
+    them."""
+    if _is_q8_leaf(tree):
+        return list(tree.values())
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def _quantize_tree(variables: Any) -> Any:
+    """The reference's rule, literally: every float tensor with ndim ≥ 2
+    becomes a quantized leaf per its last axis; every other leaf stays as
+    it is."""
+    def quant(a):
+        if not (isinstance(a, torch.Tensor) and a.is_floating_point()
+                and a.dim() >= 2):
+            return a
+        q, scale = _quantize(a, -1)
+        return {_Q8_WEIGHTS: q, _Q8_SCALE: scale}
+
+    return _map_tree(quant, variables)
+
+
+def _dequantize_tree(variables: Any) -> Any:
+    """In-forward dequantization of a plain tree: each quantized leaf to
+    bf16 (:func:`_dequantize`), each other float tensor cast to bf16, as
+    the reference's ``_dequantize_tree``. A module is returned as it is:
+    its layers dequantize each weight when they read it
+    (:func:`_quantized_module`)."""
+    if isinstance(variables, torch.nn.Module):
+        return variables
+
+    def deq(a):
+        if _is_q8_leaf(a):
+            return _dequantize(a[_Q8_WEIGHTS], a[_Q8_SCALE], -1)
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a.to(torch.bfloat16)
+        return a
+
+    return _map_tree(deq, variables)
+
+
+class _DequantizedWeight:
+    """Mixin of a quantized layer: ``weight`` is read as the bf16
+    dequantization of the int8 buffer ``weight_q8`` by its float32
+    per-output-channel ``weight_q8_scale``, computed anew at each read.
+    The layer reads it just before it uses it, so a forward (and a graph
+    captured over it) keeps one layer's bf16 weight alive at a time, and
+    no bf16 copy of the weights stays resident."""
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return _dequantize(self.weight_q8, self.weight_q8_scale, 0)
+
+
+_INT8_CLASSES: Dict[type, type] = {}
+
+
+def _int8_class(cls: type) -> type:
+    """``cls`` with :class:`_DequantizedWeight`'s ``weight``: one subclass
+    per layer class."""
+    return _INT8_CLASSES.setdefault(
+        cls, type(f"Int8{cls.__name__}", (_DequantizedWeight, cls), {}))
+
+
+def _kernel_layers(module: torch.nn.Module) -> List[torch.nn.Module]:
+    """The layers holding a Flax ``kernel``: what ``models/convert.py``
+    makes from a ``kernel`` leaf is the parameter ``weight`` of a conv or
+    dense layer, of ndim ≥ 2 (a BN's ``weight``, from ``scale``, is 1-D).
+    Buffers are never kernels."""
+    return [m for m in module.modules()
+            if isinstance(m._parameters.get("weight"), torch.Tensor)
+            and m._parameters["weight"].is_floating_point()
+            and m._parameters["weight"].dim() >= 2]
+
+
+def _quantized_module(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module`` holding each kernel as int8 per torch axis 0
+    (Flax's last axis after the layout change: OIHW's O, a depthwise
+    ``(C, 1, 3, 3)``'s C, a dense ``(out, in)``'s out) with its float32
+    scales, and every other float tensor in bf16. The float kernels are
+    not copied: the copy shares them only until they are quantized."""
+    layers = _kernel_layers(module)
+    memo = {id(m._parameters["weight"]): m._parameters["weight"]
+            for m in layers}
+    out = copy.deepcopy(module, memo)
+    quantized = []
+    for layer in _kernel_layers(out):
+        q, scale = _quantize(layer._parameters.pop("weight"), 0)
+        quantized.append((layer, q, scale))
+    out.to(torch.bfloat16)  # no shared kernel is left to cast in place
+    for layer, q, scale in quantized:
+        layer.register_buffer("weight_q8", q)
+        layer.register_buffer("weight_q8_scale", scale)
+        layer.__class__ = _int8_class(type(layer))
+    return out
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -156,7 +309,10 @@ class ModelFunction:
     def with_dtype(self, precision: str) -> "ModelFunction":
         """The precision knob (``EngineConfig.inference_precision`` applies
         it at the executor). ``"float32"`` returns ``self``; ``"bfloat16"``
-        is :meth:`with_compute_dtype`. Memoized per precision."""
+        is :meth:`with_compute_dtype`; ``"int8"`` is weight-only
+        post-training quantization (:meth:`_quantized_int8`). Memoized
+        per precision, built once across threads: the coalescing
+        executor keys its queues on the variant."""
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {precision!r}")
@@ -165,9 +321,47 @@ class ModelFunction:
         with self._memo_lock:
             out = self._precision_cache.get(precision)
             if out is None:
-                out = self.with_compute_dtype(precision)
+                out = (self._quantized_int8() if precision == "int8"
+                       else self.with_compute_dtype(precision))
                 self._precision_cache[precision] = out
         return out
+
+    def _quantized_int8(self) -> "ModelFunction":
+        """Weight-only post-training quantization, the reference's:
+        symmetric per-channel int8 weights, dequantized to bf16 inside the
+        forward (so inside a captured graph), bf16 activations, float32
+        outputs. A module's kernels are quantized per output channel
+        (:func:`_quantized_module`), a plain tree's float tensors of
+        ndim ≥ 2 per their last axis (:func:`_quantize_tree`). The
+        variant keeps :attr:`kernel_routable`, as the reference's does
+        (unlike bf16's :meth:`with_compute_dtype`), so under
+        ``"autotune"`` its sites are collected and auditioned. The
+        reference's ``trainable_mask`` is dropped with it: quantized
+        weights are for inference only."""
+        apply_fn = self.apply_fn
+        if isinstance(self.variables, torch.nn.Module):
+            variables = _quantized_module(self.variables)
+        else:
+            variables = _quantize_tree(self.variables)
+
+        def fn(vs, x):
+            return apply_fn(_dequantize_tree(vs),
+                            x.to(torch.bfloat16)).float()
+
+        out = ModelFunction(fn, variables, self.input_spec, name=self.name)
+        out.kernel_routable = self.kernel_routable
+        return out
+
+    def weight_bytes(self) -> int:
+        """Bytes of every tensor the model holds: a module's parameters
+        and buffers, a plain tree's leaves (a quantized leaf counts its
+        int8 payload plus its scales) — the reference's residency count."""
+        if isinstance(self.variables, torch.nn.Module):
+            leaves = itertools.chain(self.variables.parameters(),
+                                     self.variables.buffers())
+        else:
+            leaves = _tree_leaves(self.variables)
+        return sum(int(getattr(t, "nbytes", 0) or 0) for t in leaves)
 
     def flattened(self) -> "ModelFunction":
         """Outputs flattened to (batch, -1) — the ``buildFlattener`` analog.

@@ -14,8 +14,11 @@ quarantine are the reference's, with its knobs. Each task enters the
 card through ``core.executor.execute``, where concurrent partitions of
 one model coalesce into one launch. A materialization started from a
 partition thread runs inline, as in the reference, since waiting on the
-pool from one of its own threads could deadlock. Durability, the
-cluster dispatch and ``streamPartitions`` are not ported yet.
+pool from one of its own threads could deadlock. ``streamPartitions``
+yields the partitions one at a time from the same pool, with at most
+``prefetch + 1`` started and not yet yielded (the supervisor's streaming
+mode).
+Durability and the cluster dispatch are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import concurrent.futures as _futures
 import os
 import threading
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -109,7 +112,8 @@ class EngineConfig:
     fault_injector: Optional[Callable[[int, int], None]] = None
 
     # Precision the executor applies to every model
-    # (ModelFunction.with_dtype): "bfloat16" (the default) or "float32".
+    # (ModelFunction.with_dtype): "bfloat16" (the default), "float32" or
+    # "int8" (weight-only post-training quantization, bf16 compute).
     inference_precision: str = "bfloat16"
     # Ship raw uint8 at source size and resize on the device
     # (ModelFunction.resized, the preproc_resize kernel). False is not
@@ -134,7 +138,7 @@ class EngineConfig:
     # graph); "pow2" keeps the blind power-of-two ladder everywhere.
     bucket_ladder: str = "tuned"
 
-    _PRECISIONS = ("float32", "bfloat16")
+    _PRECISIONS = ("float32", "bfloat16", "int8")
     _KERNEL_MODES = ("off", "autotune", "force")
     _LADDERS = ("tuned", "pow2")
 
@@ -493,6 +497,89 @@ class DataFrame:
 
     def count(self) -> int:
         return sum(b.num_rows for b in self._materialize())
+
+    def isEmpty(self) -> bool:
+        return self.count() == 0
+
+    def cache(self) -> "DataFrame":
+        """Materialize now and keep the partitions (frames derived from
+        this one start from them)."""
+        self._materialize()
+        return self
+
+    def foreachPartition(self, fn: Callable[[Batch], None]) -> None:
+        for batch in self._materialize():
+            fn(batch)
+
+    def partitionsIter(self) -> Iterator[Batch]:
+        """Iterate the materialized partitions (streaming consumption
+        order)."""
+        yield from self._materialize()
+
+    def streamPartitions(self, prefetch: int = 2,
+                         order: Optional[Sequence[int]] = None,
+                         process_id: Optional[int] = None,
+                         num_processes: Optional[int] = None
+                         ) -> Iterator[Batch]:
+        """Compute and yield partitions one at a time WITHOUT caching.
+
+        At most ``prefetch + 1`` partitions are started and not yet
+        yielded: each runs its op chain as a supervised task on the shared
+        ``sparkdl-part`` pool (``PartitionSupervisor.run_stream``: the
+        classified retry, the deadline watchdog, hedging and quarantine of
+        ``_materialize``), and their forwards meet in the coalescing
+        executor. Results come in visit order. Breaking out of the loop
+        (or an error) cancels the partitions not yet started and waits
+        for the running ones. Iterating again recomputes the op chain
+        (``cache()`` first trades memory for computing once). A
+        materialized frame yields its cached partitions, a frame without
+        ops its source partitions; a stream started from a partition
+        thread runs inline, as ``_materialize`` does.
+
+        ``order``: visit the partitions in this index order.
+        ``process_id``/``num_processes``: restrict this process to its
+        round-robin share of the visit order (positions ``p, p+n,
+        p+2n, …``); every process must pass the same ``order``.
+
+        Not ported yet: the reference's durable branch (a journal of the
+        stream's partitions, ``core/durability.py``) and its cluster
+        dispatch of partitions to workers.
+        """
+        indices = list(order) if order is not None else list(range(
+            len(self._partitions)))
+        if num_processes is not None and num_processes > 1:
+            if process_id is None or not 0 <= process_id < num_processes:
+                raise ValueError(
+                    f"process_id must be in [0, {num_processes}), got "
+                    f"{process_id}")
+            indices = indices[process_id::num_processes]
+        with self._lock:
+            materialized = self._materialized
+        if materialized is not None:
+            for i in indices:
+                yield materialized[i]
+            return
+        if not self._ops:
+            for i in indices:
+                yield self._partitions[i]
+            return
+        parts, ops = self._partitions, self._ops
+        if threading.current_thread().name.startswith(_POOL_PREFIX):
+            # nested streaming from inside a partition task: run inline,
+            # as _materialize does
+            for i in indices:
+                yield _run_partition(i, parts[i], ops)
+            return
+        sup = _sup.PartitionSupervisor(
+            _executor(), _supervisor_config(),
+            quarantine_probe=self._quarantine_probe)
+
+        def runners():
+            for i in indices:
+                yield i, (lambda cancel, i=i: _run_partition(
+                    i, parts[i], ops, cancel))
+
+        yield from sup.run_stream(runners(), prefetch=prefetch)
 
     # -- transformations (lazy) ----------------------------------------------
 

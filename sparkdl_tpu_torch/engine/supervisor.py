@@ -28,9 +28,10 @@ The watchdog cannot interrupt the thread it abandons, here as in the
 reference: a task abandoned while it holds a ``Compiled`` lock
 (``core/model_function.py``) or waits in a CUDA synchronize keeps
 holding it until the op returns, and the next caller of that program
-waits for it. Only the barrier mode is ported (``DataFrame._materialize``);
-the reference's streaming mode serves ``streamPartitions``, which is not
-ported yet.
+waits for it. Both of the reference's modes are ported: the barrier
+(:meth:`PartitionSupervisor.run_all`, ``DataFrame._materialize``) and the
+stream (:meth:`PartitionSupervisor.run_stream`,
+``DataFrame.streamPartitions``).
 
 Everything reports into :mod:`sparkdl_tpu_torch.core.health`.
 """
@@ -42,8 +43,10 @@ import itertools
 import logging
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 from sparkdl_tpu_torch.core import executor as _executor
 from sparkdl_tpu_torch.core import health, resilience, telemetry
@@ -375,7 +378,7 @@ class _Task:
 
 
 class PartitionSupervisor:
-    """Supervises a set of partition tasks on the shared pool.
+    """Supervises a set (or stream) of partition tasks on the shared pool.
 
     ``quarantine_probe(partition_index)`` builds the zero-row stand-in for
     a quarantined partition (the op chain run on an empty slice — keeps
@@ -423,6 +426,59 @@ class PartitionSupervisor:
                     include_lingering=any(t.error is not None
                                           for t in tasks))
         return [self._terminal(t) for t in tasks]
+
+    # -- streaming mode (streamPartitions) -----------------------------------
+
+    def run_stream(self, indexed_runners:
+                   Iterable[Tuple[int, Callable[[threading.Event], Any]]],
+                   prefetch: int) -> Iterator[Any]:
+        """Yield task results in input order, with at most ``prefetch +
+        1`` tasks started and not yet yielded: a yielded task's
+        replacement starts when the next result is asked for (the
+        reference starts it just before the yield, so for that moment
+        ``prefetch + 2`` are). Abandoned iteration (early break / error)
+        CANCELS unstarted attempts — an early ``break`` must not silently
+        compute the rest of the stream — then waits out attempts already
+        running user ops (the barrier ``run_all`` keeps), skipping
+        watchdog-failed tasks whose threads may be wedged."""
+        it = iter(indexed_runners)
+        window: "deque[_Task]" = deque()
+        outstanding: Dict[_futures.Future, _Task] = {}
+        launched = 0
+        exhausted = False
+
+        def refill() -> None:
+            nonlocal launched, exhausted
+            while not exhausted and len(window) <= prefetch:
+                try:
+                    index, runner = next(it)
+                except StopIteration:
+                    exhausted = True
+                    return
+                task = _Task(index, runner, self._pool.submit)
+                launched += 1
+                outstanding[task.launch()] = task
+                window.append(task)
+
+        clean = False
+        try:
+            refill()
+            while window:
+                head = window[0]
+                while not head.done:
+                    self._tick(outstanding, list(window),
+                               launched if exhausted else launched + 1)
+                window.popleft()
+                yield self._terminal(head)
+                refill()
+            clean = True
+        finally:
+            # Anything but clean exhaustion (a task failure, abandoned
+            # iteration, an error unwind) gets the full barrier,
+            # including remembered hedge losers. A clean run leaves
+            # losers (if any) to finish their discarded pure ops in the
+            # background.
+            self._drain(outstanding, include_lingering=not clean)
 
     # -- the supervision tick ------------------------------------------------
 

@@ -59,10 +59,14 @@ class Conv2d(nn.Module):
             torch.empty(cout, cin // groups, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        y = conv2d_nhwc(x.to(dtype), self.weight.to(dtype), self.stride,
-                        self.padding, self.groups)
+    def forward(self, x: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight``: this layer's weight as its caller already read it
+        (an int8 model's layer dequantizes at each read)."""
+        w = self.weight if weight is None else weight
+        dtype = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        y = conv2d_nhwc(x.to(dtype), w.to(dtype), self.stride, self.padding,
+                        self.groups)
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
@@ -189,13 +193,15 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(features, scale=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fused = self._fused(x)
+        weight = self.conv.weight  # one read: an int8 layer dequantizes
+        fused = self._fused(x, weight)
         if fused is not None:
             return fused
-        y = self.bn(self.conv(x))
+        y = self.bn(self.conv(x, weight))
         return torch.relu(y) if self.act else y
 
-    def _fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+    def _fused(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None
+               ) -> Optional[torch.Tensor]:
         if self.training or self.kernel_family is None:
             return None
         if (self.strides != (1, 1) or self.kernel != (1, 1)
@@ -204,8 +210,9 @@ class ConvBN(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         return kernels.route_pw1x1(
-            x, self.conv.weight, self.bn.weight, self.bn.bias,
-            self.bn.running_mean, self.bn.running_var, self.bn.eps,
+            x, self.conv.weight if weight is None else weight,
+            self.bn.weight, self.bn.bias, self.bn.running_mean,
+            self.bn.running_var, self.bn.eps,
             relu=self.act, family=self.kernel_family)
 
 
@@ -233,12 +240,15 @@ class SeparableConvBN(nn.Module):
         self.bn = BatchNorm(features, bn_eps, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fused = self._fused(x)
+        # one read each: an int8 layer dequantizes at each read
+        dw, pw = self.depthwise.weight, self.pointwise.weight
+        fused = self._fused(x, dw, pw)
         if fused is not None:
             return fused
-        return self.bn(self.pointwise(self.depthwise(x)))
+        return self.bn(self.pointwise(self.depthwise(x, dw), pw))
 
-    def _fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+    def _fused(self, x: torch.Tensor, dw: Optional[torch.Tensor] = None,
+               pw: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
         if self.training or self.kernel_family is None:
             return None
         if self.strides != (1, 1) or self.kernel != (3, 3):
@@ -246,7 +256,8 @@ class SeparableConvBN(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         return kernels.route_sep2d(
-            x, self.depthwise.weight, self.pointwise.weight, self.bn.weight,
+            x, self.depthwise.weight if dw is None else dw,
+            self.pointwise.weight if pw is None else pw, self.bn.weight,
             self.bn.bias, self.bn.running_mean, self.bn.running_var,
             self.bn.eps, family=self.kernel_family)
 
@@ -263,9 +274,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype))
+        w = self.weight  # one read: an int8 layer dequantizes at each read
+        dtype = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        return F.linear(x.to(dtype), w.to(dtype), self.bias.to(dtype))
 
 
 def classifier_head(x: torch.Tensor, dense: Dense,

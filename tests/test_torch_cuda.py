@@ -452,7 +452,7 @@ def _graph_case(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["sep2d", "pw1x1", "preproc_resize"])
-@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16", "int8"])
 def test_graph_replay_equals_eager(card, force_routes, name, precision):
     """A fresh model captured at a new shape: each replay gives
     ``torch.equal`` results to the eager forward of the same chunk, and
@@ -483,6 +483,47 @@ def test_graph_replay_equals_eager(card, force_routes, name, precision):
     assert first.shape == eager.shape
     for out in [first] + again:
         assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", [(75, 75), (64, 64)])
+def test_int8_replay_reads_each_forwards_weights(card, force_routes, src):
+    """Under int8 each route sees the weight its forward dequantized: a
+    replay after the int8 weights change in place equals the eager
+    forward of the new weights (the graph reads the int8 buffers, and no
+    weight layout made at capture), the float32 body's layout cache
+    (``kernels._kn_weights``) gains no entry, and the graph holds no
+    reference to a weight outside its pool. At 75×75 the network runs in
+    bf16 (tensor-core body); behind the 64→75 resize in float32 with the
+    dequantized bf16 weights (``simt_f32``)."""
+    mf, _, per = _graph_case("sep2d")
+    if src != (75, 75):
+        mf = mf.resized(src, (75, 75))
+    run = mf.with_dtype("int8")
+    run.to(card)
+    compiled = run.jitted(card)
+    x = np.random.default_rng(9).integers(0, 256, (2, *src, 3), np.uint8)
+    chunk = torch.from_numpy(x).pin_memory()
+    layouts = len(kernels._kn_weights)
+    body = "wgmma" if src == (75, 75) else "simt_f32"
+    before = kernels.launches_by_body["sep2d"][body]
+    with torch.inference_mode():
+        first = compiled(chunk, 2)
+        torch.cuda.synchronize()
+    assert kernels.launches_by_body["sep2d"][body] == before + 2 * per[
+        "sep2d"]
+    unit = run.variables.get_submodule("block5_sepconv1").pointwise
+    unit.weight_q8.neg_()  # in place: the graph reads the same address
+    with torch.inference_mode():
+        again = compiled(chunk, 2)
+        eager = run(chunk.to(card).to(torch.float32))[:2]
+        torch.cuda.synchronize()
+    assert not torch.equal(first, again)
+    assert torch.equal(again, eager)
+    assert len(kernels._kn_weights) == layouts
+    (graph,) = compiled.graphs.values()
+    # what it holds are the resize's tables, none a (dequantized) weight
+    assert not [t for t in graph.held if t.dtype == torch.bfloat16]
 
 
 @pytest.mark.cuda

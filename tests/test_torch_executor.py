@@ -133,6 +133,52 @@ def _histograms(tel):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("case", ["float64_rows", "uint8_images"])
+def test_staged_bytes_count_the_input_as_given(case):
+    """``sparkdl.executor.staged_bytes`` counts the input as the caller
+    gave it, before the staging cast, as the reference's ``execute``
+    does: a float64 batch fed to a float32 model counts 8 bytes an
+    element in both packages (not the 4 of its staged copy); a uint8
+    image batch counts its raw pixels."""
+    import jax.numpy as jnp
+
+    from sparkdl_tpu.core import executor as jax_executor
+    from sparkdl_tpu.core import telemetry as jax_telemetry
+    from sparkdl_tpu.core.model_function import (
+        ModelFunction as JaxModelFunction, TensorSpec as JaxTensorSpec,
+    )
+    from sparkdl_tpu.engine.dataframe import EngineConfig as JaxEngineConfig
+
+    if case == "float64_rows":
+        x = _rows(9).astype(np.float64)
+        w = np.random.default_rng(0).normal(size=(6, 3)).astype(np.float32)
+        ours = _model()
+        ref = JaxModelFunction(lambda vs, a: jnp.tanh(a @ vs), w,
+                               JaxTensorSpec((None, 6)), name="exec_model")
+    else:
+        x = np.random.default_rng(2).integers(0, 256, (5, 4, 4, 3),
+                                              dtype=np.uint8)
+        ours = ModelFunction(lambda vs, a: a.reshape(a.shape[0], -1),
+                             None, TensorSpec((None, 4, 4, 3)), name="flat")
+        ref = JaxModelFunction(lambda vs, a: a.reshape(a.shape[0], -1),
+                               None, JaxTensorSpec((None, 4, 4, 3)),
+                               name="flat")
+    with Telemetry() as tel:
+        executor.execute(ours, x, batch_size=16)
+    saved = JaxEngineConfig.snapshot()
+    JaxEngineConfig.inference_precision = "float32"
+    try:
+        with jax_telemetry.Telemetry() as jax_tel:
+            jax_executor.execute(ref, x, batch_size=16)
+    finally:
+        jax_executor.reset()
+        JaxEngineConfig.restore(saved)
+    counted = tel.metrics.snapshot()["counters"][telemetry.M_STAGED_BYTES]
+    want = jax_tel.metrics.snapshot()["counters"][
+        jax_telemetry.M_STAGED_BYTES]
+    assert counted == want == x.nbytes
+
+
 def test_solo_request_takes_inline_path_and_matches_apply_batch():
     mf = _model()
     x = _rows(5)
