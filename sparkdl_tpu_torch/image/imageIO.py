@@ -19,7 +19,17 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from sparkdl_tpu_torch.core import health, profiling
+from sparkdl_tpu_torch.core import health, profiling, resilience
+
+
+def _injected_decode_error(**ctx) -> bool:
+    """The ``decode_error`` behavioral point, recorded in the health
+    monitor (one DECODE_DEGRADED per degraded row, so a run's report
+    shows how many rows the data plane dropped to null)."""
+    if resilience.should_fire("decode_error", **ctx):
+        health.record(health.DECODE_DEGRADED, injected=True)
+        return True
+    return False
 
 imageFields: List[str] = ["origin", "height", "width", "nChannels", "mode",
                           "data"]
@@ -210,6 +220,8 @@ def _stage_structs(structs, target_size, dtype, channels, tolerant: bool
     dropped = 0
     for i, s in enumerate(structs):
         try:
+            if tolerant and resilience.should_fire("decode_error"):
+                raise ValueError("injected decode_error")
             arr = imageStructToArray(s)
             if (target_size is not None
                     and arr.shape[:2] != tuple(target_size)):
@@ -217,7 +229,7 @@ def _stage_structs(structs, target_size, dtype, channels, tolerant: bool
             arrays.append(arr if dtype is None
                           else np.asarray(arr, dtype=dtype))
             kept.append(i)
-        except (ValueError, KeyError, TypeError):
+        except Exception:  # noqa: BLE001 - per-row degradation
             if not tolerant:
                 raise
             dropped += 1
@@ -298,6 +310,8 @@ def _pil_decode(data: bytes) -> Optional[np.ndarray]:
 def decodeImageBytes(data: bytes) -> Optional[np.ndarray]:
     """Decode compressed image bytes → HWC uint8 array (None on failure).
     The source's channel count is kept (grayscale stays 1-channel)."""
+    if _injected_decode_error():
+        return None
     arr = _pil_decode(data)
     if arr is None:
         health.record(health.DECODE_DEGRADED, stage="bytes")
