@@ -1,18 +1,29 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its native
+host library.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, loaded with
-``ctypes``. Builds happen at first use, into ``build/sparkdl_tpu_torch/``
-beside the package, keyed by a hash of the sources (and the shared
-headers), so a fresh checkout builds everything it runs and a changed
-source rebuilds. :func:`build_all` starts one ``nvcc`` per source, all
-at once. Nothing here runs at import time: the CPU tests import every
-module of the port on a machine without ``nvcc``.
+``ctypes``. The host image loader (``native/image_loader.cc``, library
+name ``image_loader``) compiles the same way with ``g++`` against
+libjpeg and libpng, with the JAX package's flags (``-march=native``, so
+its float resize rounds as that package's build does on the same host);
+its key holds what ``-march=native`` means on the building host, so a
+library copied to another host is not loaded there. Builds happen at
+first use, into
+``build/sparkdl_tpu_torch/`` beside the package, keyed by a hash of the
+sources (and the shared headers) and the flags, so a fresh checkout
+builds everything it runs and a changed source rebuilds; each build
+writes a file of its own and renames it into place, so processes that
+build the same library at once do not collide. :func:`build_all` starts
+one compiler per source, all at once. Nothing here runs at import time:
+the CPU tests import every module of the port on a machine without
+``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,6 +39,12 @@ KERNEL_SOURCES = ("sep2d", "preproc_resize", "pw1x1", "probes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
+#: host libraries built with g++: name -> (source, link flags)
+HOST_SOURCES = {
+    "image_loader": (Path(__file__).resolve().parent.parent / "native"
+                     / "image_loader.cc", ["-ljpeg", "-lpng", "-lpthread"]),
+}
+GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -47,25 +64,61 @@ def _nvcc() -> str:
         "the CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the port's native host library "
+                           "builds on a machine with a C++ compiler")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def _native_arch() -> str:
+    """The machine flags ``-march=native`` expands to on this host, as
+    g++ reports them: the host's part of a host library's key."""
+    out = subprocess.run([_gxx(), "-march=native", "-E", "-v", "-x", "c++",
+                          os.devnull], capture_output=True, text=True,
+                         timeout=120)
+    line = next((ln for ln in out.stderr.splitlines()
+                 if "-march=" in ln and "cc1" in ln), "")
+    return " ".join(t for t in line.split() if t.startswith("-m"))
+
+
+def _sources_and_flags(name: str):
+    if name in HOST_SOURCES:
+        source, libs = HOST_SOURCES[name]
+        return [source], GXX_FLAGS + libs + [_native_arch()]
+    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")), NVCC_FLAGS
+
+
 def _library_path(name: str) -> Path:
+    sources, flags = _sources_and_flags(name)
     digest = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for path in sources:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: Path) -> list:
+    if name in HOST_SOURCES:
+        source, libs = HOST_SOURCES[name]
+        return [_gxx(), *GXX_FLAGS, str(source), "-o", str(out), *libs]
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
 def _start(name: str):
-    """Start nvcc for one source; None when its library is already built."""
+    """Start the compiler for one source; None when its library is
+    already built."""
     target = _library_path(name)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
     log = target.with_suffix(".log")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = _command(name, tmp)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
     return proc, tmp, target, log, time.perf_counter()
@@ -77,7 +130,7 @@ def _finish(name: str, started) -> None:
     log.write_bytes(out)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+            f"building {name} failed (exit {proc.returncode}):\n"
             + out.decode(errors="replace")[-4000:])
     os.replace(tmp, target)
     build_seconds[name] = time.perf_counter() - t0
@@ -97,8 +150,8 @@ def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, float]:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lies (built or
-    not)."""
+    """Where the library built from ``csrc/<name>.cu`` (or the host
+    source named ``name``) lies, built or not."""
     return _library_path(name)
 
 
@@ -110,7 +163,8 @@ def build_log(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu`` (or the host source
+    named ``name``), building it if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

@@ -20,9 +20,14 @@ A port of the core of ``sparkdl_tpu.core.telemetry``, in three parts:
    ``Telemetry(out_dir=...)``), and stamps ``run_id``/``trace_id`` onto
    the package's log records while the scope is active.
 
-The reference's live plane (windowed instruments, the periodic snapshot
-exporter and its SLO watchdog), its cross-process span merge and its
-serving and tenant metric names are not ported yet.
+Spans measured in another process (a decode-pool worker, which has no
+tracer of its own) cross as wire records (:func:`remote_span`, with
+timestamps moved onto the parent's clock by :func:`clock_handshake`)
+and are adopted with :meth:`Tracer.record_remote`; a shipped ring is
+merged with :meth:`Tracer.adopt_remote_spans`. The reference's live
+plane (windowed instruments, the periodic snapshot exporter and its SLO
+watchdog), its ring export and its serving and tenant metric names are
+not ported yet.
 
 A :class:`Telemetry` scope activates process-wide (partition ops may run
 on other threads), nests, and restores the previous scope on exit. With
@@ -60,10 +65,15 @@ SPAN_TASK = "sparkdl.task"                    # one pool attempt (or hedge)
 SPAN_TASK_ATTEMPT = "sparkdl.task_attempt"    # one retry-loop attempt
 SPAN_COMPILE = "sparkdl.compile"              # first launch of a new shape
 SPAN_COALESCED_LAUNCH = "sparkdl.coalesced_launch"  # core/executor.py
+SPAN_DECODE_POOL = "sparkdl.decode_pool"      # one pooled decode fan-out
+                                              # (core/decode_pool.py)
+SPAN_DECODE_CHUNK = "sparkdl.decode_chunk"    # one chunk decoded inside
+                                              # a pool worker process
+                                              # (core/decode_pool.py)
 
 CANONICAL_SPAN_NAMES = frozenset({
     SPAN_RUN, SPAN_MATERIALIZE, SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
-    SPAN_COALESCED_LAUNCH,
+    SPAN_COALESCED_LAUNCH, SPAN_DECODE_POOL, SPAN_DECODE_CHUNK,
     # phase names (core/profiling.py constants + literal call sites)
     "sparkdl.decode", "sparkdl.stage", "sparkdl.stage_batch",
     "sparkdl.host_stage", "sparkdl.host_resize", "sparkdl.host_wait",
@@ -105,6 +115,12 @@ M_EXECUTOR_SHED_RATE = "sparkdl.executor.shed_rate"    # gauge (shed fraction)
 # Bytes handed to the executor per execute() call as staged by the host
 # (raw uint8 pixels on the image path).
 M_STAGED_BYTES = "sparkdl.executor.staged_bytes"       # counter
+# The parallel host decode pool (core/decode_pool.py): chunks in flight,
+# workers holding one, and each blob's decode time in its worker
+# (chunk-amortized).
+M_DECODE_POOL_DEPTH = "sparkdl.decode_pool.queue_depth"    # gauge (chunks)
+M_DECODE_POOL_BUSY = "sparkdl.decode_pool.workers_busy"    # gauge
+M_DECODE_POOL_DECODE_S = "sparkdl.decode_pool.decode_s"    # histogram
 # The kernel gate (core/kernels.py): one histogram observation per
 # audition and one adopted/rejected counter bump per settled verdict.
 M_KERNEL_AUTOTUNE_S = "sparkdl.kernel.autotune_s"      # histogram
@@ -133,6 +149,9 @@ CANONICAL_METRIC_KINDS: Dict[str, str] = {
     M_EXECUTOR_QUEUE_DEPTH: "gauge",
     M_EXECUTOR_SHED_RATE: "gauge",
     M_STAGED_BYTES: "counter",
+    M_DECODE_POOL_DEPTH: "gauge",
+    M_DECODE_POOL_BUSY: "gauge",
+    M_DECODE_POOL_DECODE_S: "histogram",
     M_KERNEL_AUTOTUNE_S: "histogram",
     M_KERNEL_ADOPTED: "counter",
     M_KERNEL_REJECTED: "counter",
@@ -278,6 +297,10 @@ class Tracer:
         self.trace_id = trace_id
         self.max_spans = max_spans
         self.dropped = 0
+        # spans of other processes taken in, and refused for a name
+        # outside CANONICAL_SPAN_NAMES
+        self.remote_adopted = 0
+        self.remote_rejected = 0
         self._lock = threading.Lock()
         self._spans: "deque[Dict[str, Any]]" = deque(maxlen=max_spans)
         self._ids = itertools.count((os.getpid() << 40) | 1)
@@ -319,10 +342,69 @@ class Tracer:
         }
         if span.attributes:
             rec["attributes"] = span.attributes
+        self._append(rec)
+
+    def _append(self, rec: Dict[str, Any], adopted: bool = False) -> None:
         with self._lock:
             if len(self._spans) == self.max_spans:
                 self.dropped += 1
             self._spans.append(rec)
+            self.remote_adopted += adopted
+
+    # -- spans of other processes --------------------------------------------
+
+    def record_remote(self, name: str, parent: Optional[SpanContext],
+                      start_abs_ns: int, end_abs_ns: int, *, pid: int,
+                      process: Optional[str] = None,
+                      **attributes: Any) -> bool:
+        """Adopt ONE span measured in another process from its wire
+        record (:func:`remote_span`): the span id is allocated here (the
+        remote process, a decode-pool worker, has no tracer), and the
+        timestamps arrive on this process's clock already. A name outside
+        :data:`CANONICAL_SPAN_NAMES` is refused and counted, not raised.
+        Returns True when recorded."""
+        if name not in CANONICAL_SPAN_NAMES:
+            with self._lock:
+                self.remote_rejected += 1
+            return False
+        rec: Dict[str, Any] = {
+            "name": name,
+            "trace_id": parent.trace_id if parent else self.trace_id,
+            "span_id": next(self._ids),
+            "parent_id": parent.span_id if parent else None,
+            "thread_id": 0,
+            "thread_name": process or f"pid-{pid}",
+            "start_ns": start_abs_ns - self._t0_ns,
+            "end_ns": end_abs_ns - self._t0_ns,
+            "pid": pid,
+        }
+        if process is not None:
+            rec["process"] = process
+        if attributes:
+            rec["attributes"] = attributes
+        self._append(rec, adopted=True)
+        return True
+
+    def adopt_remote_spans(self, records: Sequence[Dict[str, Any]]
+                           ) -> Tuple[int, int]:
+        """Merge span records shipped from another process, their
+        timestamps on this process's clock (``perf_counter_ns``), into
+        this ring on its epoch, so local and remote spans share one
+        timeline. A record whose name is not canonical is refused and
+        counted; never raises. Returns ``(adopted, rejected)``."""
+        adopted = rejected = 0
+        for s in records:
+            if s.get("name") not in CANONICAL_SPAN_NAMES:
+                rejected += 1
+                continue
+            rec = dict(s)
+            rec["start_ns"] = s["start_ns"] - self._t0_ns
+            rec["end_ns"] = s["end_ns"] - self._t0_ns
+            self._append(rec, adopted=True)
+            adopted += 1
+        with self._lock:
+            self.remote_rejected += rejected
+        return adopted, rejected
 
     # -- querying / export ---------------------------------------------------
 
@@ -351,6 +433,8 @@ class Tracer:
             "trace_id": self.trace_id,
             "spans_recorded": len(spans),
             "spans_dropped": self.dropped,
+            "remote_adopted": self.remote_adopted,
+            "remote_rejected": self.remote_rejected,
             "threads": sorted(t[1] for t in threads),
             "by_name": {k: by_name[k] for k in sorted(by_name)},
         }
@@ -358,12 +442,14 @@ class Tracer:
     def chrome_trace(self) -> Dict[str, Any]:
         """Chrome-trace (Trace Event Format) document: complete ("X")
         events in microseconds on one track per thread, loadable by
-        ``chrome://tracing`` and Perfetto."""
+        ``chrome://tracing`` and Perfetto. Adopted spans keep the pid of
+        the process that measured them."""
         events: List[Dict[str, Any]] = []
-        pid = os.getpid()
-        seen_threads: Dict[int, str] = {}
+        own = os.getpid()
+        seen_threads: Dict[Tuple[int, int], str] = {}
         for s in self.spans():
-            seen_threads.setdefault(s["thread_id"], s["thread_name"])
+            pid = s.get("pid", own)
+            seen_threads.setdefault((pid, s["thread_id"]), s["thread_name"])
             events.append({
                 "name": s["name"], "cat": "sparkdl", "ph": "X",
                 "ts": s["start_ns"] / 1e3,
@@ -374,7 +460,7 @@ class Tracer:
                          "parent_id": s["parent_id"],
                          **s.get("attributes", {})},
             })
-        for tid, tname in seen_threads.items():
+        for (pid, tid), tname in seen_threads.items():
             events.append({"name": "thread_name", "ph": "M", "pid": pid,
                            "tid": tid, "args": {"name": tname}})
         return {"traceEvents": events, "displayTimeUnit": "ms"}
@@ -785,6 +871,50 @@ def observe(name: str, value: float,
     tel = _active
     if tel is not None:
         tel.metrics.histogram(name, bounds).observe(value)
+
+
+def remote_span(name: str, start_abs_ns: int, end_abs_ns: int, *,
+                pid: Optional[int] = None,
+                **attributes: Any) -> Dict[str, Any]:
+    """The wire record of a span measured in a process with no tracer (a
+    decode-pool worker), its timestamps already on the adopting
+    process's clock (the worker's ``perf_counter_ns`` plus the
+    :func:`clock_handshake` offset); :meth:`Tracer.record_remote` turns
+    it into a span. Raises for a name outside
+    :data:`CANONICAL_SPAN_NAMES`, so a worker cannot ship one that the
+    parent would refuse."""
+    if name not in CANONICAL_SPAN_NAMES:
+        raise ValueError(
+            f"remote span name {name!r} is not in CANONICAL_SPAN_NAMES; "
+            "span names crossing a process boundary must be canonical")
+    rec: Dict[str, Any] = {
+        "name": name,
+        "start_ns": int(start_abs_ns),
+        "end_ns": int(end_abs_ns),
+        "pid": pid if pid is not None else os.getpid(),
+    }
+    if attributes:
+        rec["attributes"] = attributes
+    return rec
+
+
+def clock_handshake(conn: Any, timeout_s: float = 5.0) -> int:
+    """The worker's half of one NTP-style round trip over a dedicated
+    pipe: send a ping, read the parent's ``perf_counter_ns`` and return
+    the offset that maps this process's ``perf_counter_ns`` onto the
+    parent's (``parent_ns ≈ local_ns + offset``, transit assumed
+    symmetric). 0 (clocks taken as aligned: on Linux both read the same
+    CLOCK_MONOTONIC) when the parent does not answer."""
+    try:
+        t0 = time.perf_counter_ns()
+        conn.send(("clock", t0))
+        if not conn.poll(timeout_s):
+            return 0
+        t_parent = conn.recv()
+        t1 = time.perf_counter_ns()
+        return int(t_parent) - (t0 + t1) // 2
+    except (EOFError, OSError):
+        return 0
 
 
 class RunReport:

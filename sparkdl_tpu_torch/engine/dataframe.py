@@ -110,14 +110,24 @@ class EngineConfig:
     # simulate a task failure; new code arms the resilience.FaultInjector
     # "engine_task" / "task_stall" points.
     fault_injector: Optional[Callable[[int, int], None]] = None
+    # -- parallel host decode (core/decode_pool.py) ---------------------------
+    # Worker processes of the decode pool. 0 (the default) decodes inline,
+    # bit-identical; N > 0 shares one process-wide pool of N spawned
+    # workers across the ingest paths (readImages, loadImagesInternal).
+    decode_workers: int = 0
+    # Max decode chunks in flight pool-wide (bounds the host memory held
+    # by decoded, unconsumed pixels); None = 2 * decode_workers.
+    decode_pool_inflight: Optional[int] = None
 
     # Precision the executor applies to every model
     # (ModelFunction.with_dtype): "bfloat16" (the default), "float32" or
     # "int8" (weight-only post-training quantization, bf16 compute).
     inference_precision: str = "bfloat16"
     # Ship raw uint8 at source size and resize on the device
-    # (ModelFunction.resized, the preproc_resize kernel). False is not
-    # ported yet (its host-downscale branch needs the native loader).
+    # (ModelFunction.resized, the preproc_resize kernel). False resizes a
+    # downscale on the host (the native loader's sdl_resize_batch, numpy
+    # without it) and ships the smaller batch; an upscale still resizes
+    # on the device.
     fused_preprocess: bool = True
     # Where models run. "cuda" is the default; without a card, transform
     # raises rather than silently running on the CPU. Tests set "cpu".
@@ -241,6 +251,15 @@ class EngineConfig:
         if cls.max_workers < 1:
             raise ValueError("EngineConfig.max_workers must be >= 1, got "
                              f"{cls.max_workers!r}")
+        if cls.decode_workers < 0:
+            raise ValueError(
+                "EngineConfig.decode_workers must be >= 0 (0 disables "
+                f"the decode pool), got {cls.decode_workers!r}")
+        positive("decode_pool_inflight", cls.decode_pool_inflight)
+        if not isinstance(cls.fused_preprocess, bool):
+            raise ValueError(
+                "EngineConfig.fused_preprocess must be a bool, got "
+                f"{cls.fused_preprocess!r}")
         if cls.inference_precision not in cls._PRECISIONS:
             raise ValueError(
                 f"EngineConfig.inference_precision must be one of "

@@ -8,7 +8,17 @@ stores it as a struct of plain arrays (:class:`ImageColumn`): the
 per-row metadata as int32 arrays and, when the column is uniform, the
 pixels as ONE contiguous ``(N, H, W, C)`` block — what
 ``arrowImageBatch`` reads out of the Arrow binary buffer, without
-needing pyarrow. Pillow is imported lazily, only inside the decoders.
+needing pyarrow.
+
+Decoding takes, in order: the multi-process decode pool when
+``EngineConfig.decode_workers > 0`` (``core/decode_pool.py``), the
+native libjpeg/libpng loader (``native/loader.py``, built at first use)
+and Pillow, imported lazily inside the decoders where the loader cannot
+be built or rejects a blob. Fault injection (``decode_error``) and the
+``decode_degraded`` accounting happen in the submitting process on every
+path, so the pool on and off give the same rows and the same events.
+This module imports no torch: the decode pool's worker processes import
+it.
 """
 
 from __future__ import annotations
@@ -290,10 +300,10 @@ def imageStructsToColumn(structs: Sequence[Optional[dict]]) -> ImageColumn:
 
 
 # ---------------------------------------------------------------------------
-# Decode / resize (Pillow, imported lazily)
+# Decode / resize (native fast path, Pillow fallback)
 # ---------------------------------------------------------------------------
 
-def _pil_decode(data: bytes) -> Optional[np.ndarray]:
+def _pil_decode(data: bytes, target_size=None) -> Optional[np.ndarray]:
     from io import BytesIO
 
     from PIL import Image
@@ -302,22 +312,51 @@ def _pil_decode(data: bytes) -> Optional[np.ndarray]:
         img = Image.open(BytesIO(data))
         if img.mode not in ("L", "RGB", "RGBA"):
             img = img.convert("RGB")
-        return np.asarray(img)
+        if target_size is not None:
+            # Pillow's size is (W, H); target_size is (H, W) like the spec
+            img = img.resize((target_size[1], target_size[0]), Image.BILINEAR)
+        arr = np.asarray(img)
     except Exception:  # noqa: BLE001 - a corrupt image becomes a null row
         return None
+    return arr[:, :, None] if arr.ndim == 2 else arr
 
 
-def decodeImageBytes(data: bytes) -> Optional[np.ndarray]:
+def decodeImageBytes(data: bytes, target_size=None,
+                     channels: Optional[int] = None) -> Optional[np.ndarray]:
     """Decode compressed image bytes → HWC uint8 array (None on failure).
-    The source's channel count is kept (grayscale stays 1-channel)."""
+
+    ``channels=None`` keeps the source's channel count (grayscale stays
+    1-channel, like Spark's ImageSchema reader); 3 forces RGB, the
+    model-staging contract, so the per-row path matches the batch
+    decoder's output for the same input."""
+    from sparkdl_tpu_torch.native import loader as native_loader
+
+    if channels is not None:
+        if target_size is not None:
+            # the batch decoder checks decode_error itself: checking here
+            # too would take two occurrences of the fault per decode
+            return decodeImageBytesBatch([data], target_size,
+                                         channels=channels)[0]
+        if _injected_decode_error():
+            return None
+        if native_loader.available():
+            arr = native_loader.decode(data, target_size=None)
+            if arr is not None:
+                return forceChannels(arr, channels)
+        out = _pil_decode_channels(data, None, channels)
+        if out is None:
+            health.record(health.DECODE_DEGRADED, stage="bytes")
+        return out
     if _injected_decode_error():
         return None
-    arr = _pil_decode(data)
-    if arr is None:
+    if native_loader.available():
+        arr = native_loader.decode(data, target_size=target_size)
+        if arr is not None:
+            return arr
+    out = _pil_decode(data, target_size=target_size)
+    if out is None:
         health.record(health.DECODE_DEGRADED, stage="bytes")
-    elif arr.ndim == 2:
-        arr = arr[:, :, None]
-    return arr
+    return out
 
 
 def stripFileScheme(uri: str) -> str:
@@ -327,6 +366,256 @@ def stripFileScheme(uri: str) -> str:
     if uri.startswith("file:"):
         return uri[5:]
     return uri
+
+
+def _read_blobs(uris: Sequence[Optional[str]]) -> List[Optional[bytes]]:
+    """Each URI's file bytes; None for a null URI or a file that cannot
+    be read."""
+    blobs: List[Optional[bytes]] = []
+    for uri in uris:
+        if uri is None:
+            blobs.append(None)
+            continue
+        try:
+            with open(stripFileScheme(uri), "rb") as f:
+                blobs.append(f.read())
+        except OSError:
+            blobs.append(None)
+    return blobs
+
+
+def decodeImageFile(path: str, target_size=None,
+                    channels: Optional[int] = None) -> Optional[np.ndarray]:
+    """Decode an image file URI → HWC uint8 array (None on failure)."""
+    data = _read_blobs([path])[0]
+    if data is None:
+        return None
+    return decodeImageBytes(data, target_size=target_size, channels=channels)
+
+
+def decodeImageBytesBatch(blobs: Sequence[Optional[bytes]],
+                          target_size: Tuple[int, int],
+                          channels: int = 3) -> List[Optional[np.ndarray]]:
+    """Decode a partition's worth of compressed blobs at once.
+
+    Paths, in order: the decode pool when ``EngineConfig.decode_workers
+    > 0`` (the list fans out to worker processes and comes back through
+    shared memory, in order and pixel-identical to the inline path);
+    else ONE call into the threaded native ``sdl_decode_batch`` (the GIL
+    released for the whole batch), with Pillow for the blobs it rejects
+    (or for all, without the library). One HWC uint8 array (or None) per
+    blob, in order. Fault injection and health accounting happen here,
+    in the submitting process, whatever the path."""
+    out: List[Optional[np.ndarray]] = [None] * len(blobs)
+    valid = [i for i, b in enumerate(blobs)
+             if b and not _injected_decode_error()]
+    if not valid:
+        return out
+    picked = [blobs[i] for i in valid]
+    pool = _maybe_decode_pool(len(picked))
+    if pool is not None:
+        decoded = pool.decode(picked, target_size=target_size,
+                              channels=channels)
+    else:
+        decoded = _decodeValidBlobs(picked, target_size, channels)
+    for j, i in enumerate(valid):
+        out[i] = decoded[j]
+    undecodable = sum(1 for i in valid if out[i] is None)
+    if undecodable:
+        # corrupt blobs (the injected ones were counted as they fired)
+        health.record(health.DECODE_DEGRADED, n=undecodable, stage="bytes")
+    return out
+
+
+def _maybe_decode_pool(n_blobs: int):
+    """The process-wide decode pool, or None when it is off or a call
+    is not worth a round trip (one blob: the per-row path stays
+    inline)."""
+    if n_blobs < 2:
+        return None
+    from sparkdl_tpu_torch.core import decode_pool
+
+    return decode_pool.maybe_pool()
+
+
+def _decodeValidBlobs(blobs: Sequence[bytes], target_size: Tuple[int, int],
+                      channels: int) -> List[Optional[np.ndarray]]:
+    """Decode non-null blobs to fixed-geometry HWC uint8, with no fault
+    injection and no health accounting (the caller owns both). The
+    inline path and the decode-pool workers share it, so their pixels
+    cannot drift apart.
+
+    The native batch decoder forces RGB, so it serves ``channels=3``
+    only; Pillow decodes the rest, and the blobs it rejects, reusing one
+    scratch buffer."""
+    from sparkdl_tpu_torch.native import loader as native_loader
+
+    out: List[Optional[np.ndarray]] = [None] * len(blobs)
+    if channels == 3:
+        res = native_loader.decode_batch_status(list(blobs), target_size)
+        if res is not None:
+            batch, ok = res
+            for i in np.nonzero(ok)[0]:
+                out[i] = batch[i]
+    remaining = [i for i in range(len(blobs)) if out[i] is None]
+    if not remaining:
+        return out
+    from io import BytesIO
+
+    from PIL import Image
+
+    mode = _pil_mode(channels)
+    scratch = BytesIO()
+    for i in remaining:
+        scratch.seek(0)
+        scratch.truncate()
+        scratch.write(blobs[i])
+        scratch.seek(0)
+        try:
+            img = Image.open(scratch).convert(mode)
+            if target_size is not None:
+                img = img.resize((target_size[1], target_size[0]),
+                                 Image.BILINEAR)
+            arr = np.asarray(img)
+        except Exception:  # noqa: BLE001 - per-blob degradation to None
+            continue
+        out[i] = arr[:, :, None] if arr.ndim == 2 else arr
+    return out
+
+
+def decodePoolChunk(blobs: Sequence[Optional[bytes]],
+                    target_size: Optional[Tuple[int, int]] = None,
+                    channels: Optional[int] = None
+                    ) -> List[Optional[np.ndarray]]:
+    """One decode-pool chunk, decoded in the worker with the inline
+    path's semantics: with a fixed geometry the whole chunk goes through
+    :func:`_decodeValidBlobs` (one native threaded call per chunk).
+    Errors the inline path would raise (an unsupported channel count)
+    propagate: the pool ships them back and raises them in the
+    submitting process."""
+    present = [i for i, b in enumerate(blobs) if b]
+    out: List[Optional[np.ndarray]] = [None] * len(blobs)
+    if target_size is not None and channels is not None:
+        decoded = _decodeValidBlobs([blobs[i] for i in present],
+                                    target_size, channels)
+        for j, i in enumerate(present):
+            out[i] = decoded[j]
+        return out
+    for i in present:
+        out[i] = decodePoolBlob(blobs[i], target_size=target_size,
+                                channels=channels)
+    return out
+
+
+def decodePoolBlob(blob: Optional[bytes],
+                   target_size: Optional[Tuple[int, int]] = None,
+                   channels: Optional[int] = None) -> Optional[np.ndarray]:
+    """One blob decoded with the inline path's pixels but no fault
+    injection and no health record: the decode-pool worker's entry."""
+    if not blob:
+        return None
+    if target_size is not None and channels is not None:
+        return _decodeValidBlobs([blob], target_size, channels)[0]
+    from sparkdl_tpu_torch.native import loader as native_loader
+
+    if native_loader.available():
+        arr = native_loader.decode(blob, target_size=target_size)
+        if arr is not None:
+            return forceChannels(arr, channels) if channels is not None \
+                else arr
+    if channels is not None:
+        return _pil_decode_channels(blob, target_size, channels)
+    return _pil_decode(blob, target_size=target_size)
+
+
+_PIL_MODE_BY_CHANNELS = {1: "L", 3: "RGB", 4: "RGBA"}
+
+
+def _pil_mode(channels: int) -> str:
+    try:
+        return _PIL_MODE_BY_CHANNELS[channels]
+    except KeyError:
+        raise ValueError(
+            f"Unsupported channel count {channels}; "
+            f"supported: {sorted(_PIL_MODE_BY_CHANNELS)}") from None
+
+
+def forceChannels(arr: np.ndarray, channels: int) -> np.ndarray:
+    """Coerce an HWC uint8 array to a channel count with Pillow's
+    ``convert`` semantics (L→RGB replicates, RGBA→RGB drops alpha,
+    RGB→L is ITU-R 601 luma)."""
+    have = arr.shape[2]
+    if have == channels:
+        return arr
+    if channels == 3:
+        if have == 1:
+            return np.repeat(arr, 3, axis=2)
+        if have == 4:
+            return np.ascontiguousarray(arr[:, :, :3])
+    if channels == 1 and have in (3, 4):
+        luma = (arr[:, :, 0] * 0.299 + arr[:, :, 1] * 0.587
+                + arr[:, :, 2] * 0.114)
+        return luma.astype(np.uint8)[:, :, None]
+    if channels == 4 and have == 3:
+        alpha = np.full(arr.shape[:2] + (1,), 255, dtype=np.uint8)
+        return np.concatenate([arr, alpha], axis=2)
+    raise ValueError(f"Cannot coerce {have}-channel image to {channels}")
+
+
+def _pil_decode_channels(data: bytes, target_size, channels: int
+                         ) -> Optional[np.ndarray]:
+    """Pillow decode forced to 1, 3 or 4 channels (others raise)."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    mode = _pil_mode(channels)
+    try:
+        img = Image.open(BytesIO(data)).convert(mode)
+        if target_size is not None:
+            img = img.resize((target_size[1], target_size[0]), Image.BILINEAR)
+        arr = np.asarray(img)
+    except Exception:  # noqa: BLE001 - a corrupt image becomes a null row
+        return None
+    return arr[:, :, None] if arr.ndim == 2 else arr
+
+
+def decodeImageFilesBatch(uris: Sequence[Optional[str]],
+                          target_size: Tuple[int, int],
+                          channels: int = 3) -> List[Optional[np.ndarray]]:
+    """Read and batch-decode image files; one HWC uint8 (or None) per
+    URI."""
+    return decodeImageBytesBatch(_read_blobs(uris), target_size,
+                                 channels=channels)
+
+
+def resizeBatchArray(batch: np.ndarray, target_size: Tuple[int, int]
+                     ) -> np.ndarray:
+    """Vectorized bilinear resize of an NHWC batch (numpy, any dtype).
+
+    Pixel-centre sampling WITHOUT antialiasing, the convention of the
+    native ``sdl_resize_batch`` and of the card's ``preproc_resize``
+    (they agree to uint8 rounding), not Pillow's. The host fallback when
+    the native library is unavailable or the dtype is not uint8."""
+    n, sh, sw, c = batch.shape
+    th, tw = target_size
+    if (sh, sw) == (th, tw):
+        return batch
+    fy = np.clip((np.arange(th) + 0.5) * (sh / th) - 0.5, 0, sh - 1)
+    fx = np.clip((np.arange(tw) + 0.5) * (sw / tw) - 0.5, 0, sw - 1)
+    y0 = fy.astype(np.int64)
+    y1 = np.minimum(y0 + 1, sh - 1)
+    x0 = fx.astype(np.int64)
+    x1 = np.minimum(x0 + 1, sw - 1)
+    wy = (fy - y0).astype(np.float32)[None, :, None, None]
+    wx = (fx - x0).astype(np.float32)[None, None, :, None]
+    b = batch.astype(np.float32, copy=False)
+    top = b[:, y0][:, :, x0] * (1 - wx) + b[:, y0][:, :, x1] * wx
+    bot = b[:, y1][:, :, x0] * (1 - wx) + b[:, y1][:, :, x1] * wx
+    out = top * (1 - wy) + bot * wy
+    if batch.dtype == np.uint8:
+        return np.clip(out + 0.5, 0, 255).astype(np.uint8)
+    return out.astype(batch.dtype)
 
 
 def resizeImageArray(arr: np.ndarray, target_size: Tuple[int, int]
@@ -367,6 +656,40 @@ def listImageFiles(path: str) -> List[str]:
     return sorted(found)
 
 
+def _decodeBlobsDefault(blobs: Sequence[Optional[bytes]]
+                        ) -> List[Optional[np.ndarray]]:
+    """The default decoder (:func:`decodeImageBytes`: no target size,
+    the source's channels) over a partition's blobs: fanned out to the
+    decode pool when it is on, else the inline loop. Fault injection and
+    the per-row ``decode_degraded`` events stay in this process on both
+    paths, in row order."""
+    out: List[Optional[np.ndarray]] = [None] * len(blobs)
+    present = [i for i, b in enumerate(blobs) if b is not None]
+    pool = _maybe_decode_pool(len(present))
+    if pool is None:
+        for i in present:
+            out[i] = decodeImageBytes(blobs[i])
+        return out
+    valid = [i for i in present if not _injected_decode_error()]
+    decoded = pool.decode([blobs[i] for i in valid])
+    for j, i in enumerate(valid):
+        out[i] = decoded[j]
+        if decoded[j] is None:
+            # the event decodeImageBytes records for the row
+            health.record(health.DECODE_DEGRADED, stage="bytes")
+    return out
+
+
+def _readImagesDecodePartition(batch) -> ImageColumn:
+    """The default ``readImages`` decoder's partition op: read every
+    file, batch-decode (pool-aware), wrap as an image-struct column (one
+    contiguous block when the partition decodes uniform)."""
+    uris = list(batch.column("filePath"))
+    with profiling.annotate("sparkdl.decode", rows=len(uris)):
+        arrays = _decodeBlobsDefault(_read_blobs(uris))
+    return imageArraysToStructColumn(arrays, uris)
+
+
 def readImagesWithCustomFn(path: str,
                            decode_f: Callable[[bytes], Optional[np.ndarray]],
                            numPartition: Optional[int] = None):
@@ -374,31 +697,30 @@ def readImagesWithCustomFn(path: str,
 
     Returns a DataFrame with ``filePath`` and an ``image`` struct column;
     undecodable files yield null image structs, as the reference did.
-    Decoding runs lazily, one whole partition at a time."""
+    Decoding runs lazily, one whole partition at a time: the default
+    decoder (:func:`decodeImageBytes`) as one batch op that the decode
+    pool can fan out, a custom ``decode_f`` row by row."""
     from sparkdl_tpu_torch.engine.dataframe import DataFrame
 
     uris = ["file:" + f for f in listImageFiles(path)]
     paths_df = DataFrame.fromColumns({"filePath": uris},
                                      numPartitions=numPartition)
+    if decode_f is decodeImageBytes:
+        return paths_df.withColumnBatch("image", _readImagesDecodePartition)
 
     def decode_partition(batch) -> ImageColumn:
-        uris = batch.column("filePath")
+        uris = list(batch.column("filePath"))
         arrays: List[Optional[np.ndarray]] = []
         with profiling.annotate("sparkdl.decode", rows=len(uris)):
-            for uri in uris:
-                try:
-                    with open(stripFileScheme(uri), "rb") as f:
-                        raw = f.read()
-                except OSError:
-                    arrays.append(None)
-                    continue
-                arr = decode_f(raw)
+            for raw in _read_blobs(uris):
+                arr = None if raw is None else decode_f(raw)
                 arrays.append(None if arr is None else np.asarray(arr))
-        return imageArraysToStructColumn(arrays, list(uris))
+        return imageArraysToStructColumn(arrays, uris)
 
     return paths_df.withColumnBatch("image", decode_partition)
 
 
 def readImages(path: str, numPartition: Optional[int] = None):
-    """Read images with the default decoder (Pillow)."""
+    """Read images with the default decoder (native loader, Pillow where
+    it cannot serve)."""
     return readImagesWithCustomFn(path, decodeImageBytes, numPartition)

@@ -160,17 +160,33 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
 
 
 def _resize_uniform_batch(stacked: np.ndarray, target_size, run):
-    """Resize policy for a uniform batch: under
-    ``EngineConfig.fused_preprocess`` the raw batch ships at source size
-    and the resize runs on the device in front of the model
-    (``ModelFunction.resized``, the ``preproc_resize`` kernel)."""
+    """Resize policy for a uniform batch; returns the (possibly resized)
+    batch and the (possibly resize-composed) ModelFunction.
+
+    Under ``EngineConfig.fused_preprocess`` (the default) the raw batch
+    ships at source size and the resize runs on the card in front of the
+    model (``ModelFunction.resized``, the ``preproc_resize`` kernel).
+    With it off, a downscale resizes on the host (the native loader's
+    threaded ``sdl_resize_batch`` for uint8, ``imageIO.resizeBatchArray``
+    otherwise or without the library) and ships the smaller batch; an
+    upscale ships the smaller source and still resizes on the card. All
+    of these sample at pixel centres without antialiasing; they differ
+    by uint8 rounding only."""
     if target_size is None or tuple(stacked.shape[1:3]) == tuple(target_size):
         return stacked, run
-    if not EngineConfig.fused_preprocess:
-        raise NotImplementedError(
-            "EngineConfig.fused_preprocess=False (host-side downscale) is "
-            "not ported yet")
-    return stacked, run.resized(stacked.shape[1:3], tuple(target_size))
+    target = tuple(target_size)
+    if EngineConfig.fused_preprocess or (
+            stacked.shape[1] * stacked.shape[2] <= target[0] * target[1]):
+        return stacked, run.resized(stacked.shape[1:3], target)
+    with profiling.annotate("sparkdl.host_resize", rows=len(stacked)):
+        resized = None
+        if stacked.dtype == np.uint8:
+            from sparkdl_tpu_torch.native import loader as native_loader
+
+            resized = native_loader.resize_batch(stacked, target)
+        if resized is None:
+            resized = imageIO.resizeBatchArray(stacked, target)
+    return resized, run
 
 
 def _vectors_with_nulls(out: np.ndarray, valid: List[int], num_rows: int):

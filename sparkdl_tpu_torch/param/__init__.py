@@ -1,11 +1,12 @@
 """Spark-ML-style ``Params`` system (a copy of ``sparkdl_tpu.param``, cut
-to the mixins the ported transformers use)."""
+to the mixins the ported transformers and loaders use)."""
 
 from sparkdl_tpu_torch.param.base import Param, Params, keyword_only
 from sparkdl_tpu_torch.param.converters import (
     SparkDLTypeConverters, TypeConverters,
 )
 from sparkdl_tpu_torch.param.shared_params import (
+    CanLoadImage,
     HasBatchSize,
     HasInputCol,
     HasModelFunction,
@@ -24,4 +25,5 @@ __all__ = [
     "HasOutputMode",
     "HasBatchSize",
     "HasModelFunction",
+    "CanLoadImage",
 ]

@@ -1,13 +1,13 @@
 """Shared param mixins used by the ported transformers.
 
 A copy of the mixins of ``sparkdl_tpu.param.shared_params`` that the
-featurize path reads; the payload of ``HasModelFunction`` is the port's
-:class:`sparkdl_tpu_torch.core.model_function.ModelFunction`.
+featurize and ingest paths read; the payload of ``HasModelFunction`` is
+the port's :class:`sparkdl_tpu_torch.core.model_function.ModelFunction`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from sparkdl_tpu_torch.param.base import Param, Params
 from sparkdl_tpu_torch.param.converters import (
@@ -103,3 +103,75 @@ class HasModelFunction(Params):
 
     def getModelFunction(self):
         return self.getOrDefault(self.modelFunction)
+
+
+class CanLoadImage(Params):
+    """Mixin for components that load image files from a URI column.
+
+    Parity: upstream ``CanLoadImage.loadImagesInternal``, a UDF mapping
+    URI → decoded image → user preprocessor → image struct. Here the
+    decode runs on the host through ``image.imageIO`` (the native loader
+    where it is built, Pillow otherwise) into an image-struct column.
+    """
+
+    imageLoader = Param(
+        "CanLoadImage", "imageLoader",
+        "callable URI -> HWC float/uint8 numpy array (decode + preprocess); "
+        "None uses the default decode+resize for the model's input size",
+        typeConverter=TypeConverters.identity)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(imageLoader=None)
+
+    def setImageLoader(self, value: Optional[Callable]) -> "CanLoadImage":
+        if value is None:
+            # _set skips None (keyword_only ctor semantics); an explicit
+            # None means "back to the default decode+resize"
+            self.clear(self.imageLoader)
+            return self
+        return self._set(imageLoader=value)
+
+    def getImageLoader(self) -> Optional[Callable]:
+        return self.getOrDefault(self.imageLoader)
+
+    def loadImagesInternal(self, dataframe, inputCol: str, outputCol: str,
+                           target_size=None):
+        """Add ``outputCol`` of image structs decoded from URI
+        ``inputCol``, partition-parallel on the host.
+
+        The default loader with a known target size decodes each WHOLE
+        partition in one ``imageIO.decodeImageFilesBatch`` call: the
+        decode pool when ``EngineConfig.decode_workers > 0``, else the
+        threaded native batch decoder (GIL released, Pillow for the
+        images it rejects). A custom ``imageLoader``, or no target size,
+        keeps per-row semantics (``channels=3``, as the batch decoder
+        forces RGB).
+        """
+        from sparkdl_tpu_torch.core import profiling
+        from sparkdl_tpu_torch.image import imageIO
+
+        loader = self.getOrDefault(self.imageLoader)
+
+        if loader is None and target_size is not None:
+            def load_partition(batch):
+                with profiling.annotate("sparkdl.decode"):
+                    uris = list(batch.column(inputCol))
+                    arrays = imageIO.decodeImageFilesBatch(uris, target_size)
+                    return imageIO.imageArraysToStructColumn(
+                        arrays, [u or "" for u in uris])
+
+            return dataframe.withColumnBatch(outputCol, load_partition)
+
+        def load_one(uri: str):
+            with profiling.annotate("sparkdl.decode"):
+                if loader is not None:
+                    arr = loader(uri)
+                else:
+                    arr = imageIO.decodeImageFile(
+                        uri, target_size=target_size, channels=3)
+                if arr is None:
+                    return None
+                return imageIO.imageArrayToStruct(arr)
+
+        return dataframe.withColumn(outputCol, load_one, inputCols=[inputCol])

@@ -108,3 +108,29 @@ def test_read_images_then_featurize(tmp_path, featurizers, images):
     ref = column(featurizers[0], jdf, "features")
     ours = column(featurizers[1], tdf, "features")
     assert max_abs(ours, ref) <= F32_REL * np.abs(ref).max()
+
+
+def test_read_images_through_the_decode_pool_then_featurize(
+        tmp_path, featurizers, images):
+    """The files → ``readImages`` → featurize slice with the decode pool
+    on (two worker processes, three partitions): the rows are the JAX
+    package's reader's, the features those of the pool off, bit for bit
+    (test_read_images_then_featurize holds those against the JAX
+    package)."""
+    from PIL import Image
+
+    from sparkdl_tpu_torch.core import decode_pool
+
+    for i, arr in enumerate(images):
+        Image.fromarray(arr).save(tmp_path / f"img_{i}.jpg", quality=95)
+    ref_rows = sparkdl_tpu.readImages(str(tmp_path)).collect()
+    off = column(featurizers[1], sparkdl_tpu_torch.readImages(str(tmp_path)),
+                 "features")
+    EngineConfig.decode_workers = 2
+    try:
+        tdf = sparkdl_tpu_torch.readImages(str(tmp_path), numPartition=3)
+        assert tdf.collect() == ref_rows
+        on = column(featurizers[1], tdf, "features")
+    finally:
+        decode_pool.shutdown()
+    assert np.array_equal(on, off)

@@ -25,6 +25,9 @@ def test_no_forbidden_imports_in_source():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     assert ROOT / "sparkdl_tpu_torch" / "experiments" / "probe.py" in files
+    for ingest in ("core/decode_pool.py", "native/loader.py",
+                   "native/__init__.py", "image/imageIO.py"):
+        assert ROOT / "sparkdl_tpu_torch" / ingest in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -80,6 +83,51 @@ def test_featurize_on_cpu_loads_no_jax(tmp_path):
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_ingest_loads_its_own_loader_and_no_jax(tmp_path):
+    """``readImages`` with the decode pool on, in a fresh process: its
+    decode workers map the port's own native loader
+    (``build/sparkdl_tpu_torch/libimage_loader_*.so``), no process maps
+    the JAX package's ``libsparkdl_image.so``, and no JAX and no
+    ``sparkdl_tpu`` is imported."""
+    images = tmp_path / "images"
+    images.mkdir()
+    script = tmp_path / "ingest.py"
+    script.write_text(
+        "import sys\n"
+        "import numpy as np\n"
+        "from PIL import Image\n"
+        "import sparkdl_tpu_torch as s\n"
+        "from sparkdl_tpu_torch.core import decode_pool\n"
+        "from sparkdl_tpu_torch.native import loader\n"
+        "if __name__ == '__main__':\n"
+        f"    root = {str(images)!r}\n"
+        "    for i in range(4):\n"
+        "        Image.fromarray(np.full((9, 7 + i, 3), i, np.uint8)).save(\n"
+        "            f'{root}/{i}.png')\n"
+        "    s.EngineConfig.decode_workers = 2\n"
+        "    rows = s.readImages(root, numPartition=1).collect()\n"
+        "    assert [r['image']['width'] for r in rows] == [7, 8, 9, 10]\n"
+        "    pids = [w.proc.pid for w in decode_pool.maybe_pool()._workers]\n"
+        "    maps = [open(f'/proc/{p}/maps').read()\n"
+        "            for p in ['self'] + pids]\n"
+        "    decode_pool.shutdown()\n"
+        "    print(loader.available(),\n"
+        "          all('libimage_loader_' in m for m in maps[1:]),\n"
+        "          any('libsparkdl_image' in m for m in maps))\n"
+        "    top = {m.split('.')[0] for m in sys.modules}\n"
+        "    print(sorted(top & {'jax', 'jaxlib', 'flax', 'sparkdl_tpu'}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    built, own_loader, theirs = out.stdout.split("\n")[0].split()
+    if built == "True":
+        assert own_loader == "True"
+    assert theirs == "False"
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
