@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from ``sparkdl_tpu_torch/csrc`` (one nvcc
-per source, in parallel, into ``build/sparkdl_tpu_torch/``) and counts the
-``HGMMA`` instructions in each library's SASS (``cuobjdump -sass``): the
-tensor-core bodies of ``sep2d`` and ``pw1x1`` must have some. Then it
+per source, in parallel, into ``build/sparkdl_tpu_torch/``; the native
+image loader beside them with g++ where its headers are found) and counts
+the ``HGMMA`` instructions in each library's SASS (``cuobjdump -sass``):
+the tensor-core bodies of ``sep2d`` and ``pw1x1`` must have some. Then it
 checks each kernel against its plain PyTorch version at the shapes the
 featurize paths give it and times both (and the PyTorch library call that
 computes the same function, as a yardstick the port never calls); each
@@ -175,6 +176,36 @@ after two partitions: at most 2 + prefetch + 1 partitions' op chains may
 have run (``partitions_started``, the health counters), and the pool's
 ``sparkdl-part`` threads are as many as before.
 
+Then the path users run from image files: ``files_setup`` writes 64
+seeded 256×256 and 64 384×384 photo-like JPEGs (quality 90; PNGs from a
+standard-library encoder where Pillow is missing) into a temporary
+directory and prints the host's CPUs, partition threads, /dev/shm and
+the decoder that serves ``readImages`` (the native loader, built in the
+``build`` phase where g++ finds ``jpeglib.h`` and ``png.h``, else Pillow,
+with the compiler's reason). ``files_featurize`` reads the 256×256 files
+with ``readImages(dir, numPartition=4)`` and featurizes them with
+``DeepImageFeaturizer("Xception")`` under ``"force"`` on 8 partition
+threads (``preproc_resize`` once a forward; the network in float32, so
+``sep2d``'s ``simt_f32``): images/s with the decode, the decode and
+device ms a partition, the idle share, every row against the port's CPU
+run of the same files and every decoded image equal to its file's row
+decode. ``files_featurize_pool`` runs the same through the decode pool
+(4 spawned workers): its pixels equal the inline run's, its queue depth,
+workers busy, decode time p50/p99, adopted chunk spans and respawns (0),
+the 64 decodes timed alone through the pool and inline, and the workers'
+memory and mappings (no libtorch: this file imports no torch when a
+worker runs it as ``__mp_main__``; no CUDA driver); after ``shutdown()``
+no worker and no segment is left. ``decode_faults`` adds two corrupt
+files and reads the frame in one partition with ``decode_error`` at a
+seeded rate, with the pool on (one ``decode_pool_worker_crash`` too) and
+off: the same null rows and ``decode_degraded`` counts, one respawn, the
+other rows' pixels and features those of the pool phase.
+``files_host_resize`` featurizes the 384×384 files with
+``EngineConfig.fused_preprocess = False``: the host resizes them to
+299×299 (the native ``sdl_resize_batch``, or numpy without the loader)
+and the network runs in bf16 (``sep2d``'s tensor-core body, no
+``preproc_resize``), four rows against the CPU run of the same path.
+
 The line ``{"phase": "total", ...}`` gives the script's seconds so far.
 
 ``--profile`` adds device times from ``torch.profiler`` beside each event
@@ -198,7 +229,11 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # a spawned decode-pool worker runs this file again as __mp_main__;
+    # it needs nothing of the card's stack, so it does not import torch
+    import torch
 
 SEED = 0
 BATCH = 16
@@ -208,8 +243,8 @@ F32_REL = 1e-3        # float32 whole-slice tolerance, relative to max|ref|
 BF16_REL = 5e-2       # bf16 whole-slice tolerance, relative to max|ref|
 F32_KERNEL_REL = 1e-5  # float32 kernel tolerance, relative to max(1, |ref|)
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core peak
-              torch.float32: 67e12}     # float32 outside the tensor cores
+H100_FLOPS = {"bfloat16": 989e12,  # dense tensor-core peak
+              "float32": 67e12}    # float32 outside the tensor cores
 SEP2D_SHAPES = [(147, 147, 64, 128), (37, 37, 256, 728), (19, 19, 728, 728),
                 (10, 10, 1536, 2048)]
 # InceptionV3's 1×1 sites at 35×35, 17×17 and 8×8 (widest of each grid);
@@ -218,10 +253,10 @@ PW1X1_CASES = [(35, 35, 192, 64, True), (17, 17, 768, 192, True),
                (8, 8, 2048, 448, True), (35, 35, 192, 64, False)]
 #: (source H, W), target (H, W) and output dtype of each preproc_resize
 #: check: the 299×299 models' resized sources, and the 224×224 models'
-PREPROC_CASES = [((256, 256), (299, 299), torch.float32),
-                 ((512, 384), (299, 299), torch.float32),
-                 ((256, 256), (299, 299), torch.bfloat16),
-                 ((256, 256), (224, 224), torch.float32)]
+PREPROC_CASES = [((256, 256), (299, 299), "float32"),
+                 ((512, 384), (299, 299), "float32"),
+                 ((256, 256), (299, 299), "bfloat16"),
+                 ((256, 256), (224, 224), "float32")]
 TARGET = (299, 299)  # Xception's and InceptionV3's input size
 PROFILE = "--profile" in sys.argv[1:]
 #: the launch counter of each kernel gate site kind
@@ -283,8 +318,12 @@ def timings(kernel, plain, library) -> dict:
     return out
 
 
+def peak_flops(dtype) -> float:
+    return H100_FLOPS[str(dtype).removeprefix("torch.")]
+
+
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
-    t_ops = flops / H100_FLOPS[dtype]
+    t_ops = flops / peak_flops(dtype)
     t_bytes = nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -534,7 +573,8 @@ def check_preproc(kernels, dev):
 
     rows = []
     gen = torch.Generator().manual_seed(SEED + 1)
-    for (h, w), target, out_dtype in PREPROC_CASES:
+    for (h, w), target, dtype_name in PREPROC_CASES:
+        out_dtype = getattr(torch, dtype_name)
         x = torch.randint(0, 256, (BATCH, h, w, 3), generator=gen,
                           dtype=torch.uint8).to(dev)
         y = kernels.preproc_resize(x, target, out_dtype)
@@ -752,10 +792,10 @@ def check_probes(probe, dev):
     for name, (flops, nbytes, library) in work.items():
         ms = timing[name]["us_per_app"] / 1e3
         if name == "sep2d_probe":  # tensor cores and CUDA cores overlap
-            t_ops = max(pw_flops / H100_FLOPS[torch.bfloat16],
-                        dw_flops / H100_FLOPS[torch.float32])
+            t_ops = max(pw_flops / peak_flops(torch.bfloat16),
+                        dw_flops / peak_flops(torch.float32))
         else:  # float32 arithmetic on the CUDA cores
-            t_ops = flops / H100_FLOPS[torch.float32]
+            t_ops = flops / peak_flops(torch.float32)
         t_bytes = nbytes / H100_BYTES_PER_S
         rows[name].update(
             ms=ms, library_ms=(timing[library]["us_per_app"] / 1e3
@@ -1035,6 +1075,51 @@ def host_ms(phase_stats, seconds, workers=1):
         out["outside_device_apply"] = out["pass"] - out.get(
             "sparkdl.device_apply", 0.0)
     return out
+
+
+class GaugePeaks:
+    """The largest value each telemetry gauge was set to while the block
+    ran (a gauge keeps only its last value)."""
+
+    def __init__(self, telemetry):
+        self.telemetry = telemetry
+        self.peaks = {}
+
+    def __enter__(self):
+        self.gauge_set = self.telemetry.gauge_set
+
+        def gauge_set(name, value):
+            self.peaks[name] = max(self.peaks.get(name, value), value)
+            self.gauge_set(name, value)
+
+        self.telemetry.gauge_set = gauge_set
+        return self
+
+    def __exit__(self, *exc):
+        self.telemetry.gauge_set = self.gauge_set
+
+
+def decode_pool_metrics(tel, peaks):
+    """The decode pool's instruments of a telemetry scope: the peak
+    queue depth (chunks in flight) and workers busy, each blob's decode
+    time in its worker (count, mean, p50, p99, max), and the pool spans
+    and adopted worker chunk spans; None where no pool ran."""
+    from sparkdl_tpu_torch.core import telemetry
+
+    h = tel.metrics.snapshot()["histograms"].get(
+        telemetry.M_DECODE_POOL_DECODE_S)
+    if h is None:
+        return None
+    summary = tel.tracer.summary()
+    return {"queue_depth_peak": peaks.peaks.get(
+                telemetry.M_DECODE_POOL_DEPTH),
+            "workers_busy_peak": peaks.peaks.get(
+                telemetry.M_DECODE_POOL_BUSY),
+            "decode_s": {"count": h["count"], "mean": h["sum"] / h["count"],
+                         "p50": h["p50"], "p99": h["p99"], "max": h["max"]},
+            "pool_spans": len(tel.tracer.spans(telemetry.SPAN_DECODE_POOL)),
+            "chunk_spans_adopted": summary["remote_adopted"],
+            "chunk_spans_rejected": summary["remote_rejected"]}
 
 
 def executor_metrics(tel):
@@ -1357,12 +1442,15 @@ PARTITIONED_PHASES = [
 ]
 
 
-def partitioned_pass(s, kernels, name, feat, df, compiled, per_forward):
-    """One counted pass of a partitioned frame on the card: launches,
-    forwards (the program's replays, its first sights included), the
-    graphs captured during the pass, the executor's instruments, phase
-    timers and health. Every launch count must be per-forward ×
-    forwards."""
+def partitioned_pass(s, kernels, name, feat, df, compiled, per_forward,
+                     body="wgmma"):
+    """One counted pass of a partitioned frame on the card: its rows,
+    and its launches, forwards (the program's replays, its first sights
+    included), the graphs captured during the pass, the executor's and
+    the decode pool's instruments, phase timers and health. Every launch
+    count must be per-forward × forwards, every ``sep2d``/``pw1x1``
+    launch on ``body`` (the tensor-core body of a bf16 network, or
+    ``simt_f32``)."""
     from sparkdl_tpu_torch.core import executor, health, profiling, \
         telemetry
 
@@ -1370,7 +1458,8 @@ def partitioned_pass(s, kernels, name, feat, df, compiled, per_forward):
     profiling.reset_phase_stats()
     replays = compiled.replays
     with health.HealthMonitor(name) as monitor, \
-            telemetry.Telemetry(name) as tel:
+            telemetry.Telemetry(name) as tel, \
+            GaugePeaks(telemetry) as peaks:
         t0 = time.perf_counter()
         rows = feat.transform(df).collect()
         torch.cuda.synchronize()
@@ -1387,19 +1476,19 @@ def partitioned_pass(s, kernels, name, feat, df, compiled, per_forward):
     assert counts == expected, \
         f"{name}: launches {counts} != per-forward × forwards {expected}"
     for kernel in ("sep2d", "pw1x1"):
-        assert by_body[kernel]["wgmma"] == counts[kernel], \
-            f"{name}: bf16 {kernel} off the tensor-core body: {by_body}"
+        assert by_body[kernel][body] == counts[kernel], \
+            f"{name}: {kernel} off the {body} body: {by_body}"
     failed = monitor.count(health.TASK_FAILED)
     assert failed == 0, f"{name}: {failed} task(s) failed"
     status = executor.status()
     assert status["queued_requests"] == 0 and status["inflight"] == 0, \
         f"{name}: requests left in the executor: {status}"
-    gpu, _ = row_vectors(rows)
-    return gpu, {
+    return rows, {
         "seconds": seconds, "images_per_s": len(rows) / seconds,
         "forwards": forwards, "captures_in_pass": captures,
         "launches": counts, "launches_by_body": by_body,
         "executor": executor_metrics(tel), "health": monitor.counters(),
+        "decode_pool": decode_pool_metrics(tel, peaks),
         "host_ms": host_ms(stats, seconds, workers=WORKERS),
         "phase_stats": stats}
 
@@ -1439,8 +1528,9 @@ def partitioned_path(s, kernels, name, model, size, per_forward, rel_tol,
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
         label = name if coalesce else f"{name}_uncoalesced"
-        feats[coalesce], out = partitioned_pass(s, kernels, label, feat, df,
-                                                compiled, per_forward)
+        rows, out = partitioned_pass(s, kernels, label, feat, df, compiled,
+                                     per_forward)
+        feats[coalesce] = row_vectors(rows)[0]
         out.update({"phase": label, "model": model[0], "path": model[1],
                     "coalesce": coalesce, "images": PART_IMAGES,
                     "partitions": PARTITIONS, "workers": WORKERS,
@@ -1779,6 +1869,441 @@ def oom_rechunk(s, kernels, part_frame):
 # (phase, (model, path), source size, tolerance, precision), under
 # "autotune": bf16 (the default) auditions nothing, as in the reference;
 # float32 exercises the gate on the card
+#: the files phases: seeded images written as files, read back through
+#: readImages and featurized by Xception on PARTITION threads
+FILES_IMAGES = 64
+FILES_PARTITIONS = 4
+FILES_QUALITY = 90
+FILES_SOURCE = (256, 256)       # upscaled to 299×299 on the card
+FILES_HOST_SOURCE = (384, 384)  # downscaled to 299×299 on the host
+POOL_WORKERS = 4
+#: the share of rows decode_faults drops with an injected decode_error
+FAULT_RATE = 0.1
+
+
+def png_bytes(arr) -> bytes:
+    """A PNG of an HWC uint8 array, written with the standard library
+    alone (zlib, struct): the files phases' encoder where Pillow is
+    missing."""
+    import struct
+    import zlib
+
+    h, w, c = arr.shape
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
+    color = {1: 0, 3: 2, 4: 6}[c]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0,
+                                         0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_files(root, size, seed) -> str:
+    """FILES_IMAGES seeded photo-like images of ``size`` (soft-edged colour
+    blocks with a little noise, which compress about as photos do, where
+    uniform noise would not) written under ``root`` as JPEGs of quality FILES_QUALITY, or as
+    PNGs where Pillow is missing; returns the format written."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    rng = np.random.default_rng(seed)
+    h, w = size
+    for i in range(FILES_IMAGES):
+        coarse = rng.integers(0, 256, (h // 32, w // 32, 3), dtype=np.uint8)
+        field = np.repeat(np.repeat(coarse, 32, axis=0), 32, axis=1)
+        # a 3-tap blur along each axis softens the blocks' edges
+        for axis in (0, 1):
+            field = (np.roll(field, 1, axis).astype(np.uint16) + 2 * field
+                     + np.roll(field, -1, axis)) // 4
+        arr = np.clip(field + rng.integers(-1, 2, field.shape), 0,
+                      255).astype(np.uint8)
+        if Image is not None:
+            Image.fromarray(arr).save(os.path.join(root, f"img_{i:03d}.jpg"),
+                                      quality=FILES_QUALITY)
+        else:
+            with open(os.path.join(root, f"img_{i:03d}.png"), "wb") as f:
+                f.write(png_bytes(arr))
+    return "jpeg" if Image is not None else "png (stdlib encoder: no Pillow)"
+
+
+def loader_headers() -> dict:
+    """Whether the host's g++ finds each header the native loader
+    includes."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        return {"jpeglib.h": False, "png.h": False, "g++": False}
+    found = {}
+    for header in ("jpeglib.h", "png.h"):
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                              input=f"#include <{header}>\n",
+                              capture_output=True, text=True, timeout=60)
+        found[header] = proc.returncode == 0
+    return found
+
+
+def decoder_info() -> dict:
+    """Which decoder serves readImages here: the native loader (with the
+    threads each of its batch calls starts) or Pillow, and why."""
+    from sparkdl_tpu_torch.native import loader
+
+    if loader.available():
+        return {"decoder": "native",
+                "native_threads_per_call": os.cpu_count()}
+    return {"decoder": "pil", "why_not_native": loader.unavailable_reason}
+
+
+def shm_info() -> dict:
+    """/dev/shm's size and free bytes (the decode pool returns pixels
+    through it)."""
+    st = os.statvfs("/dev/shm")
+    return {"shm_total_bytes": st.f_blocks * st.f_frsize,
+            "shm_free_bytes": st.f_bavail * st.f_frsize}
+
+
+def pool_workers(shm_free: int, size) -> int:
+    """POOL_WORKERS, or fewer where /dev/shm cannot hold 2 × workers
+    chunks of 32 decoded images of ``size`` in flight."""
+    chunk = 32 * size[0] * size[1] * 3
+    return max(1, min(POOL_WORKERS, shm_free // (2 * chunk) // 2))
+
+
+def row_pixels(rows) -> dict:
+    """Each row's decoded pixels by file path (None for a null image)."""
+    from sparkdl_tpu_torch.image import imageIO
+
+    return {r["filePath"]: None if r["image"] is None
+            else imageIO.imageStructToArray(r["image"]) for r in rows}
+
+
+def row_features(rows) -> dict:
+    """Each row's features by file path (None for a null image)."""
+    return {r["filePath"]: None if r["features"] is None
+            else np.asarray(r["features"], np.float32) for r in rows}
+
+
+def pool_processes(pool) -> dict:
+    """The decode pool's worker processes: pids, resident MiB, whether
+    each maps libtorch or the CUDA driver, and the processes that
+    ``nvidia-smi`` lists on the card."""
+    def maps(pid):
+        with open(f"/proc/{pid}/maps") as f:
+            return f.read()
+
+    def rss_mib(pid):
+        with open(f"/proc/{pid}/status") as f:
+            line = next(ln for ln in f if ln.startswith("VmRSS:"))
+        return int(line.split()[1]) / 1024
+
+    pids = [w.proc.pid for w in pool._workers]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+    return {"worker_pids": pids,
+            "worker_rss_mib": [rss_mib(p) for p in pids],
+            "workers_map_libtorch": any("libtorch" in maps(p) for p in pids),
+            "workers_map_libcuda": any("libcuda" in maps(p) for p in pids),
+            "card_processes": [int(p) for p in smi], "parent_pid": os.getpid()}
+
+
+def files_pass(s, kernels, name, feat, df, compiled, per_forward, body):
+    """One warm-up and one counted pass of ``feat`` over a readImages
+    frame (its decode included), then one profiled pass: the counted
+    pass's rows and its line, with images/s, the decode and device
+    timers per partition and the device's idle share."""
+    t0 = time.perf_counter()
+    feat.transform(df).collect()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    rows, out = partitioned_pass(s, kernels, name, feat, df, compiled,
+                                 per_forward, body=body)
+    stats = out["phase_stats"]
+    parts = df.numPartitions
+    decode = stats["sparkdl.decode"]
+    apply = stats["sparkdl.device_apply"]
+    out.update({
+        "phase": name, "images": len(rows), "partitions": parts,
+        "workers": WORKERS, "warmup_s": warmup_s,
+        "decode_ms_per_partition": decode["total_s"] * 1e3 / decode["count"],
+        "decode_ms_per_image": decode["total_s"] * 1e3 / len(rows),
+        # one partition's decode against the pass's wall: the partitions
+        # decode at once on their threads
+        "decode_share_of_wall": decode["total_s"] / decode["count"]
+        / out["seconds"],
+        "device_apply_ms_per_partition": apply["total_s"] * 1e3
+        / apply["count"],
+        "idle_share": profile_pass(name, feat, df),
+        **decoder_info()})
+    return rows, out
+
+
+def files_path(s, kernels):
+    """Image files → ``readImages`` → ``DeepImageFeaturizer("Xception")``
+    on the card, under ``"force"`` in bf16, on WORKERS partition threads:
+
+    - ``files_featurize``: FILES_IMAGES 256×256 JPEGs in
+      FILES_PARTITIONS partitions, decoded inline (``decode_workers=0``),
+      ``preproc_resize`` once a forward (the upscale to 299×299 stays on
+      the card), so the network runs in float32 (``sep2d``'s
+      ``simt_f32``); every row against the port's CPU run of the same
+      files (float32 tolerance), every decoded image ``np.array_equal``
+      to the row decode of its file;
+    - ``files_featurize_pool``: the same files through the decode pool
+      (POOL_WORKERS spawned workers, fewer if /dev/shm is small): pixels
+      ``np.array_equal`` to ``files_featurize``'s, features within its
+      tolerance of them; the pool's instruments; the workers map no
+      libtorch and no CUDA driver, and after ``shutdown()`` no worker
+      and no ``sdlshm_`` segment is left;
+    - ``files_host_resize``: FILES_IMAGES 384×384 JPEGs with
+      ``fused_preprocess=False``: the host resizes to 299×299 (the native
+      loader's ``sdl_resize_batch``, numpy without it) and Xception runs
+      in bf16 (``sep2d``'s tensor-core body, no ``preproc_resize``); four
+      rows against the port's CPU run of the same path;
+    - ``decode_faults``: the pool phase's files and two corrupt ones in
+      one partition, ``decode_error`` armed at a seeded FAULT_RATE, once
+      with the pool on (and one ``decode_pool_worker_crash``) and once
+      off: the same null rows and ``decode_degraded`` counts, one
+      respawn, and every other row's pixels equal to
+      ``files_featurize_pool``'s and its features within tolerance.
+
+    Returns each phase's line, by phase."""
+    import random
+    import shutil
+
+    from sparkdl_tpu_torch.core import decode_pool, health, resilience
+    from sparkdl_tpu_torch.image import imageIO
+
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.max_workers = WORKERS
+    s.EngineConfig.coalesce = True
+    s.EngineConfig.decode_workers = 0
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="sparkdl_files_")
+    phases = {}
+    try:
+        small, large = os.path.join(root, "256"), os.path.join(root, "384")
+        os.mkdir(small)
+        os.mkdir(large)
+        t0 = time.perf_counter()
+        encoding = write_files(small, FILES_SOURCE, SEED + 300)
+        write_files(large, FILES_HOST_SOURCE, SEED + 301)
+        write_s = time.perf_counter() - t0
+        shm = shm_info()
+        workers = pool_workers(shm["shm_free_bytes"], FILES_HOST_SOURCE)
+        emit({"phase": "files_setup", "root": root, "files": 2 * FILES_IMAGES,
+              "encoding": encoding, "quality": FILES_QUALITY,
+              "bytes_256": sum(os.path.getsize(os.path.join(small, f))
+                               for f in os.listdir(small)),
+              "write_s": write_s, "cpu_count": os.cpu_count(),
+              "partition_threads": WORKERS, "pool_workers": workers,
+              **shm, **decoder_info()})
+
+        # files_featurize: inline decode
+        feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                     modelName="Xception", weights="random",
+                                     batchSize=BATCH)
+        df = s.readImages(small, numPartition=FILES_PARTITIONS)
+        compiled = executed_model(s, feat, FILES_SOURCE).jitted(dev)
+        per_forward = {"sep2d": 34, "preproc_resize": 1}
+        rows, out = files_pass(s, kernels, "files_featurize", feat, df,
+                               compiled, per_forward, "simt_f32")
+        pixels, feats = row_pixels(rows), row_features(rows)
+        files = sorted(pixels)
+        assert len(files) == FILES_IMAGES and all(
+            pixels[f] is not None for f in files)
+        for f in files:
+            assert np.array_equal(pixels[f], imageIO.decodeImageFile(f)), f
+        s.EngineConfig.device = "cpu"
+        s.EngineConfig.max_workers = 1
+        t0 = time.perf_counter()
+        cpu_feat = s.DeepImageFeaturizer(
+            inputCol="image", outputCol="features", modelName="Xception",
+            weights=model_state(s, feat), batchSize=BATCH)
+        cpu = row_features(cpu_feat.transform(
+            s.readImages(small, numPartition=FILES_PARTITIONS)).collect())
+        cpu_s = time.perf_counter() - t0
+        s.EngineConfig.device = "cuda"
+        s.EngineConfig.max_workers = WORKERS
+        limit = F32_REL * max(float(np.abs(v).max()) for v in cpu.values())
+        err = max(float(np.abs(feats[f] - cpu[f]).max()) for f in files)
+        assert err <= limit, f"files_featurize: {err} > {limit} vs the CPU"
+        out.update({"max_abs_err_vs_cpu": err, "rows_vs_cpu": len(files),
+                    "tolerance": limit, "cpu_run_s": cpu_s,
+                    "pixels_equal_row_decode": True})
+        emit(out)
+        phases["files_featurize"] = out
+
+        # files_featurize_pool: the same files through the decode pool
+        s.EngineConfig.decode_workers = workers
+        t0 = time.perf_counter()
+        pool = decode_pool.maybe_pool()
+        pool.decode(imageIO._read_blobs(files[:2]))
+        pool_start_s = time.perf_counter() - t0
+        rows, out = files_pass(s, kernels, "files_featurize_pool", feat, df,
+                               compiled, per_forward, "simt_f32")
+        procs = pool_processes(pool)
+        # the same 64 decodes alone on this thread, no partition threads
+        # around: the pool's round trips against the inline loop
+        blobs = imageIO._read_blobs(files)
+        alone = {}
+        for label, fn in (("inline", lambda: [imageIO.decodePoolBlob(b)
+                                              for b in blobs]),
+                          ("pool", lambda: pool.decode(blobs))):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            alone[f"{label}_ms"] = sorted(times)[1] * 1e3
+        pool_pixels, pool_feats = row_pixels(rows), row_features(rows)
+        assert sorted(pool_pixels) == files
+        assert all(np.array_equal(pool_pixels[f], pixels[f]) for f in files)
+        pool_err = max(float(np.abs(pool_feats[f] - feats[f]).max())
+                       for f in files)
+        assert pool_err <= limit, f"files_featurize_pool: {pool_err}"
+        assert pool.respawns == 0, pool.respawns
+        assert not procs["workers_map_libcuda"], procs
+        assert not any(p in procs["card_processes"]
+                       for p in procs["worker_pids"]), procs
+        assert len(procs["card_processes"]) <= 1, procs
+        assert out["decode_pool"]["chunk_spans_adopted"] > 0, out
+        decode_pool.shutdown()
+        left = [n for n in os.listdir("/dev/shm") if n.startswith(
+            f"sdlshm_{os.getpid():x}_")]
+        alive = [p for p in procs["worker_pids"]
+                 if os.path.exists(f"/proc/{p}")
+                 and open(f"/proc/{p}/stat").read().split()[2] != "Z"]
+        assert not left and not alive, (left, alive)
+        out.update({"pool_workers": workers, "pool_start_s": pool_start_s,
+                    "decode_alone_64": alone,
+                    "switch_interval_s": sys.getswitchinterval(),
+                    "respawns": pool.respawns, **procs,
+                    "pixels_equal_inline": True,
+                    "max_abs_diff_vs_inline": pool_err, "tolerance": limit,
+                    "segments_left": left, "workers_alive": alive})
+        emit(out)
+        phases["files_featurize_pool"] = out
+
+        # decode_faults: two corrupt files, decode_error at a seeded
+        # rate, and one worker crash with the pool on
+        for i in range(2):
+            with open(os.path.join(small, f"img_zz_bad_{i}.jpg"), "wb") as f:
+                f.write(b"\xff\xd8\xff" + bytes(64 * (i + 1)))
+        faulty = s.readImages(small, numPartition=1)
+        runs = {}
+        for on in (True, False):
+            s.EngineConfig.decode_workers = workers if on else 0
+            draws = random.Random(SEED + 17)
+            faults = {"decode_error": resilience.Fault(
+                times=-1, when=lambda ctx: draws.random() < FAULT_RATE)}
+            if on:
+                faults["decode_pool_worker_crash"] = 1
+            kernels.reset_launches()
+            with resilience.FaultInjector.seeded(SEED, **faults) as inj, \
+                    health.HealthMonitor("decode_faults") as monitor:
+                t0 = time.perf_counter()
+                got = feat.transform(faulty).collect()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            runs[on] = {"rows": got, "fired": dict(inj.fired),
+                        "seconds": seconds, "health": monitor.counters(),
+                        "launches": dict(kernels.launches),
+                        "launches_by_body": {
+                            k: dict(v)
+                            for k, v in kernels.launches_by_body.items()}}
+        decode_pool.shutdown()
+        on, off = runs[True], runs[False]
+        nulls = {k: sorted(r["filePath"] for r in run["rows"]
+                           if r["image"] is None) for k, run in runs.items()}
+        degraded = {k: run["health"].get(health.DECODE_DEGRADED, 0)
+                    for k, run in runs.items()}
+        assert nulls[True] == nulls[False], nulls
+        assert degraded[True] == degraded[False] == len(nulls[True]), \
+            degraded
+        assert on["fired"]["decode_error"] == off["fired"]["decode_error"]
+        assert on["fired"]["decode_pool_worker_crash"] == 1
+        assert on["health"].get(health.DECODE_POOL_RESPAWN, 0) == 1, on
+        bad = [f for f in nulls[True] if "zz_bad" in f]
+        assert len(bad) == 2, nulls
+        kept = [f for f in files if f not in nulls[True]]
+        fault_err = 0.0
+        for run in runs.values():
+            px, ft = row_pixels(run["rows"]), row_features(run["rows"])
+            assert all(np.array_equal(px[f], pool_pixels[f]) for f in kept)
+            fault_err = max(fault_err, max(
+                float(np.abs(ft[f] - pool_feats[f]).max()) for f in kept))
+        assert fault_err <= limit, f"decode_faults: {fault_err} > {limit}"
+        out = {"phase": "decode_faults", "files": len(on["rows"]),
+               **decoder_info(),
+               "corrupt": 2, "fault_rate": FAULT_RATE,
+               "decode_error_fired": on["fired"]["decode_error"],
+               "null_rows": len(nulls[True]),
+               "decode_degraded": degraded,
+               "respawns": on["health"].get(health.DECODE_POOL_RESPAWN, 0),
+               "seconds": {"pool_on": on["seconds"],
+                           "pool_off": off["seconds"]},
+               "max_abs_diff_vs_pool_phase": fault_err, "tolerance": limit,
+               "launches": {k: on["launches"].get(k, 0)
+                            + off["launches"].get(k, 0)
+                            for k in on["launches"]},
+               "launches_by_body": {
+                   k: {b: n + off["launches_by_body"][k][b]
+                       for b, n in v.items()}
+                   for k, v in on["launches_by_body"].items()},
+               "health": {"pool_on": on["health"],
+                          "pool_off": off["health"]}}
+        emit(out)
+        phases["decode_faults"] = out
+
+        # files_host_resize: 384×384 files, resized on the host
+        s.EngineConfig.decode_workers = 0
+        s.EngineConfig.fused_preprocess = False
+        df = s.readImages(large, numPartition=FILES_PARTITIONS)
+        compiled = executed_model(s, feat, TARGET).jitted(dev)
+        rows, out = files_pass(s, kernels, "files_host_resize", feat, df,
+                               compiled, {"sep2d": 34}, "wgmma")
+        assert out["launches"]["preproc_resize"] == 0, out["launches"]
+        host = out["phase_stats"]["sparkdl.host_resize"]
+        gpu = {os.path.basename(f): v for f, v in row_features(rows).items()}
+        few = os.path.join(root, "384_few")
+        os.mkdir(few)
+        for name in sorted(gpu)[:4]:
+            os.link(os.path.join(large, name), os.path.join(few, name))
+        s.EngineConfig.device = "cpu"
+        s.EngineConfig.max_workers = 1
+        cpu = {os.path.basename(f): v for f, v in row_features(
+            cpu_feat.transform(s.readImages(few)).collect()).items()}
+        s.EngineConfig.device = "cuda"
+        s.EngineConfig.max_workers = WORKERS
+        limit = BF16_REL * max(float(np.abs(v).max()) for v in cpu.values())
+        err = max(float(np.abs(gpu[f] - cpu[f]).max()) for f in cpu)
+        assert err <= limit, f"files_host_resize: {err} > {limit}"
+        from sparkdl_tpu_torch.native import loader
+
+        out.update({"host_resize_ms_per_partition": host["total_s"] * 1e3
+                    / host["count"],
+                    "host_resizer": "sdl_resize_batch" if loader.available()
+                    else "resizeBatchArray (numpy)",
+                    "max_abs_err_vs_cpu": err, "rows_vs_cpu": len(cpu),
+                    "tolerance": limit})
+        emit(out)
+        phases["files_host_resize"] = out
+    finally:
+        s.EngineConfig.fused_preprocess = True
+        s.EngineConfig.decode_workers = 0
+        s.EngineConfig.device = "cuda"
+        decode_pool.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    return phases
+
+
 AUTOTUNE_PHASES = [
     ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL,
      "bfloat16"),
@@ -1822,15 +2347,31 @@ def main() -> int:
     from sparkdl_tpu_torch.core import cuda_build, kernels
     from sparkdl_tpu_torch.experiments import probe
 
+    from sparkdl_tpu_torch.native import loader
+
     t0 = time.perf_counter()
-    per_source = cuda_build.build_all()
+    # the native image loader builds beside the kernels where its headers
+    # are found (then a failed build is an error); elsewhere its failed
+    # attempt is timed and its reason printed, and Pillow decodes
+    headers = loader_headers()
+    native = all(headers.values())
+    per_source = cuda_build.build_all(cuda_build.KERNEL_SOURCES
+                                      + (("image_loader",) if native else ()))
+    t1 = time.perf_counter()
+    built = loader.available()
+    loader_s = per_source.pop("image_loader", time.perf_counter() - t1)
+    assert built or not native, \
+        f"the native loader did not build: {loader.unavailable_reason}"
     ptxas = [line.strip() for n in per_source
              for line in cuda_build.build_log(n).splitlines()
              if "registers" in line or "spill" in line]
     with concurrent.futures.ThreadPoolExecutor(len(per_source)) as pool:
         hgmma = dict(zip(per_source, pool.map(sass_hgmma, per_source)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": per_source, "sass_hgmma": hgmma, "ptxas": ptxas})
+          "per_source_s": per_source, "sass_hgmma": hgmma, "ptxas": ptxas,
+          "image_loader": {"headers": headers, "built": built,
+                           "seconds": loader_s,
+                           "why_not": loader.unavailable_reason}})
     assert hgmma["sep2d"] > 0 and hgmma["pw1x1"] > 0, \
         f"no HGMMA in the tensor-core kernels' SASS: {hgmma}"
 
@@ -1946,6 +2487,9 @@ def main() -> int:
      phases["stream_early_break"]) = streamed_path(
         s, kernels, *part_frame, part_cpu, BF16_REL)
     phases["oom_rechunk"] = oom_rechunk(s, kernels, part_frame)
+    # image files → readImages → featurize, the decode pool, the host
+    # downscale and decode faults
+    phases.update(files_path(s, kernels))
     s.EngineConfig.inference_precision = "bfloat16"
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 

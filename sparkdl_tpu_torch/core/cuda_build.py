@@ -6,18 +6,17 @@ into its own shared library with a plain C interface, loaded with
 ``ctypes``. The host image loader (``native/image_loader.cc``, library
 name ``image_loader``) compiles the same way with ``g++`` against
 libjpeg and libpng, with the JAX package's flags (``-march=native``, so
-its float resize rounds as that package's build does on the same host);
-its key holds what ``-march=native`` means on the building host, so a
-library copied to another host is not loaded there. Builds happen at
-first use, into
-``build/sparkdl_tpu_torch/`` beside the package, keyed by a hash of the
-sources (and the shared headers) and the flags, so a fresh checkout
-builds everything it runs and a changed source rebuilds; each build
-writes a file of its own and renames it into place, so processes that
-build the same library at once do not collide. :func:`build_all` starts
-one compiler per source, all at once. Nothing here runs at import time:
-the CPU tests import every module of the port on a machine without
-``nvcc``.
+its float resize rounds as that package's build does on the same host).
+Builds happen at first use, into ``build/sparkdl_tpu_torch/`` beside
+the package, keyed by a hash of the sources (and the shared headers)
+and the flags, a host library's key also by what ``-march=native``
+means on the building host (a library copied to another host is built
+again there). So a fresh checkout builds everything it runs and a
+changed source rebuilds; each build writes a file of its own and renames
+it into place, so processes that build the same library at once do not
+collide. :func:`build_all` starts one compiler per source, all at once.
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine without ``nvcc``.
 """
 
 from __future__ import annotations

@@ -376,6 +376,64 @@ def test_decode_without_scope_ships_no_spans(pool):
     assert tel.tracer.summary()["remote_adopted"] == 0
 
 
+def test_remote_spans_adopt_and_refuse_as_the_reference():
+    """``remote_span``, ``Tracer.record_remote`` and
+    ``adopt_remote_spans`` take canonical names in and count the others
+    refused, as the JAX package's do; ``remote_span`` raises for a name
+    a parent would refuse."""
+    from sparkdl_tpu.core import telemetry as jax_telemetry
+
+    results = []
+    for mod in (telemetry, jax_telemetry):
+        with mod.Telemetry("remote") as tel:
+            now = time.perf_counter_ns()
+            wire = mod.remote_span(mod.SPAN_DECODE_CHUNK, now, now + 10,
+                                   pid=7, blobs=2)
+            shipped = [dict(wire, trace_id=tel.tracer.trace_id, span_id=5,
+                            parent_id=None, thread_id=0, thread_name="w"),
+                       dict(wire, name="sparkdl.not_canonical")]
+            adopted = tel.tracer.adopt_remote_spans(shipped)
+            kept = tel.tracer.record_remote(
+                mod.SPAN_DECODE_CHUNK, None, now, now + 20, pid=7,
+                process="decode-7", blobs=3)
+            refused = tel.tracer.record_remote(
+                "sparkdl.not_canonical", None, now, now, pid=7)
+        summary = tel.tracer.summary()
+        spans = tel.tracer.spans(mod.SPAN_DECODE_CHUNK)
+        results.append((wire["attributes"], adopted, kept, refused,
+                        summary["remote_adopted"], summary["remote_rejected"],
+                        sorted(s["end_ns"] - s["start_ns"] for s in spans)))
+        with pytest.raises(ValueError):
+            mod.remote_span("sparkdl.not_canonical", 0, 1)
+    assert results[0] == results[1]
+    assert results[0][1:6] == ((1, 1), True, False, 2, 2)
+
+
+def test_clock_handshake_offsets_onto_the_parent_clock():
+    """One round trip against an answering parent gives the offset of
+    this process's clock (here the same clock: within the round trip of
+    0); with no answer the handshake gives 0."""
+    import multiprocessing
+
+    parent, child = multiprocessing.Pipe()
+
+    def answer():
+        parent.recv()
+        parent.send(time.perf_counter_ns())
+
+    t = threading.Thread(target=answer, name="test-clock-answer")
+    t.start()
+    t0 = time.perf_counter_ns()
+    offset = telemetry.clock_handshake(child)
+    rtt = time.perf_counter_ns() - t0
+    t.join(timeout=10.0)
+    assert not t.is_alive() and abs(offset) <= rtt
+    silent, other = multiprocessing.Pipe()
+    assert telemetry.clock_handshake(other, timeout_s=0.05) == 0
+    for conn in (parent, child, silent, other):
+        conn.close()
+
+
 def test_workers_never_import_torch(tmp_path):
     """A process that imports what a decode worker imports has no torch
     in ``sys.modules``, and a real pool's workers map no libtorch while
