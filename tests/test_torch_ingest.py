@@ -383,3 +383,18 @@ def test_host_downscale_branch_matches_reference(testnet_weights, source):
     assert ours.shape == (3, 16) and np.isfinite(ours).all()
     assert max_abs(ours, ref) <= 1e-3 * np.abs(ref).max()
     assert (host is not None) == (source == (48, 44))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_chip_smoke_png_encoder_round_trips(channels):
+    """chip_smoke's standard-library PNG encoder (its files where Pillow
+    is missing) writes files that Pillow and the port's decoder read back
+    exactly."""
+    import chip_smoke
+
+    arr = np.random.default_rng(13).integers(0, 256, (9, 11, channels),
+                                             dtype=np.uint8)
+    blob = chip_smoke.png_bytes(arr)
+    pil = np.asarray(Image.open(io.BytesIO(blob)))
+    np.testing.assert_array_equal(pil.reshape(arr.shape), arr)
+    np.testing.assert_array_equal(imageIO.decodeImageBytes(blob), arr)
