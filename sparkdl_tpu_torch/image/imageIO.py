@@ -187,15 +187,35 @@ def uniformImageBatch(col: ImageColumn
 
     The port's stand-in for ``arrowImageBatch``: ``batch`` is the column's
     contiguous ``(N_valid, H, W, C)`` block itself (no copy, no per-row
-    Python) and ``valid_indices`` indexes its non-null rows. Ragged
-    columns return None and callers take the per-row path.
+    Python) and ``valid_indices`` indexes its non-null rows. A column of
+    per-row payloads (built from struct dicts, e.g. by a row-wise
+    ``withColumn``) is uniform on the reference's terms too: every valid
+    row of one height, width, channel count and known mode, each payload
+    exactly one such image; its payloads are then joined into one block.
+    Other columns return None and callers take the per-row path.
     """
-    if not isinstance(col, ImageColumn) or col.block is None:
+    if not isinstance(col, ImageColumn):
         return None
     valid_idx = np.nonzero(col.valid)[0]
     if valid_idx.size == 0:
         return None
-    return col.block, valid_idx
+    if col.block is not None:
+        return col.block, valid_idx
+    meta = [getattr(col, f)[valid_idx]
+            for f in ("height", "width", "nChannels", "mode")]
+    if any(m.min() != m.max() for m in meta):
+        return None
+    h, w, c, mode = (int(m[0]) for m in meta)
+    try:
+        dtype = np.dtype(imageTypeByCode(mode).dtype)
+    except ValueError:
+        return None
+    payloads = [col.data[i] for i in valid_idx]
+    row_bytes = h * w * c * dtype.itemsize
+    if any(p is None or len(p) != row_bytes for p in payloads):
+        return None  # metadata lied: the per-row path validates
+    block = np.frombuffer(b"".join(payloads), dtype=dtype)
+    return block.reshape(len(valid_idx), h, w, c), valid_idx
 
 
 def imageStructsToBatchArray(structs: Sequence[dict],
