@@ -27,6 +27,23 @@ _LAZY_EXPORTS = {
     "TFImageTransformer": ("sparkdl_tpu_torch.ml", "TFImageTransformer"),
     "DeepImageFeaturizer": ("sparkdl_tpu_torch.ml", "DeepImageFeaturizer"),
     "DeepImagePredictor": ("sparkdl_tpu_torch.ml", "DeepImagePredictor"),
+    "Estimator": ("sparkdl_tpu_torch.ml", "Estimator"),
+    "Model": ("sparkdl_tpu_torch.ml", "Model"),
+    "Pipeline": ("sparkdl_tpu_torch.ml", "Pipeline"),
+    "PipelineModel": ("sparkdl_tpu_torch.ml", "PipelineModel"),
+    "LogisticRegression": ("sparkdl_tpu_torch.ml", "LogisticRegression"),
+    "LogisticRegressionModel": ("sparkdl_tpu_torch.ml",
+                                "LogisticRegressionModel"),
+    "MulticlassClassificationEvaluator": (
+        "sparkdl_tpu_torch.ml", "MulticlassClassificationEvaluator"),
+    "RegressionEvaluator": ("sparkdl_tpu_torch.ml", "RegressionEvaluator"),
+    "BinaryClassificationEvaluator": ("sparkdl_tpu_torch.ml",
+                                      "BinaryClassificationEvaluator"),
+    "load": ("sparkdl_tpu_torch.ml", "load"),
+    "sql": ("sparkdl_tpu_torch.engine", "sql"),
+    "table": ("sparkdl_tpu_torch.engine", "table"),
+    "registerUDF": ("sparkdl_tpu_torch.udf", "registerUDF"),
+    "registerImageUDF": ("sparkdl_tpu_torch.udf", "registerImageUDF"),
 }
 
 __all__ = ["__version__"] + sorted(_LAZY_EXPORTS)

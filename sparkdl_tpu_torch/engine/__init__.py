@@ -1,5 +1,7 @@
 """The port's DataFrame engine."""
 
-from sparkdl_tpu_torch.engine.dataframe import DataFrame, EngineConfig
+from sparkdl_tpu_torch.engine.dataframe import (
+    DataFrame, EngineConfig, sql, table,
+)
 
-__all__ = ["DataFrame", "EngineConfig"]
+__all__ = ["DataFrame", "EngineConfig", "sql", "table"]

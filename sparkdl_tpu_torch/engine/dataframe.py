@@ -1,7 +1,10 @@
 """The port's DataFrame engine and its configuration.
 
 A port of the parts of ``sparkdl_tpu.engine.dataframe`` that the
-featurize path uses. A frame is a list of partitions, each a
+featurize path and the flagship workflow use (the SQL surface:
+``where``, ``selectExpr``, temp views, ``sql`` and ``table``; and
+``filter``, ``dropna``, ``limit``, ``randomSplit`` and the column
+renames). A frame is a list of partitions, each a
 :class:`Batch` of plain columns — numpy arrays (dim 0 = rows), Python
 lists, or :class:`~sparkdl_tpu_torch.image.imageIO.ImageColumn` — plus a
 lazy chain of per-partition ops.
@@ -18,7 +21,8 @@ pool from one of its own threads could deadlock. ``streamPartitions``
 yields the partitions one at a time from the same pool, with at most
 ``prefetch + 1`` started and not yet yielded (the supervisor's streaming
 mode).
-Durability and the cluster dispatch are not ported yet.
+Durability, the cluster dispatch, ``join``, ``groupBy``, ``orderBy``,
+``union``, ``distinct`` and ``sample`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from __future__ import annotations
 import concurrent.futures as _futures
 import os
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (
+    Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 
@@ -347,6 +353,60 @@ def _col_slice(col, start: int, stop: int):
     return col[start:stop]
 
 
+def _col_take(col, idx: np.ndarray):
+    if isinstance(col, ImageColumn):
+        return col.take(idx)
+    if isinstance(col, np.ndarray):
+        return col[idx]
+    return [col[i] for i in idx]
+
+
+def _col_valid(col) -> np.ndarray:
+    """Non-null mask of a column: an image struct's ``valid``; a numeric
+    array has no nulls (NaN is a value, as in Arrow); a list or object
+    array's None cells are null."""
+    if isinstance(col, ImageColumn):
+        return col.valid
+    if isinstance(col, np.ndarray) and col.dtype != object:
+        return np.ones(len(col), dtype=bool)
+    return np.array([v is not None for v in col], dtype=bool)
+
+
+def _col_concat(cols: List[Any]):
+    """One column from per-partition pieces of one column (the port's
+    ``pa.Table.from_batches``): image columns keep one contiguous block
+    where every piece is uniform in one shape, numpy pieces of one row
+    shape and dtype concatenate, anything else becomes a list of row
+    values (numpy rows kept as arrays, scalars as Python values)."""
+    pieces = [c for c in cols if len(c)] or cols[:1]
+    if len(pieces) == 1:
+        return pieces[0]
+    if all(isinstance(c, ImageColumn) for c in pieces):
+        meta = dict(origin=[o for c in pieces for o in c.origin],
+                    **{f: np.concatenate([getattr(c, f) for c in pieces])
+                       for f in ("height", "width", "nChannels", "mode",
+                                 "valid")})
+        blocks = [c.block for c in pieces]
+        if all(b is not None and b.shape[1:] == blocks[0].shape[1:]
+               and b.dtype == blocks[0].dtype for b in blocks):
+            return ImageColumn(block=np.concatenate(blocks), **meta)
+        return ImageColumn(data=[p for c in pieces for p in c._payloads()],
+                           **meta)
+    if all(isinstance(c, np.ndarray) and c.dtype != object
+           and c.shape[1:] == pieces[0].shape[1:]
+           and c.dtype == pieces[0].dtype for c in pieces):
+        return np.concatenate(pieces)
+    out: List[Any] = []
+    for c in pieces:
+        if isinstance(c, ImageColumn):
+            out.extend(c.to_pylist())
+        elif isinstance(c, np.ndarray) and c.ndim == 1:
+            out.extend(c.tolist())
+        else:
+            out.extend(c)
+    return out
+
+
 def _col_values(col) -> List[Any]:
     """Per-row Python values (Spark Row analog)."""
     if isinstance(col, ImageColumn):
@@ -390,6 +450,12 @@ class Batch:
 
     def select(self, names: Sequence[str]) -> "Batch":
         return Batch({n: self.column(n) for n in names}, self.num_rows)
+
+    def take(self, indices) -> "Batch":
+        """The rows at ``indices`` (a sequence of row numbers), in order."""
+        idx = np.asarray(indices, dtype=np.int64)
+        return Batch({n: _col_take(c, idx) for n, c in self.columns.items()},
+                     len(idx))
 
     def slice(self, start: int, stop: int) -> "Batch":
         stop = min(stop, self.num_rows)
@@ -505,6 +571,13 @@ class DataFrame:
                         i, b, ops, cancel))
                      for i, b in enumerate(self._partitions)])
             return self._materialized
+
+    def _joined_columns(self) -> Dict[str, Any]:
+        """The whole frame as ``{name: column}``, its partitions' pieces
+        joined in order (the port's ``toArrow``)."""
+        batches = self._materialize()
+        return {n: _col_concat([b.column(n) for b in batches])
+                for n in self._columns}
 
     def collect(self) -> List[Dict[str, Any]]:
         rows: List[Dict[str, Any]] = []
@@ -639,3 +712,219 @@ class DataFrame:
             return batch.with_column(name, _as_column(fn(batch)))
 
         return self._with_op(op, self._added(name))
+
+    def withConstantColumn(self, name: str, value: Any) -> "DataFrame":
+        """Add a column holding ``value`` in every row (literal support)."""
+        def op(batch: Batch) -> Batch:
+            return batch.with_column(name, [value] * batch.num_rows)
+
+        return self._with_op(op, self._added(name))
+
+    def withColumnRenamed(self, existing: str, new: str) -> "DataFrame":
+        if existing not in self._columns:
+            raise KeyError(f"No such column: {existing!r}")
+        names = [new if n == existing else n for n in self._columns]
+
+        def op(batch: Batch) -> Batch:
+            return Batch({(new if n == existing else n): c
+                          for n, c in batch.columns.items()},
+                         batch.num_rows)
+
+        return self._with_op(op, names)
+
+    def selectExpr(self, *exprs: str) -> "DataFrame":
+        """SQL projection over columns, literals and registered UDFs.
+
+        Supports ``col``, ``col as alias``, ``*``, numeric/'string'
+        literals, and nested multi-argument UDF calls
+        (``udf1(udf2(image), other_col) as out``), the model-as-SQL-UDF
+        serving path. UDFs resolve against
+        ``sparkdl_tpu_torch.udf.udf_registry``; the grammar lives in
+        ``engine/sql_expr.py``.
+        """
+        from sparkdl_tpu_torch.engine import sql_expr
+
+        frame = self
+        temp_counter = [0]
+        # (source column on frame, output name); temp columns drop by
+        # omission, so one source column can feed several outputs
+        projection: List[Tuple[str, str]] = []
+
+        def fresh_temp() -> str:
+            temp_counter[0] += 1
+            return f"__sdl_expr_{temp_counter[0]}"
+
+        def evaluate(node) -> str:
+            """Materialize the expression as a column; returns its name."""
+            nonlocal frame
+            if isinstance(node, sql_expr.Column):
+                if node.name not in self._columns:
+                    raise KeyError(f"No such column: {node.name!r}")
+                return node.name
+            if isinstance(node, sql_expr.Literal):
+                tmp = fresh_temp()
+                frame = frame.withConstantColumn(tmp, node.value)
+                return tmp
+            if isinstance(node, sql_expr.Call):
+                from sparkdl_tpu_torch.udf import udf_registry  # layering
+
+                arg_cols = [evaluate(a) for a in node.args]
+                tmp = fresh_temp()
+                frame = udf_registry.get(node.fn).apply(frame, arg_cols, tmp)
+                return tmp
+            raise ValueError(f"Cannot evaluate {node!r}")
+
+        for expr in exprs:
+            node, alias = sql_expr.parse(expr)
+            if isinstance(node, sql_expr.Star):
+                projection.extend((c, c) for c in self._columns)
+                continue
+            src = evaluate(node)
+            out = alias or (src if isinstance(node, sql_expr.Column)
+                            else sql_expr.default_name(expr))
+            projection.append((src, out))
+
+        def project(batch: Batch) -> Batch:
+            return Batch({out: batch.column(src) for src, out in projection},
+                         batch.num_rows)
+
+        return frame._with_op(project, [out for _, out in projection])
+
+    def where(self, expr: str) -> "DataFrame":
+        """SQL row filter: ``df.where("label = 1 AND score > 0.5")``.
+
+        Comparisons (``= != <> < <= > >=``), ``AND/OR/NOT``, grouping
+        parens and ``IS [NOT] NULL`` over columns and literals, with SQL
+        null semantics (a comparison against NULL is not true, so the row
+        drops). UDF calls belong in ``selectExpr``, not here.
+        """
+        from sparkdl_tpu_torch.engine import sql_expr
+
+        node = sql_expr.parse_bool(expr)
+        cols = sql_expr.bool_columns(node)
+        for c in cols:
+            if c not in self._columns:
+                raise KeyError(f"No such column: {c!r}")
+
+        def pred(*vals) -> bool:
+            return sql_expr.eval_bool(node, dict(zip(cols, vals))) is True
+
+        return self.filter(pred, inputCols=cols)
+
+    def createOrReplaceTempView(self, name: str) -> None:
+        """Register this frame under ``name`` for :func:`sql` queries
+        (the analog of Spark's temp-view registry)."""
+        if not name or not name.replace("_", "").isalnum():
+            raise ValueError(f"Bad view name {name!r}")
+        with _views_lock:
+            _temp_views[name] = self
+
+    def filter(self, predicate: Callable, inputCols: Sequence[str]
+               ) -> "DataFrame":
+        """Keep the rows where ``predicate(*input_values)`` is true."""
+        def op(batch: Batch) -> Batch:
+            if not inputCols:
+                # a constant predicate (where("1 = 1")) keeps all or none
+                keep = bool(predicate())
+                return batch.take(np.arange(batch.num_rows if keep else 0))
+            inputs = [_col_values(batch.column(c)) for c in inputCols]
+            return batch.take([i for i, row in enumerate(zip(*inputs))
+                               if predicate(*row)])
+
+        return self._with_op(op, self._columns)
+
+    def dropna(self, subset: Optional[Sequence[str]] = None) -> "DataFrame":
+        """Drop the rows with a null in any of ``subset`` (default: every
+        column)."""
+        cols = list(subset or self._columns)
+
+        def op(batch: Batch) -> Batch:
+            mask = np.ones(batch.num_rows, dtype=bool)
+            for c in cols:
+                mask &= _col_valid(batch.column(c))
+            return batch.take(np.flatnonzero(mask))
+
+        return self._with_op(op, self._columns)
+
+    # -- materializing transformations ---------------------------------------
+
+    def limit(self, n: int) -> "DataFrame":
+        """First n rows, materializing only as many partitions as needed."""
+        if self._materialized is not None:
+            taken = self._materialized
+        else:
+            taken = []
+            count = 0
+            for i, part in enumerate(self._partitions):
+                batch = _run_partition(i, part, self._ops)
+                taken.append(batch)
+                count += batch.num_rows
+                if count >= n:
+                    break
+            if not taken:
+                return DataFrame(self._partitions, self._columns, self._ops)
+        columns = {name: _col_concat([b.column(name) for b in taken])
+                   for name in self._columns}
+        return DataFrame.fromColumns(
+            {name: _col_take(c, np.arange(min(n, len(c))))
+             for name, c in columns.items()}, numPartitions=1)
+
+    def randomSplit(self, weights: Sequence[float],
+                    seed: int = 0) -> List["DataFrame"]:
+        """Split rows into len(weights) disjoint frames (Spark's
+        randomSplit: weights normalize; assignment is a seeded global
+        permutation over the frame's rows in order, the reference's, so a
+        seed puts the same rows in each split)."""
+        if not weights or any(w <= 0 for w in weights):
+            raise ValueError(f"weights must be positive, got {weights}")
+        columns = self._joined_columns()
+        n = self.count()
+        perm = np.random.default_rng(seed).permutation(n)
+        total = float(sum(weights))
+        bounds = np.cumsum([w / total for w in weights])
+        out: List["DataFrame"] = []
+        start = 0
+        for i, b in enumerate(bounds):
+            stop = n if i == len(weights) - 1 else int(round(b * n))
+            idx = np.sort(perm[start:stop])
+            out.append(DataFrame.fromColumns(
+                {name: _col_take(c, idx) for name, c in columns.items()},
+                numPartitions=max(1, self.numPartitions)))
+            start = stop
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Temp views + sql(), the SQL serving entry
+# ---------------------------------------------------------------------------
+
+_temp_views: Dict[str, DataFrame] = {}
+# views are process-wide, registered and read from any thread
+_views_lock = threading.Lock()
+
+
+def table(name: str) -> DataFrame:
+    """The frame registered under ``name`` (createOrReplaceTempView)."""
+    with _views_lock:
+        try:
+            return _temp_views[name]
+        except KeyError:
+            raise KeyError(
+                f"No temp view {name!r}; registered: {sorted(_temp_views)}"
+            ) from None
+
+
+def sql(query: str) -> DataFrame:
+    """``SELECT <exprs> FROM <view> [WHERE <condition>]`` over temp views.
+
+    Expressions run through :meth:`DataFrame.selectExpr` (registered
+    UDFs, nesting, aliases, literals, ``*``), the optional WHERE through
+    :meth:`DataFrame.where`; lazy like every frame transformation.
+    """
+    from sparkdl_tpu_torch.engine import sql_expr
+
+    parts = sql_expr.split_query(query)
+    frame = table(parts["view"])
+    if parts["where"]:
+        frame = frame.where(parts["where"])
+    return frame.selectExpr(*parts["select"])

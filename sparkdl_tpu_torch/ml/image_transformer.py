@@ -83,6 +83,16 @@ class TorchImageTransformer(Transformer, HasInputCol, HasOutputCol,
     def getInputSize(self):
         return self.getOrDefault(self.inputSize)
 
+    def save(self, path: str) -> None:
+        """Not ported yet: the reference saves a ModelFunction-backed
+        stage as a StableHLO export with the weights baked in, and the
+        port has no such serialized-program artifact."""
+        raise NotImplementedError(
+            "TorchImageTransformer.save is not yet ported to "
+            "sparkdl_tpu_torch: it needs a serialized-program artifact of "
+            "its ModelFunction (the reference's StableHLO export, "
+            "ml/persistence.py save_model_function)")
+
     # -- execution -----------------------------------------------------------
 
     def _target_size(self, model) -> Optional[Tuple[int, int]]:

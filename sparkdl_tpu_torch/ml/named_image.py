@@ -6,6 +6,7 @@ port's registry, and featurize/predict run through
 ``DeepImagePredictor(decodePredictions=True)`` emits top-K ``(class,
 description, probability)`` rows over the model's own classes, labelled
 from a local Keras class index where one exists, else ``class_<i>``.
+Both save and load (``ml/persistence.py``) with their ``dtype``.
 """
 
 from __future__ import annotations
@@ -103,6 +104,42 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol,
         that._mf_cache = dict(self._mf_cache)
         return that
 
+    # -- persistence (see ml/persistence.py) ---------------------------------
+
+    _persist_kind = "featurize"
+
+    def save(self, path: str) -> None:
+        """``metadata.json`` with the params and the compute ``dtype``'s
+        name; the seeded ``"random"`` init saves only its marker, any
+        other weights the built module's state dict (``weights.pt``)."""
+        from sparkdl_tpu_torch.ml import persistence as P
+
+        os.makedirs(path, exist_ok=True)
+        params = P.jsonable_params(self, skip=("weights", "dtype"))
+        params["dtype"] = P.dtype_name(self.getDtype())
+        artifacts = {}
+        weights = self.getWeights()
+        if isinstance(weights, str) and weights == "random":
+            params["weights"] = "random"
+        else:
+            module = self._model_function(self._persist_kind).variables
+            artifacts["weights"] = P.save_state_dict(module, path)
+        P.write_metadata(path, self, params, artifacts)
+
+    @classmethod
+    def _load_from(cls, path: str, meta):
+        from sparkdl_tpu_torch.core.model_function import torch_dtype
+
+        kwargs = dict(meta["params"])
+        dtype = kwargs.pop("dtype", None)
+        if "weights" in meta["artifacts"]:
+            kwargs["weights"] = os.path.join(path,
+                                             meta["artifacts"]["weights"])
+        inst = cls(**kwargs)
+        if dtype is not None:
+            inst.setDtype(torch_dtype(dtype))
+        return inst
+
 
 class DeepImageFeaturizer(_NamedImageTransformer):
     """Headless named CNN → feature-vector column (transfer learning)."""
@@ -136,6 +173,8 @@ class DeepImageFeaturizer(_NamedImageTransformer):
 
 class DeepImagePredictor(_NamedImageTransformer):
     """Full named CNN → class-probability column, optionally decoded top-K."""
+
+    _persist_kind = "predict"
 
     decodePredictions = Param(
         "DeepImagePredictor", "decodePredictions",

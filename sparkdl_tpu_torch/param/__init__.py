@@ -9,6 +9,7 @@ from sparkdl_tpu_torch.param.shared_params import (
     CanLoadImage,
     HasBatchSize,
     HasInputCol,
+    HasLabelCol,
     HasModelFunction,
     HasOutputCol,
     HasOutputMode,
@@ -21,6 +22,7 @@ __all__ = [
     "TypeConverters",
     "SparkDLTypeConverters",
     "HasInputCol",
+    "HasLabelCol",
     "HasOutputCol",
     "HasOutputMode",
     "HasBatchSize",

@@ -36,6 +36,14 @@ class TypeConverters:
         raise TypeError(f"Could not convert {value!r} to int")
 
     @staticmethod
+    def toFloat(value: Any) -> float:
+        if isinstance(value, bool):
+            raise TypeError(f"Could not convert bool {value!r} to float")
+        if isinstance(value, (int, float, np.integer, np.floating)):
+            return float(value)
+        raise TypeError(f"Could not convert {value!r} to float")
+
+    @staticmethod
     def toBoolean(value: Any) -> bool:
         if isinstance(value, bool):
             return value

@@ -1,8 +1,9 @@
 """Shared param mixins used by the ported transformers.
 
 A copy of the mixins of ``sparkdl_tpu.param.shared_params`` that the
-featurize and ingest paths read; the payload of ``HasModelFunction`` is
-the port's :class:`sparkdl_tpu_torch.core.model_function.ModelFunction`.
+featurize, ingest and classifier paths read; the payload of
+``HasModelFunction`` is the port's
+:class:`sparkdl_tpu_torch.core.model_function.ModelFunction`.
 """
 
 from __future__ import annotations
@@ -37,6 +38,19 @@ class HasOutputCol(Params):
 
     def getOutputCol(self) -> str:
         return self.getOrDefault(self.outputCol)
+
+
+class HasLabelCol(Params):
+    labelCol = Param(
+        "HasLabelCol", "labelCol",
+        "name of the label column (one-hot or class-index encoded)",
+        typeConverter=SparkDLTypeConverters.toColumnName)
+
+    def setLabelCol(self, value: str) -> "HasLabelCol":
+        return self._set(labelCol=value)
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault(self.labelCol)
 
 
 class HasOutputMode(Params):
