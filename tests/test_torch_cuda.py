@@ -822,3 +822,52 @@ def test_oom_inside_capture_stores_no_graph(card, tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1].startswith("raised"), \
         out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("standardization", [True, False])
+def test_logistic_regression_fits_on_the_card_as_on_the_cpu(
+        card, standardization):
+    """``LogisticRegression`` fits on the card by default
+    (``EngineConfig.device = "cuda"``) and agrees with the port's CPU fit
+    of the same frame: coefficients within ``1e-3·max|cpu|``, the same
+    predictions, the objective within ``1e-5`` relative."""
+    import sparkdl_tpu_torch as s
+    from sparkdl_tpu_torch.ml.classification import SoftmaxObjective
+
+    rng = np.random.default_rng(7)
+    n, d, k = 512, 64, 4
+    y = rng.integers(0, k, n)
+    x = (rng.normal(size=(k, d))[y] + 2.0 * rng.normal(size=(n, d))
+         ).astype(np.float32)
+    df = s.DataFrame.fromColumns({"features": x, "label": y.tolist()},
+                                 numPartitions=4)
+    saved = s.EngineConfig.snapshot()
+    try:
+        s.EngineConfig.device = "cuda"
+        lr = s.LogisticRegression(maxIter=100, regParam=0.01,
+                                  standardization=standardization)
+        gpu = lr.fit(df)
+        s.EngineConfig.device = "cpu"
+        cpu = lr.fit(df)
+    finally:
+        s.EngineConfig.restore(saved)
+    assert gpu.fitStats["device"].startswith("cuda")
+    assert cpu.fitStats["device"] == "cpu"
+    limit = 1e-3 * float(np.abs(cpu.coefficients).max())
+    assert float(np.abs(gpu.coefficients - cpu.coefficients).max()) <= limit
+
+    def objective(model):
+        f = SoftmaxObjective(torch.from_numpy(x), torch.from_numpy(y), k,
+                             0.01, True)
+        w = torch.from_numpy(model.coefficients)
+        if standardization:
+            w = w * torch.from_numpy(x.std(axis=0, ddof=1))[:, None]
+            f.x = f.x / torch.from_numpy(x.std(axis=0, ddof=1))
+        p = torch.cat([w.reshape(-1), torch.from_numpy(model.intercept)])
+        return float(f(p)[0])
+
+    assert abs(objective(gpu) - objective(cpu)) <= 1e-5 * objective(cpu)
+    preds = [[r["prediction"] for r in m.transform(df).collect()]
+             for m in (gpu, cpu)]
+    assert preds[0] == preds[1]

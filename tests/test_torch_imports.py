@@ -28,6 +28,11 @@ def test_no_forbidden_imports_in_source():
     for ingest in ("core/decode_pool.py", "native/loader.py",
                    "native/__init__.py", "image/imageIO.py"):
         assert ROOT / "sparkdl_tpu_torch" / ingest in files
+    for flagship in ("engine/sql_expr.py", "udf/__init__.py",
+                     "udf/registry.py", "ml/base.py", "ml/linear_utils.py",
+                     "ml/lbfgs.py", "ml/classification.py",
+                     "ml/evaluation.py", "ml/persistence.py"):
+        assert ROOT / "sparkdl_tpu_torch" / flagship in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
