@@ -206,6 +206,32 @@ other rows' pixels and features those of the pool phase.
 and the network runs in bf16 (``sep2d``'s tensor-core body, no
 ``preproc_resize``), four rows against the CPU run of the same path.
 
+Then the reference's flagship workflow (``examples/flagship_pipeline.py``)
+on the card, ``flagship_pipeline``: 64 299×299 JPEGs in two classes
+(class c brightens channel c) → ``readImages(dir, numPartition=4)`` → a
+``label`` column → ``randomSplit([0.75, 0.25], seed=0)`` →
+``Pipeline([DeepImageFeaturizer("Xception"), LogisticRegression(
+maxIter=100, regParam=0.01)]).fit(train)`` under ``"force"`` in bf16 (the
+features, then the port's own L-BFGS on the card) → ``transform`` and
+``MulticlassClassificationEvaluator`` accuracy and f1 on train and test →
+``save`` → ``load`` → ``transform`` (probabilities ``np.array_equal`` to
+the original model's) → ``registerImageUDF`` and ``sql("SELECT
+featurize(image) AS features, label FROM images WHERE label = 1")``
+(exactly the label-1 rows, features within bf16 tolerance of the
+featurizer's). The card's fit is held to the port's CPU fit of the same
+collected features (``compare_fits``: objective, coefficients in the
+solve's standardized space, intercepts, test probabilities, equal
+predictions). Its line splits the fit's seconds into featurize and
+L-BFGS and gives iterations, ms and host syncs per iteration, transform
+images/s, save and load seconds, and ``sep2d``'s launches by body (the
+tensor-core body, 34 a forward, forwards and captures counted).
+``lr_fit_scale`` fits ``LogisticRegression(maxIter=100, regParam=0.01)``
+on 16,384 × 2048 seeded float32 features in 10 classes (128 MiB, one
+frame with a 2-D column) on the card and on the CPU: collect ms, fit
+seconds, iterations, ms, line-search steps and host syncs per
+iteration, the CPU fit's seconds, and the two fits held to each other;
+``--profile`` adds the card's idle share during the fit.
+
 The line ``{"phase": "total", ...}`` gives the script's seconds so far.
 
 ``--profile`` adds device times from ``torch.profiler`` beside each event
@@ -1902,11 +1928,14 @@ def png_bytes(arr) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
-def write_files(root, size, seed) -> str:
+def write_files(root, size, seed, classes: int = 0) -> str:
     """FILES_IMAGES seeded photo-like images of ``size`` (soft-edged colour
     blocks with a little noise, which compress about as photos do, where
-    uniform noise would not) written under ``root`` as JPEGs of quality FILES_QUALITY, or as
-    PNGs where Pillow is missing; returns the format written."""
+    uniform noise would not) written under ``root`` as JPEGs of quality
+    FILES_QUALITY, or as PNGs where Pillow is missing; returns the format
+    written. With ``classes``, image ``i`` is of class ``i % classes``:
+    its blocks span 0-99 and its channel ``i % classes`` is brightened by
+    150 (the flagship example's two-class set, photo-like)."""
     try:
         from PIL import Image
     except ImportError:
@@ -1914,14 +1943,19 @@ def write_files(root, size, seed) -> str:
     rng = np.random.default_rng(seed)
     h, w = size
     for i in range(FILES_IMAGES):
-        coarse = rng.integers(0, 256, (h // 32, w // 32, 3), dtype=np.uint8)
-        field = np.repeat(np.repeat(coarse, 32, axis=0), 32, axis=1)
+        coarse = rng.integers(0, 256, (-(-h // 32), -(-w // 32), 3),
+                              dtype=np.uint8)
+        field = np.repeat(np.repeat(coarse, 32, axis=0), 32,
+                          axis=1)[:h, :w]
         # a 3-tap blur along each axis softens the blocks' edges
         for axis in (0, 1):
             field = (np.roll(field, 1, axis).astype(np.uint16) + 2 * field
                      + np.roll(field, -1, axis)) // 4
         arr = np.clip(field + rng.integers(-1, 2, field.shape), 0,
                       255).astype(np.uint8)
+        if classes:
+            arr = (arr.astype(np.uint16) * 100 // 256).astype(np.uint8)
+            arr[..., i % classes] += 150
         if Image is not None:
             Image.fromarray(arr).save(os.path.join(root, f"img_{i:03d}.jpg"),
                                       quality=FILES_QUALITY)
@@ -2304,6 +2338,336 @@ def files_path(s, kernels):
     return phases
 
 
+#: the flagship workflow's fit (examples/flagship_pipeline.py)
+LR_MAX_ITER = 100
+LR_REG = 0.01
+#: The card's fit against the port's CPU fit of the same rows: the
+#: objective (evaluated once, on the CPU) within OBJ_REL, the
+#: coefficients in the space the solve ran in (scaled by each feature's
+#: std) within a phase's share of max|cpu|, the intercepts within
+#: INTERCEPT_REL·max(1, max|cpu|), the probabilities within PROB_ABS,
+#: and the predictions equal (lr_fit_scale: on AGREE of the rows).
+#: lr_fit_scale's 16,384 rows determine the solution, which both fits
+#: reach before the iteration cap: its coefficients are held to the
+#: float32 slice tolerance, 1e-3. The flagship's 48 rows of 2048
+#: features do not: most directions are the 0.01 penalty's alone, both
+#: fits stop at the 100-iteration cap with the gradient above ``tol``,
+#: and two float32 runs that sum in other orders drift apart along
+#: those flat directions, so its coefficients are held to 5e-2 and the
+#: fit to its objective and probabilities.
+OBJ_REL = 1e-4
+COEF_REL = {"flagship_pipeline": 5e-2, "lr_fit_scale": 1e-3}
+INTERCEPT_REL = 1e-2
+PROB_ABS = 1e-3
+AGREE = 0.999
+#: lr_fit_scale: Xception's feature width over a 16k-image set
+SCALE_ROWS, SCALE_DIM, SCALE_CLASSES = 16384, 2048, 10
+SCALE_CENTER = 0.04      # class centres' scale against unit noise
+
+
+def launch_counts(kernels) -> tuple:
+    return (dict(kernels.launches),
+            {k: dict(v) for k, v in kernels.launches_by_body.items()})
+
+
+def compare_fits(name, card, cpu, x, y) -> dict:
+    """The card's and the CPU's ``LogisticRegressionModel`` over the same
+    rows ``x``, ``y``: each objective (evaluated on the CPU, in the
+    standardized space the fits solved in), their relative difference,
+    the coefficients' and intercepts' max|Δ| in that space, each
+    beside its tolerance, and both iteration counts. Asserts nothing."""
+    from sparkdl_tpu_torch.ml.classification import SoftmaxObjective
+    from sparkdl_tpu_torch.ml.linear_utils import weighted_feature_std
+
+    std = weighted_feature_std(x, None).astype(np.float32)
+    objective = SoftmaxObjective(torch.from_numpy(x / std),
+                                 torch.from_numpy(np.asarray(y)),
+                                 card.numClasses, LR_REG, True)
+
+    def scaled(m):
+        return m.coefficients * std[:, None]
+
+    def value(m):
+        w = torch.from_numpy(scaled(m))
+        return float(objective(torch.cat([
+            w.reshape(-1), torch.from_numpy(m.intercept)]))[0])
+
+    obj = {"card": value(card), "cpu": value(cpu)}
+    return {
+        "objective": obj,
+        "objective_rel_diff": abs(obj["card"] - obj["cpu"]) / abs(obj["cpu"]),
+        "objective_tolerance": OBJ_REL,
+        "coef_scaled_max_abs_err": float(np.abs(scaled(card)
+                                                - scaled(cpu)).max()),
+        "coef_scaled_tolerance": COEF_REL[name] * float(
+            np.abs(scaled(cpu)).max()),
+        "coef_max_abs_err_original_scale": float(np.abs(
+            card.coefficients - cpu.coefficients).max()),
+        "coef_max_abs_original_scale": float(np.abs(cpu.coefficients).max()),
+        "intercept_max_abs_err": float(np.abs(card.intercept
+                                              - cpu.intercept).max()),
+        "intercept_tolerance": INTERCEPT_REL * max(
+            1.0, float(np.abs(cpu.intercept).max())),
+        "iterations": {"card": card.numIterations,
+                       "cpu": cpu.numIterations}}
+
+
+def check_fits(name, cmp) -> None:
+    for err, tol in (("objective_rel_diff", "objective_tolerance"),
+                     ("coef_scaled_max_abs_err", "coef_scaled_tolerance"),
+                     ("intercept_max_abs_err", "intercept_tolerance")):
+        assert cmp[err] <= cmp[tol], f"{name}: {err} over {tol}: {cmp}"
+
+
+def flagship_path(s, kernels):
+    """The reference's flagship workflow (``examples/flagship_pipeline.py``)
+    on the card, Xception under ``"force"`` in bf16 on WORKERS partition
+    threads:
+
+    - FILES_IMAGES 299×299 JPEGs in two classes (class c brightens
+      channel c) → ``readImages(dir, numPartition=4)`` → a ``label``
+      column by ``withColumn`` → ``randomSplit([0.75, 0.25], seed=0)``;
+    - ``Pipeline([DeepImageFeaturizer("Xception", batchSize=16),
+      LogisticRegression(maxIter=100, regParam=0.01)]).fit(train)``: the
+      features, then L-BFGS on the card, held by ``compare_fits`` to the
+      port's CPU fit of the very features the card's fit collected, its
+      test probabilities within PROB_ABS and its predictions equal;
+    - ``transform`` of test and train, ``MulticlassClassificationEvaluator``
+      accuracy and f1 on each;
+    - ``save`` → ``load`` → ``transform(test)``: probabilities
+      ``np.array_equal`` to the original model's (both with
+      ``coalesce=False``, so each partition is its own chunk);
+    - ``registerImageUDF("featurize", <the featurizer's model function>)``
+      and ``sql("SELECT featurize(image) AS features, label FROM images
+      WHERE label = 1")``: exactly the label-1 rows, their features
+      within BF16_REL of the featurizer's.
+
+    Every ``sep2d`` launch is the tensor-core body, 34 a forward."""
+    import shutil
+
+    from sparkdl_tpu_torch.core import profiling
+    from sparkdl_tpu_torch.engine import dataframe as engine
+    from sparkdl_tpu_torch.udf import udf_registry
+
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.max_workers = WORKERS
+    s.EngineConfig.coalesce = True
+    s.EngineConfig.decode_workers = 0
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="sparkdl_flagship_")
+    try:
+        images = os.path.join(root, "images")
+        os.mkdir(images)
+        write_files(images, TARGET, SEED + 400, classes=2)
+        df = s.readImages(images, numPartition=FILES_PARTITIONS).withColumn(
+            "label", lambda path: int(os.path.basename(path)[4:7]) % 2,
+            inputCols=["filePath"])
+        t0 = time.perf_counter()
+        train, test = df.randomSplit([0.75, 0.25], seed=SEED)
+        split_s = time.perf_counter() - t0
+        feat = s.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                     modelName="Xception", batchSize=BATCH)
+        lr = s.LogisticRegression(maxIter=LR_MAX_ITER, regParam=LR_REG)
+        # keep what the fit collected, to fit the same rows on the CPU
+        seen = {}
+        collect_xy = lr._collect_xy
+
+        def keep(dataset):
+            seen["xy"] = collect_xy(dataset)
+            return seen["xy"]
+
+        lr._collect_xy = keep
+        compiled = executed_model(s, feat, TARGET).jitted(dev)
+        replays = compiled.replays
+        kernels.reset_launches()
+        profiling.reset_phase_stats()
+        t0 = time.perf_counter()
+        model = s.Pipeline(stages=[feat, lr]).fit(train)
+        fit_s = time.perf_counter() - t0
+        fitted = model.stages[1]
+        stats = fitted.fitStats
+        assert stats["device"].startswith("cuda"), stats
+        scored, rates = {}, {}
+        for name, frame in (("test", test), ("train", train)):
+            t0 = time.perf_counter()
+            scored[name] = model.transform(frame).cache()
+            rows = scored[name].count()
+            rates[name] = rows / (time.perf_counter() - t0)
+        evaluation = {
+            metric: {name: s.MulticlassClassificationEvaluator(
+                metricName=metric).evaluate(frame)
+                for name, frame in scored.items()}
+            for metric in ("accuracy", "f1")}
+        test_rows = scored["test"].collect()
+        train_rows = scored["train"].collect()
+
+        # the same features fit on the CPU
+        x, y, _, _ = seen["xy"]
+        s.EngineConfig.device = "cpu"
+        t0 = time.perf_counter()
+        cpu = s.LogisticRegression(maxIter=LR_MAX_ITER, regParam=LR_REG).fit(
+            s.DataFrame.fromColumns({"features": x, "label": y.tolist()}))
+        cpu_fit_s = time.perf_counter() - t0
+        test_feats = np.stack([np.asarray(r["features"], np.float32)
+                               for r in test_rows])
+        cpu_rows = cpu.transform(s.DataFrame.fromColumns(
+            {"features": test_feats})).collect()
+        s.EngineConfig.device = "cuda"
+        cmp = compare_fits("flagship_pipeline", fitted, cpu, x, y)
+        cmp["prob_max_abs_err"] = max(
+            float(np.abs(np.asarray(a["probability"])
+                         - np.asarray(b["probability"])).max())
+            for a, b in zip(test_rows, cpu_rows))
+        cmp["prob_tolerance"] = PROB_ABS
+        cmp["predictions_equal"] = [r["prediction"] for r in test_rows] \
+            == [r["prediction"] for r in cpu_rows]
+        check_fits("flagship_pipeline", cmp)
+        assert cmp["prob_max_abs_err"] <= PROB_ABS, cmp
+        assert cmp["predictions_equal"], cmp
+
+        # save -> load -> transform, each partition its own chunk
+        s.EngineConfig.coalesce = False
+        before = model.transform(test).collect()
+        saved = os.path.join(root, "fitted_pipeline")
+        t0 = time.perf_counter()
+        model.save(saved)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = s.load(saved)
+        loaded_compiled = executed_model(s, loaded.stages[0],
+                                         TARGET).jitted(dev)
+        load_s = time.perf_counter() - t0
+        after = loaded.transform(test).collect()
+        s.EngineConfig.coalesce = True
+        assert all(np.array_equal(a["probability"], b["probability"])
+                   and a["prediction"] == b["prediction"]
+                   for a, b in zip(before, after)), "reload differs"
+
+        # the model as a SQL UDF over a temp view
+        s.registerImageUDF("featurize", feat._model_function("featurize"),
+                           batchSize=BATCH)
+        df.createOrReplaceTempView("images")
+        t0 = time.perf_counter()
+        served = s.sql("SELECT featurize(image) AS features, label "
+                       "FROM images WHERE label = 1").collect()
+        sql_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts, by_body = launch_counts(kernels)
+        stats_all = profiling.phase_stats()
+        udf_registry.unregister("featurize")
+        engine._temp_views.pop("images", None)
+
+        paths = [r["filePath"] for r in df.select("filePath", "label")
+                 .collect() if r["label"] == 1]
+        assert len(served) == len(paths) == FILES_IMAGES // 2, len(served)
+        assert all(r["label"] == 1 for r in served)
+        by_path = {r["filePath"]: np.asarray(r["features"], np.float32)
+                   for r in train_rows + test_rows}
+        ref = np.stack([by_path[p] for p in paths])
+        got = np.stack([np.asarray(r["features"], np.float32)
+                        for r in served])
+        sql_err = float(np.abs(got - ref).max())
+        sql_tol = BF16_REL * float(np.abs(ref).max())
+        assert sql_err <= sql_tol, f"sql features {sql_err} > {sql_tol}"
+
+        forwards = (compiled.replays - replays) + loaded_compiled.replays
+        captures = stats_all.get("sparkdl.compile", {"count": 0})["count"]
+        expected = {k: (34 if k == "sep2d" else 0) * (forwards + captures)
+                    for k in counts}
+        assert counts == expected, f"launches {counts} != {expected}"
+        assert by_body["sep2d"]["wgmma"] == counts["sep2d"] > 0, by_body
+        iters = fitted.numIterations
+        out = {"phase": "flagship_pipeline", "files": FILES_IMAGES,
+               "size": list(TARGET), "partitions": FILES_PARTITIONS,
+               "workers": WORKERS, "train_rows": train.count(),
+               "test_rows": test.count(), "split_s": split_s,
+               "fit_s": fit_s, "fit_featurize_s": stats["collect_s"],
+               "fit_lbfgs_s": stats["fit_s"], "iterations": iters,
+               "ms_per_iteration": stats["fit_s"] * 1e3 / iters,
+               "linesearch_steps": stats["linesearch_steps"],
+               "evaluations": stats["evaluations"],
+               "host_syncs": stats["syncs"],
+               "host_syncs_per_iteration": stats["syncs"] / iters,
+               "transform_images_per_s": rates, "evaluation": evaluation,
+               "cpu_fit_s": cpu_fit_s, "vs_cpu_fit": cmp,
+               "save_s": save_s, "load_s": load_s,
+               "reload_probabilities_equal": True,
+               "sql_rows": len(served), "sql_s": sql_s,
+               "sql_max_abs_err": sql_err, "sql_tolerance": sql_tol,
+               "forwards": forwards, "captures": captures,
+               "launches": counts, "launches_by_body": by_body}
+        emit(out)
+        return {"flagship_pipeline": out}
+    finally:
+        s.EngineConfig.coalesce = True
+        s.EngineConfig.device = "cuda"
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def lr_fit_scale(s, kernels):
+    """The classifier a user trains after featurizing a 16k-image set:
+    SCALE_ROWS × SCALE_DIM float32 features (Xception's width) in
+    SCALE_CLASSES seeded Gaussian classes, one frame with a 2-D feature
+    column, ``LogisticRegression(maxIter=100, regParam=0.01)`` on the card
+    (after a 2-iteration warm-up fit) and on the CPU, held to each other
+    by ``compare_fits`` (predictions alike on AGREE of the rows)."""
+    s.EngineConfig.device = "cuda"
+    rng = np.random.default_rng(SEED + 500)
+    t0 = time.perf_counter()
+    y = rng.integers(0, SCALE_CLASSES, SCALE_ROWS)
+    centers = SCALE_CENTER * rng.standard_normal(
+        (SCALE_CLASSES, SCALE_DIM), dtype=np.float32)
+    x = rng.standard_normal((SCALE_ROWS, SCALE_DIM), dtype=np.float32)
+    x += centers[y]
+    gen_s = time.perf_counter() - t0
+    df = s.DataFrame.fromColumns({"features": x, "label": y},
+                                 numPartitions=8)
+    lr = s.LogisticRegression(maxIter=LR_MAX_ITER, regParam=LR_REG)
+    kernels.reset_launches()
+    lr.copy({lr.maxIter: 2}).fit(df)  # warm-up: cuBLAS, allocator
+    t0 = time.perf_counter()
+    gpu = lr.fit(df)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts, by_body = launch_counts(kernels)
+    stats = gpu.fitStats
+    assert stats["device"].startswith("cuda"), stats
+    idle = profiled(lambda: lr.fit(df))["idle_share"] if PROFILE else None
+    s.EngineConfig.device = "cpu"
+    t0 = time.perf_counter()
+    cpu = lr.fit(df)
+    cpu_s = time.perf_counter() - t0
+    s.EngineConfig.device = "cuda"
+
+    cmp = compare_fits("lr_fit_scale", gpu, cpu, x, y)
+    cmp["prediction_agreement"] = float(np.mean(
+        np.argmax(x @ gpu.coefficients + gpu.intercept, axis=1)
+        == np.argmax(x @ cpu.coefficients + cpu.intercept, axis=1)))
+    cmp["agreement_floor"] = AGREE
+    check_fits("lr_fit_scale", cmp)
+    assert cmp["prediction_agreement"] >= AGREE, cmp
+    assert not any(counts.values()), counts
+    iters = gpu.numIterations
+    out = {"phase": "lr_fit_scale", "rows": SCALE_ROWS,
+           "features": SCALE_DIM, "classes": SCALE_CLASSES,
+           "feature_mib": x.nbytes / 2 ** 20, "gen_s": gen_s,
+           "collect_ms": stats["collect_s"] * 1e3, "fit_s": stats["fit_s"],
+           "wall_s": wall_s, "iterations": iters,
+           "ms_per_iteration": stats["fit_s"] * 1e3 / iters,
+           "linesearch_steps_per_iteration":
+               stats["linesearch_steps"] / iters,
+           "evaluations": stats["evaluations"],
+           "host_syncs_per_iteration": stats["syncs"] / iters,
+           "idle_share": idle, "cpu_fit_s": cpu_s,
+           "cpu_collect_ms": cpu.fitStats["collect_s"] * 1e3,
+           "vs_cpu_fit": cmp,
+           "launches": counts, "launches_by_body": by_body}
+    emit(out)
+    return {"lr_fit_scale": out}
+
+
 AUTOTUNE_PHASES = [
     ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL,
      "bfloat16"),
@@ -2490,6 +2854,10 @@ def main() -> int:
     # image files → readImages → featurize, the decode pool, the host
     # downscale and decode faults
     phases.update(files_path(s, kernels))
+    # the flagship workflow: featurize, fit on the card, evaluate, save and
+    # load, serve as a SQL UDF; then the classifier at a 16k-image scale
+    phases.update(flagship_path(s, kernels))
+    phases.update(lr_fit_scale(s, kernels))
     s.EngineConfig.inference_precision = "bfloat16"
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 
