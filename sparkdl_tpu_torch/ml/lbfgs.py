@@ -147,13 +147,15 @@ def _decrease_error(stepsize, value_step, slope_step, value_init,
     approx = torch.maximum(approx, delta_values)
     err = torch.minimum(approx, err)
     err = torch.clamp(err, min=0.0)
-    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")), err)
+    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")),
+                       err)
 
 
 def _curvature_error(slope_step, slope_init):
     err = torch.abs(slope_step) - CURV_RTOL * torch.abs(slope_init)
     err = torch.clamp(err, min=0.0)
-    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")), err)
+    return torch.where(torch.isnan(err), torch.full_like(err, float("inf")),
+                       err)
 
 
 class _ZoomSearch:
@@ -211,7 +213,8 @@ class _ZoomSearch:
         curv = _curvature_error(slope, self.slope_init)
         error = torch.maximum(dec, curv)
         safe = dec <= LS_TOL
-        self.safe_stepsize = torch.where(safe, new_stepsize, self.safe_stepsize)
+        self.safe_stepsize = torch.where(
+            safe, new_stepsize, self.safe_stepsize)
         self.safe_value = torch.where(safe, value, self.safe_value)
         self.safe_grad = torch.where(safe, grad, self.safe_grad)
         set_high_to_new = (dec > 0.0) | ((value >= prev_value) & (not first))
@@ -259,7 +262,8 @@ class _ZoomSearch:
         curv = _curvature_error(slope, self.slope_init)
         error = torch.maximum(dec, curv)
         update_safe = (dec <= LS_TOL) & (value < self.safe_value)
-        self.safe_stepsize = torch.where(update_safe, middle, self.safe_stepsize)
+        self.safe_stepsize = torch.where(
+            update_safe, middle, self.safe_stepsize)
         self.safe_value = torch.where(update_safe, value, self.safe_value)
         self.safe_grad = torch.where(update_safe, grad, self.safe_grad)
         self.done = error <= LS_TOL
@@ -271,8 +275,10 @@ class _ZoomSearch:
         new_value_high = torch.where(set_high_to_middle, value, value_high)
         new_slope_high = torch.where(set_high_to_middle, slope, slope_high)
         self.high = torch.where(set_high_to_low, low, new_high)
-        self.value_high = torch.where(set_high_to_low, value_low, new_value_high)
-        self.slope_high = torch.where(set_high_to_low, slope_low, new_slope_high)
+        self.value_high = torch.where(
+            set_high_to_low, value_low, new_value_high)
+        self.slope_high = torch.where(
+            set_high_to_low, slope_low, new_slope_high)
         self.low = torch.where(set_low_to_middle, middle, low)
         self.value_low = torch.where(set_low_to_middle, value, value_low)
         self.slope_low = torch.where(set_low_to_middle, slope, slope_low)
@@ -300,7 +306,8 @@ class _ZoomSearch:
         # only) where it has one, or where it could not even evaluate
         take_safe = self.failed & ((self.safe_stepsize > 0.0)
                                    | torch.isinf(self.decrease_error))
-        self.stepsize = torch.where(take_safe, self.safe_stepsize, self.stepsize)
+        self.stepsize = torch.where(
+            take_safe, self.safe_stepsize, self.stepsize)
         self.value = torch.where(take_safe, self.safe_value, self.value)
         self.grad = torch.where(take_safe, self.safe_grad, self.grad)
         return found

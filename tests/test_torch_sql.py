@@ -102,7 +102,8 @@ def test_eval_bool_matches_reference_with_nulls(text):
 
 def test_split_query_and_default_name_match_reference():
     for q in ["SELECT a, f(b) AS y FROM t WHERE a > 1",
-              "select * from images", "SELECT 'x' as c FROM v where s IS NULL"]:
+              "select * from images",
+              "SELECT 'x' as c FROM v where s IS NULL"]:
         assert sql_expr.split_query(q) == jax_sql_expr.split_query(q)
     for e in ["f(a)", "g(f(a), b)", "1"]:
         assert sql_expr.default_name(e) == jax_sql_expr.default_name(e)
