@@ -29,7 +29,9 @@ import torch
 
 ValueAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
-# optax.scale_by_zoom_linesearch's defaults
+# optax.lbfgs's and optax.scale_by_zoom_linesearch's defaults
+MEMORY_SIZE = 10
+MAX_LINESEARCH_STEPS = 20
 SLOPE_RTOL = 1e-4
 CURV_RTOL = 0.9
 APPROX_DEC_RTOL = 1e-6
@@ -59,24 +61,21 @@ class _Memory:
     weights ``rho = 1 / yᵀs`` (0 where ``yᵀs == 0``). ``count`` is the
     number of updates made, known on the host."""
 
-    def __init__(self, x: torch.Tensor, memory_size: int) -> None:
-        if memory_size < 1:
-            raise ValueError("memory_size must be >= 1")
-        self.m = memory_size
+    def __init__(self, x: torch.Tensor) -> None:
         self.count = 0
         self.params = torch.zeros_like(x)
         self.grad = torch.zeros_like(x)
-        self.s = torch.zeros((memory_size,) + x.shape, dtype=x.dtype,
+        self.s = torch.zeros((MEMORY_SIZE,) + x.shape, dtype=x.dtype,
                              device=x.device)
         self.y = torch.zeros_like(self.s)
-        self.rho = torch.zeros(memory_size, dtype=x.dtype, device=x.device)
+        self.rho = torch.zeros(MEMORY_SIZE, dtype=x.dtype, device=x.device)
 
     def direction(self, grad: torch.Tensor, params: torch.Tensor
                   ) -> torch.Tensor:
         """``scale_by_lbfgs``'s update, then ``scale(-1)``: the memory
         takes the newest differences, then ``-P g`` by the two-loop
         recursion."""
-        m = self.m
+        m = MEMORY_SIZE
         memory_idx = self.count % m
         prev_idx = (self.count - 1) % m
         if self.count > 0:
@@ -163,13 +162,13 @@ class _ZoomSearch:
     the interval search (Nocedal and Wright, Algorithm 3.5) until an
     interval is found, then the zoom (Algorithm 3.6) with cubic, then
     quadratic, then bisection steps inside safeguards; after
-    ``max_steps`` steps without both Wolfe conditions, the last point
-    with sufficient decrease (the safe step) where there is one."""
+    ``MAX_LINESEARCH_STEPS`` steps without both Wolfe conditions, the
+    last point with sufficient decrease (the safe step) where there is
+    one."""
 
-    def __init__(self, params, updates, value, grad, max_steps: int,
+    def __init__(self, params, updates, value, grad,
                  value_and_grad: ValueAndGrad) -> None:
         self.vg = value_and_grad
-        self.max_steps = max_steps
         self.count = 0
         self.evaluations = 0
         self.params = params
@@ -229,7 +228,7 @@ class _ZoomSearch:
         self.cubic_ref, self.value_cubic_ref = self.low, self.value_low
         interval_found = set_high_to_new | set_low_to_new | (error <= LS_TOL)
         self.done = error <= LS_TOL
-        self.failed = (self.count + 1 >= self.max_steps) & ~self.done
+        self.failed = (self.count + 1 >= MAX_LINESEARCH_STEPS) & ~self.done
         self.stepsize, self.value, self.grad, self.slope = \
             new_stepsize, value, grad, slope
         self.decrease_error, self.curvature_error = dec, curv
@@ -285,7 +284,7 @@ class _ZoomSearch:
         moved_high = set_high_to_middle | set_high_to_low
         self.cubic_ref = torch.where(moved_high, high, low)
         self.value_cubic_ref = torch.where(moved_high, value_high, value_low)
-        presumably_failed = ((self.count + 1 >= self.max_steps)
+        presumably_failed = ((self.count + 1 >= MAX_LINESEARCH_STEPS)
                              | (too_small_int & (self.safe_stepsize > 0.0)))
         self.failed = presumably_failed & ~self.done
         self.stepsize, self.value, self.grad, self.slope = \
@@ -314,8 +313,7 @@ class _ZoomSearch:
 
 
 def minimize(value_and_grad: ValueAndGrad, x0: torch.Tensor, *,
-             max_iter: int, tol: float, memory_size: int = 10,
-             max_linesearch_steps: int = 20,
+             max_iter: int, tol: float,
              callback: Optional[Callable[[int, torch.Tensor], None]] = None
              ) -> LBFGSResult:
     """Minimize from ``x0`` (a flat float tensor) on its device.
@@ -330,7 +328,7 @@ def minimize(value_and_grad: ValueAndGrad, x0: torch.Tensor, *,
     x = x0
     value, grad = value_and_grad(x)
     evaluations = 1
-    memory = _Memory(x, memory_size)
+    memory = _Memory(x)
     syncs = 1
     go_on = bool(torch.linalg.vector_norm(grad) > tol) and max_iter > 0
     steps: List[int] = []
@@ -339,8 +337,7 @@ def minimize(value_and_grad: ValueAndGrad, x0: torch.Tensor, *,
         # the carried gradient's norm, read with the line search's flags
         carry_ok = torch.linalg.vector_norm(grad) > tol
         direction = memory.direction(grad, x)
-        search = _ZoomSearch(x, direction, value, grad, max_linesearch_steps,
-                             value_and_grad)
+        search = _ZoomSearch(x, direction, value, grad, value_and_grad)
         while True:
             found = search.step()
             flags = torch.stack([search.done | search.failed, found,
