@@ -2376,8 +2376,8 @@ def compare_fits(card, cpu, x, y) -> dict:
     rows ``x``, ``y``: each objective (evaluated on the CPU, in the
     standardized space the fits solved in) and their relative
     difference; the parameters' max|Δ| in that space, the coefficients'
-    and the intercepts' apart and together, the latter beside its
-    tolerance; the coefficients' max|Δ| on the original scale; both
+    and the intercepts' apart and together, and the CPU's max|param|
+    there; the coefficients' max|Δ| on the original scale; both
     iteration counts. Asserts nothing."""
     from sparkdl_tpu_torch.ml.classification import SoftmaxObjective
     from sparkdl_tpu_torch.ml.linear_utils import weighted_feature_std
@@ -2404,8 +2404,7 @@ def compare_fits(card, cpu, x, y) -> dict:
         "coef_scaled_max_abs_err": float(delta[:n_coef].max()),
         "intercept_max_abs_err": float(delta[n_coef:].max()),
         "param_scaled_max_abs_err": float(delta.max()),
-        "param_scaled_tolerance": PARAM_REL * float(
-            np.abs(params(cpu)).max()),
+        "param_scaled_max_abs": float(np.abs(params(cpu)).max()),
         "coef_max_abs_err_original_scale": float(np.abs(
             card.coefficients - cpu.coefficients).max()),
         "coef_max_abs_original_scale": float(np.abs(cpu.coefficients).max()),
@@ -2664,6 +2663,7 @@ def lr_fit_scale(s, kernels):
         np.argmax(x @ gpu.coefficients + gpu.intercept, axis=1)
         == np.argmax(x @ cpu.coefficients + cpu.intercept, axis=1)))
     cmp["agreement_floor"] = AGREE
+    cmp["param_scaled_tolerance"] = PARAM_REL * cmp["param_scaled_max_abs"]
     check_fits("lr_fit_scale", cmp, [OBJECTIVE_HELD, PARAMS_HELD])
     assert cmp["prediction_agreement"] >= AGREE, cmp
     assert not any(counts.values()), counts
