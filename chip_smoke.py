@@ -234,6 +234,41 @@ iteration, the CPU fit's seconds, and the two fits held to each other
 (objective, parameters, predictions); ``--profile`` adds the card's idle
 share during the solve alone (``fit_softmax``, without the collect).
 
+Four phases serve online (``serving/``), Xception in bf16 under
+``"force"`` with ``EngineConfig.serving_warmup`` on:
+
+- ``serving_predict``: a ``ModelRegistry`` deploys ``xception``/``v1``
+  (the featurizer built with ``precision="bfloat16"``, batch 16, a
+  250 ms latency target); its warm-up captures rungs 8 and 16 in float32
+  and uint8, and the first request after it must capture nothing; 8
+  client threads then send 32 single 299×299 rows each to a
+  ``ModelServer``. Every answer is held against the eager forward of its
+  row on the card, 8 rows against the port's CPU run of the same float32
+  weights; ``sep2d`` launches must be 34 × forwards, all on the
+  tensor-core body. Printed: requests/s, ``request_s`` p50/p99, forwards,
+  rows a coalesced window, the card's idle share (a shorter profiled
+  load);
+- ``serving_hot_swap``: ``v2`` (another seed) deployed dark, a quarter
+  of the traffic shadowed to it, a cutover after 96 answers and a
+  rollback after 192: every request answered once, each answer against
+  its version's eager forward, the shadow comparisons every fourth
+  request resolved before the cutover, 2 ``serving_cutover`` events;
+- ``serving_slo``: a ``ModelServer(admission="shed", slo_window_s=2)``
+  inside ``Telemetry(window_s=2, export_interval_s=0.25, slo_rules=
+  default_serving_rules(...))``, its latency target set from an
+  unloaded calibration, while featurize_partitioned's frame floods the
+  bulk lane in float32, then the clients alone: a shed, the per-model
+  rule's ``slo_breach`` then ``slo_recovered``, snapshots at the cadence
+  with a final flush, the Prometheus file, the report's ``timeline``;
+- ``serving_residency``: ``xception``, ``vgg16`` and ``resnet50``
+  (256×256 rows through ``resized``: ``preproc_resize``) under a
+  ``ResidencyManager`` budget of VGG16's and Xception's bf16
+  ``weight_bytes()`` + 1 MiB, requested so that LRU evicts twice:
+  the evictions in LRU's order, ``memory_allocated`` falling by at least
+  each victim's ``weight_bytes()``, the reloaded vgg16's answer
+  ``torch.equal`` to its first; cold-start seconds and each resident's
+  graph pool MiB (not in the budget) are printed.
+
 The line ``{"phase": "total", ...}`` gives the script's seconds so far.
 
 ``--profile`` adds device times from ``torch.profiler`` beside each event
@@ -2686,6 +2721,828 @@ def lr_fit_scale(s, kernels):
     return {"lr_fit_scale": out}
 
 
+# -- the online serving plane -------------------------------------------------
+
+SERVE_SEED = SEED + 300     # v1's weights; v2's are SERVE_SEED + 1
+SERVE_BATCH = 16            # the deployment's batch size: rungs 8 and 16
+SERVE_TARGET_MS = 250.0     # serving_predict's latency target
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 32         # single-row predicts a client sends
+SERVE_ROWS = 32             # distinct 299×299 rows the clients draw from
+SERVE_CPU_ROWS = 8          # rows held against the port's CPU run
+SHADOW_FRACTION = 0.25
+CUTOVER_AT, ROLLBACK_AT = 96, 192   # answered requests before each flip
+RESIDENT_BATCH = 8          # the residency deployments' batch: rung 8
+RESIDENT_SOURCE = (256, 256)        # resnet50's rows, resized to 224×224
+# (model, served name, source size): the residency phase's deployments,
+# and its requests by served name, chosen so that LRU evicts twice
+# (vgg16 when resnet50 comes in, resnet50 when vgg16 comes back)
+RESIDENTS = [("Xception", "xception", TARGET),
+             ("VGG16", "vgg16", (224, 224)),
+             ("ResNet50", "resnet50", RESIDENT_SOURCE)]
+RESIDENT_ORDER = ["vgg16", "xception", "resnet50", "xception", "vgg16"]
+SLO_WINDOW_S = 2.0
+SLO_EXPORT_S = 0.25
+SLO_HOLD_S = 0.5
+SLO_CALIBRATE_S = 1.0       # unloaded clients before the flood
+# The latency target: a bound of telemetry.DEFAULT_TIME_BOUNDS (the rule
+# resolves no finer), the one between the unloaded request p99 (20-36 ms
+# at this target's coalesce window) and the flood's admitted requests
+# (p50 42-60 ms) on an H100 80GB HBM3 at 700 W
+SLO_TARGET_MS = 51.2
+SLO_ROOM = 1.25             # the target over the unloaded request p99, at least
+SLO_FLOOD_S = 3.0
+SLO_RECOVER_S = 5.5
+
+
+def served_model(name, seed, source=None):
+    """A deployment's loader: the registry's featurizer of ``name`` built
+    in bf16 (``precision="bfloat16"``: a bf16 copy of the seeded weights,
+    which the executor then runs as it is), behind ``resized(source)``
+    where the rows are of another size."""
+    from sparkdl_tpu_torch.models import registry
+
+    def load():
+        mf = registry.build_featurizer(name, seed=seed, precision="bfloat16")
+        if source is not None and tuple(source) != \
+                mf.input_spec.spatial_size():
+            mf = mf.resized(source)
+        return mf
+
+    return load
+
+
+def on_card(model) -> None:
+    """No fallback: a served model whose weights are not on the card
+    raises."""
+    off = [n for n, t in model.variables.state_dict().items()
+           if not t.is_cuda]
+    if off:
+        raise RuntimeError(f"{model.name}: weights off the card: {off[:3]}")
+
+
+def bf16_weight_bytes(name) -> int:
+    """``weight_bytes()`` of ``name``'s bf16 featurizer, from its module
+    built on the meta device (no weights made)."""
+    from sparkdl_tpu_torch.models import registry
+
+    spec = registry.get_model_spec(name)
+    kwargs = dict(spec.featurize_kwargs
+                  or {"include_top": False, "pooling": "avg"})
+    with torch.device("meta"):
+        module = spec.builder(**kwargs, dtype=None)
+    module = module.to(torch.bfloat16)
+    return sum(t.nbytes for t in [*module.parameters(), *module.buffers()])
+
+
+def serving_rows(size, n, seed):
+    return np.random.default_rng(seed).integers(0, 256, (n, *size, 3),
+                                                dtype=np.uint8)
+
+
+def eager_rows(model, rows):
+    """``model``'s eager forward of ``rows`` on the card, 16 at a time
+    (a yardstick: the serving path replays graphs)."""
+    dev = torch.device("cuda")
+    outs = []
+    with torch.inference_mode():
+        for i in range(0, len(rows), 16):
+            x = torch.from_numpy(rows[i:i + 16]).to(dev)
+            outs.append(model(x.to(torch.float32)).float().cpu())
+    return torch.cat(outs).numpy()
+
+
+def held_rows(label, results, refs, tol_rel=BF16_REL) -> float:
+    """Every ``(row index, output)`` of ``results`` against ``refs[row]``
+    within ``tol_rel · max|refs|``; returns the largest error."""
+    limit = tol_rel * float(np.abs(refs).max())
+    worst = 0.0
+    for idx, out in results:
+        assert out.shape == refs[idx].shape and np.isfinite(out).all(), \
+            f"{label}: row {idx} shape {out.shape}"
+        err = float(np.abs(out - refs[idx]).max())
+        assert err <= limit, f"{label}: row {idx} off by {err} > {limit}"
+        worst = max(worst, err)
+    return worst
+
+
+def latency_ms(latencies) -> dict:
+    lat = np.asarray(latencies, np.float64) * 1e3
+    if not len(lat):
+        return {"count": 0}
+    return {"count": int(len(lat)), "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)), "max": float(lat.max())}
+
+
+def run_clients(srv, name, rows, clients, requests, on_result=None):
+    """``clients`` threads, each sending ``requests`` single-row predicts
+    of ``rows`` (client t's i-th request takes row (t·requests + i) mod
+    len(rows)); returns ``[(client, i, row, result, t_done)]`` in answer
+    order, and the seconds from the first send to the last answer. Any
+    error in a client raises here."""
+    import threading
+
+    answers, errors = [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(clients, timeout=120)
+
+    def client(t):
+        try:
+            barrier.wait()
+            for i in range(requests):
+                idx = (t * requests + i) % len(rows)
+                res = srv.predict(name, rows[idx])
+                with lock:
+                    answers.append((t, i, idx, res, time.perf_counter()))
+                    n = len(answers)
+                if on_result is not None:
+                    on_result(n)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+        assert not t.is_alive(), "a serving client hung"
+    if errors:
+        raise errors[0]
+    return answers, time.perf_counter() - t0
+
+
+def serving_predict(s, kernels, reg, srv, rows):
+    """Deploy ``xception``/``v1`` (Xception's featurizer in bf16, batch
+    16, ``latency_target_ms=250``) under ``serving_warmup`` and
+    ``"force"``, then 8 clients × 32 single-row predicts of 299×299 rows.
+    Held: the warm-up captured every rung, the first request after it
+    captures nothing, every answer against the eager forward of its row
+    on the card, SERVE_CPU_ROWS rows against the port's CPU run of the
+    same float32 weights, ``sep2d`` launches = 34 × forwards, all on the
+    tensor-core body."""
+    from sparkdl_tpu_torch.core import health, telemetry
+    from sparkdl_tpu_torch.models import registry
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with health.HealthMonitor("serving_deploy") as mon:
+        dep = reg.deploy("xception", "v1",
+                         loader=served_model("Xception", SERVE_SEED),
+                         latency_target_ms=SERVE_TARGET_MS,
+                         batch_size=SERVE_BATCH)
+    deploy_s = time.perf_counter() - t0
+    (warm,) = mon.events(health.WARMUP_COMPLETED)
+    model = dep.model()
+    on_card(model)
+    compiled = model.jitted(dev)
+    warm_graphs = sorted((k[0][0], str(k[1]).removeprefix("torch."))
+                         for k in compiled.graphs)
+    assert warm_graphs == [(8, "float32"), (8, "uint8"), (16, "float32"),
+                           (16, "uint8")], warm_graphs
+    eager = eager_rows(model, rows)
+    kernels.reset_launches()
+    before = dict(compiled.graphs)
+    first = srv.predict("xception", rows[0])
+    first_captures = len(set(compiled.graphs) - set(before))
+    assert first_captures == 0, "the first request after warm-up captured"
+    assert first.output.shape == (2048,) and first.version == "v1"
+
+    kernels.reset_launches()
+    replays = compiled.replays
+    with health.HealthMonitor("serving_predict") as mon, \
+            telemetry.Telemetry("serving_predict") as tel:
+        answers, seconds = run_clients(srv, "xception", rows, SERVE_CLIENTS,
+                                       SERVE_REQUESTS)
+        torch.cuda.synchronize()
+    counts, by_body = launch_counts(kernels)
+    forwards = compiled.replays - replays
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    assert len(answers) == n
+    assert {(t, i) for t, i, _, _, _ in answers} == \
+        {(t, i) for t in range(SERVE_CLIENTS) for i in range(SERVE_REQUESTS)}
+    assert counts == {"sep2d": 34 * forwards, "pw1x1": 0,
+                      "preproc_resize": 0}, (counts, forwards)
+    assert by_body["sep2d"]["wgmma"] == counts["sep2d"], by_body
+    err = held_rows("serving_predict", [(idx, r.output)
+                                        for _, _, idx, r, _ in answers],
+                    eager)
+    snap = tel.metrics.snapshot()["histograms"]
+    req = snap[telemetry.M_SERVING_REQUEST_S]
+    rows_h = snap.get(telemetry.M_COALESCE_ROWS)
+    # the port's CPU run of the same (float32) weights
+    s.EngineConfig.device = "cpu"
+    cpu_model = registry.build_featurizer("Xception", seed=SERVE_SEED)
+    with torch.inference_mode():
+        cpu = cpu_model(torch.from_numpy(rows[:SERVE_CPU_ROWS]).float()
+                        ).numpy()
+    s.EngineConfig.device = "cuda"
+    del cpu_model
+    by_row = {idx: r.output for _, _, idx, r, _ in answers}
+    cpu_err = float(max(np.abs(by_row[i] - cpu[i]).max()
+                        for i in range(SERVE_CPU_ROWS)))
+    cpu_tol = BF16_REL * float(np.abs(cpu).max())
+    assert cpu_err <= cpu_tol, f"serving_predict: {cpu_err} > {cpu_tol}"
+    # the card's idle share over a shorter load, profiled
+    prof = profiled(lambda: run_clients(srv, "xception", rows,
+                                        SERVE_CLIENTS, 8))
+    kernels.reset_launches()
+    out = {"phase": "serving_predict", "model": "Xception",
+           "deploy_s": deploy_s, "warmup_s": warm["seconds"],
+           "warmup_rungs": warm["rungs"],
+           "warmup_graphs": [list(g) for g in warm_graphs],
+           "first_request_captures": first_captures,
+           "requests": n, "clients": SERVE_CLIENTS, "seconds": seconds,
+           "requests_per_s": n / seconds,
+           "request_s": {"p50": req["p50"], "p99": req["p99"],
+                         "max": req["max"]},
+           "request_ms_measured": latency_ms(
+               [r.latency_s for _, _, _, r, _ in answers]),
+           "forwards": forwards,
+           "coalesced_windows": None if rows_h is None else rows_h["count"],
+           "rows_per_coalesced_window": (None if rows_h is None
+                                         else rows_h["sum"]
+                                         / rows_h["count"]),
+           "executor": executor_metrics(tel), "health": mon.counters(),
+           "launches": counts, "launches_by_body": by_body,
+           "sep2d_by_body": by_body["sep2d"],
+           "max_abs_err_vs_eager": err, "eager_tolerance":
+               BF16_REL * float(np.abs(eager).max()),
+           "max_abs_err_vs_cpu": cpu_err, "cpu_tolerance": cpu_tol,
+           "cpu_rows": SERVE_CPU_ROWS,
+           "idle_share": prof["idle_share"],
+           "profiled_wall_ms": prof["wall_ms"],
+           "profiled_busy_ms": prof["device_busy_ms"],
+           "graph_pool_mib": sum(g.pool_bytes for g in
+                                 compiled.graphs.values()) / 2 ** 20}
+    emit(out)
+    return out, eager
+
+
+def serving_hot_swap(s, kernels, reg, srv, rows, eager_v1):
+    """Deploy ``v2`` (weights from another seed) dark, shadow a quarter of
+    the traffic to it, and run 8 clients × 32 requests, cutting over to
+    v2 after CUTOVER_AT answers and rolling back after ROLLBACK_AT.
+    Held: every request answered exactly once, each answer against the
+    eager forward of the version it names, the shadow comparisons those
+    the accumulator dictates for the requests resolved before the
+    cutover (every 4th), exactly 2 ``serving_cutover`` events."""
+    import threading
+
+    from sparkdl_tpu_torch.core import health, telemetry
+
+    dev = torch.device("cuda")
+    dep2 = reg.deploy("xception", "v2",
+                      loader=served_model("Xception", SERVE_SEED + 1),
+                      latency_target_ms=SERVE_TARGET_MS,
+                      batch_size=SERVE_BATCH)
+    v2 = dep2.model()
+    on_card(v2)
+    eager = {"v1": eager_v1, "v2": eager_rows(v2, rows)}
+    reg.shadow("xception", "v2", fraction=SHADOW_FRACTION)
+    # resolves and flips under one lock, so the count of requests
+    # resolved before the cutover is exact
+    flip = threading.Lock()
+    resolved = [0]
+    plain_resolve = reg.resolve
+
+    def counted_resolve(name):
+        with flip:
+            resolved[0] += 1
+            return plain_resolve(name)
+
+    reg.resolve = counted_resolve
+    marks = {}
+    done = {"cutover": threading.Event(), "rollback": threading.Event()}
+
+    def on_result(n):
+        if n == CUTOVER_AT:
+            with flip:
+                marks["pre_cutover_resolves"] = resolved[0]
+                marks["cutover_t"] = time.perf_counter()
+                assert srv.cutover("xception", "v2") == "v1"
+            done["cutover"].set()
+        elif n == ROLLBACK_AT:
+            done["cutover"].wait(60)
+            marks["rollback_t"] = time.perf_counter()
+            assert srv.rollback("xception") == "v2"
+            done["rollback"].set()
+
+    kernels.reset_launches()
+    compiled = {v: d.model().jitted(dev)
+                for v, d in (("v1", reg.deployment("xception", "v1")),
+                             ("v2", dep2))}
+    replays = {v: c.replays for v, c in compiled.items()}
+    with health.HealthMonitor("serving_hot_swap") as mon, \
+            telemetry.Telemetry("serving_hot_swap") as tel:
+        t0 = time.perf_counter()
+        answers, seconds = run_clients(srv, "xception", rows, SERVE_CLIENTS,
+                                       SERVE_REQUESTS, on_result=on_result)
+        torch.cuda.synchronize()
+    reg.resolve = plain_resolve
+    counts, by_body = launch_counts(kernels)
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    keys = [(t, i) for t, i, _, _, _ in answers]
+    assert len(keys) == n and len(set(keys)) == n, "dropped or doubled"
+    errs = {}
+    for v in ("v1", "v2"):
+        mine = [(idx, r.output) for _, _, idx, r, _ in answers
+                if r.version == v]
+        assert mine, f"no answer from {v}"
+        errs[v] = held_rows(f"serving_hot_swap {v}", mine, eager[v])
+    shadowed = sum(r.shadowed for _, _, _, r, _ in answers)
+    compared = mon.count(health.SERVING_SHADOW_COMPARED)
+    expected = int(marks["pre_cutover_resolves"] * SHADOW_FRACTION
+                   + 1e-9)
+    assert shadowed == compared == expected, \
+        (shadowed, compared, marks["pre_cutover_resolves"])
+    assert mon.count(health.SERVING_SHADOW_ERROR) == 0
+    assert mon.count(health.SERVING_CUTOVER) == 2
+    div = tel.metrics.snapshot()["histograms"][
+        telemetry.M_SERVING_SHADOW_DIVERGENCE]
+    assert div["count"] == compared and div["min"] > 0.0
+
+    def segment(lo, hi):
+        done_t = [t_done for _, _, _, _, t_done in answers
+                  if lo <= t_done < hi]
+        lat = [r.latency_s for _, _, _, r, t_done in answers
+               if lo <= t_done < hi]
+        span = hi - lo
+        return {"answers": len(done_t), "seconds": span,
+                "requests_per_s": len(done_t) / span,
+                "latency_ms": latency_ms(lat)}
+
+    end = max(t_done for *_, t_done in answers)
+    forwards = {v: compiled[v].replays - replays[v] for v in compiled}
+    assert counts["sep2d"] == 34 * sum(forwards.values()), \
+        (counts, forwards)
+    assert by_body["sep2d"]["wgmma"] == counts["sep2d"], by_body
+    out = {"phase": "serving_hot_swap", "requests": n,
+           "seconds": seconds, "requests_per_s": n / seconds,
+           "before_cutover": segment(t0, marks["cutover_t"]),
+           "across_flip": segment(marks["cutover_t"], marks["rollback_t"]),
+           "after_rollback": segment(marks["rollback_t"], end + 1e-9),
+           "request_ms": latency_ms([r.latency_s for *_, r, _ in answers]),
+           "answers_by_version": {v: sum(r.version == v
+                                         for *_, r, _ in answers)
+                                  for v in ("v1", "v2")},
+           "pre_cutover_resolves": marks["pre_cutover_resolves"],
+           "shadowed": shadowed, "shadow_compared": compared,
+           "shadow_divergence": {"p50": div["p50"], "max": div["max"]},
+           "cutover_events": mon.count(health.SERVING_CUTOVER),
+           "max_abs_err_vs_eager": errs, "forwards": forwards,
+           "health": mon.counters(),
+           "launches": counts, "launches_by_body": by_body}
+    emit(out)
+    return out
+
+
+class MemoryAtEvents:
+    """A HealthMonitor that stamps ``torch.cuda.memory_allocated()`` and,
+    after ``torch.cuda.empty_cache()``, ``memory_reserved()`` on each cold
+    start (after the load and its warm-up, before any victim is released)
+    and each eviction record."""
+
+    def __new__(cls, name):
+        from sparkdl_tpu_torch.core import health
+
+        class Monitor(health.HealthMonitor):
+            def record(self, event, n=1, **ctx):
+                if event in (health.SERVING_COLD_START,
+                             health.SERVING_EVICTED):
+                    torch.cuda.synchronize()
+                    ctx["memory_allocated"] = torch.cuda.memory_allocated()
+                    torch.cuda.empty_cache()
+                    ctx["memory_reserved"] = torch.cuda.memory_reserved()
+                super().record(event, n=n, **ctx)
+
+        return Monitor(name)
+
+
+def resident_model(res, name):
+    """The model ``res`` holds for (name, "v1"), or None, read without an
+    acquire (which would move it up the LRU order)."""
+    with res._cond:
+        return res._residents[(name, "v1")].model
+
+
+def graph_pools(model) -> dict:
+    """The graph memory pools of ``model`` and its variants on the card,
+    each with the bytes the caching allocator holds for it now (not in
+    the residency budget)."""
+    from sparkdl_tpu_torch.core import model_function
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return {p._pool: model_function._pool_bytes(dev, p._pool)
+            for m in model.device_variants() for p in m._programs.values()
+            if p.device == dev and p._pool is not None}
+
+
+def pools_left(pools) -> int:
+    """Bytes the caching allocator still holds for any of ``pools``."""
+    from sparkdl_tpu_torch.core import model_function
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return sum(model_function._pool_bytes(dev, pool) for pool in pools)
+
+
+def serving_residency(s, kernels):
+    """Three deployments under one byte budget of VGG16's bf16
+    ``weight_bytes`` + Xception's + 1 MiB, each unpinned so LRU may evict
+    it: ``xception`` (299×299 rows), ``vgg16`` (224×224) and ``resnet50``
+    (256×256 rows through ``resized``: ``preproc_resize`` a forward).
+    Requests go in RESIDENT_ORDER. Held: the evictions are the two LRU
+    dictates, in order; across each (from after the load and its warm-up
+    to after the request with ``gc.collect()``), ``memory_allocated``
+    falls by at least the victim's ``weight_bytes()``, the allocator
+    holds nothing more of the victim's graph pools, and
+    ``memory_reserved`` (each read after ``empty_cache()``) falls by at
+    least what those pools held before; the reloaded vgg16 answers its
+    request ``torch.equal`` to its first answer, at the same rung."""
+    import gc
+
+    from sparkdl_tpu_torch import serving
+    from sparkdl_tpu_torch.core import health, telemetry
+
+    sizes = {served: bf16_weight_bytes(model)
+             for model, served, _ in RESIDENTS}
+    budget = sizes["vgg16"] + sizes["xception"] + 2 ** 20
+    res = serving.ResidencyManager(budget, policy="lru")
+    reg = serving.ModelRegistry(residency=res)
+    srv = serving.ModelServer(reg)
+    rows = {}
+    # deployed cold (a warm-up at deploy would load each one now), then
+    # unpinned; every load below is a request's cold start, warmed
+    s.EngineConfig.serving_warmup = False
+    for i, (model, served, size) in enumerate(RESIDENTS):
+        reg.deploy(served, "v1",
+                   loader=served_model(model, SERVE_SEED + 10 + i, size),
+                   batch_size=RESIDENT_BATCH)
+        res.pin(served, "v1", pinned=False)
+        rows[served] = serving_rows(size, 1, SERVE_SEED + 20 + i)[0]
+    s.EngineConfig.serving_warmup = True
+    # simulate LRU over the planned requests: the evictions expected
+    ledger, expected = [], []
+    for served in RESIDENT_ORDER:
+        if served in ledger:
+            ledger.remove(served)
+        else:
+            while sum(sizes[m] for m in ledger) + sizes[served] > budget:
+                expected.append(ledger.pop(0))
+        ledger.append(served)
+    assert len(expected) == 2, expected
+    kernels.reset_launches()
+    steps, answers, evicted = [], {}, []
+    with MemoryAtEvents("serving_residency") as mon, \
+            telemetry.Telemetry("serving_residency") as tel:
+        for served in RESIDENT_ORDER:
+            n_events = len(mon.events())
+            res_before = res.is_resident(served, "v1")
+            pools = {m: graph_pools(resident_model(res, m))
+                     for _, m, _ in RESIDENTS if res.is_resident(m, "v1")}
+            t0 = time.perf_counter()
+            result = srv.predict(served, rows[served])
+            seconds = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            torch.cuda.empty_cache()
+            reserved_after = torch.cuda.memory_reserved()
+            events = mon.events()[n_events:]
+            cold = [e for e in events
+                    if e["event"] == health.SERVING_COLD_START]
+            gone = [e for e in events
+                    if e["event"] == health.SERVING_EVICTED]
+            model = resident_model(res, served)
+            on_card(model)
+            assert model.weight_bytes() == sizes[served], \
+                (served, model.weight_bytes(), sizes[served])
+            step = {"request": served, "was_resident": res_before,
+                    "seconds": seconds, "cold_start_s": (
+                        cold[0]["seconds"] if cold else None),
+                    "evicted": [e["model"] for e in gone],
+                    "memory_allocated_after": after,
+                    "memory_reserved_after": reserved_after,
+                    "graph_pool_mib": {
+                        m: sum(graph_pools(resident_model(res, m)).values())
+                        / 2 ** 20
+                        for _, m, _ in RESIDENTS if res.is_resident(m, "v1")},
+                    "resident_mib": res.resident_bytes() / 2 ** 20}
+            del model
+            if cold:
+                step["memory_allocated_at_cold_start"] = \
+                    cold[0]["memory_allocated"]
+                step["memory_reserved_at_cold_start"] = \
+                    cold[0]["memory_reserved"]
+            if gone:
+                freed = cold[0]["memory_allocated"] - after
+                victim_bytes = sum(sizes[e["model"]] for e in gone)
+                victim_pools = {pool: n for e in gone
+                                for pool, n in pools[e["model"]].items()}
+                pool_bytes = sum(victim_pools.values())
+                reserved_freed = cold[0]["memory_reserved"] - reserved_after
+                left = pools_left(victim_pools)
+                step.update(freed=freed, victim_weight_bytes=victim_bytes,
+                            reserved_freed=reserved_freed,
+                            victim_pool_bytes=pool_bytes,
+                            victim_pool_bytes_left=left)
+                assert freed >= victim_bytes, \
+                    f"evicting {step['evicted']} freed {freed} B < " \
+                    f"{victim_bytes} B"
+                assert pool_bytes > 0 and left == 0, \
+                    f"evicting {step['evicted']}: {left} B of its " \
+                    f"{pool_bytes} B of graph pools still held"
+                assert reserved_freed >= pool_bytes, \
+                    f"evicting {step['evicted']} gave back {reserved_freed}" \
+                    f" B reserved < {pool_bytes} B of graph pools"
+                evicted.extend(step["evicted"])
+            answers.setdefault(served, []).append(result.output)
+            steps.append(step)
+            if served == "resnet50":
+                r50 = resident_model(res, "resnet50")
+                r50_replays = r50.jitted(torch.device("cuda")).replays
+                r50_graphs = len(r50.jitted(torch.device("cuda")).graphs)
+                del r50
+    counts, by_body = launch_counts(kernels)
+    assert evicted == expected, (evicted, expected)
+    first, again = answers["vgg16"]
+    reload_equal = bool(torch.equal(torch.from_numpy(first),
+                                    torch.from_numpy(again)))
+    assert reload_equal, "the reloaded vgg16 answered differently"
+    # one preproc_resize a forward of resnet50: its warm-up (one eager
+    # forward a capture, one replay a rung and dtype) and its request
+    assert counts["preproc_resize"] == r50_replays + r50_graphs, \
+        (counts, r50_replays, r50_graphs)
+    status = res.status()
+    out = {"phase": "serving_residency", "budget_bytes": budget,
+           "weight_bytes": sizes, "requests": RESIDENT_ORDER,
+           "evictions": evicted, "expected_evictions": expected,
+           "steps": steps, "reload_torch_equal": reload_equal,
+           "cold_starts": status["cold_starts"],
+           "evictions_counted": status["evictions"],
+           "evictions_metric": tel.metrics.snapshot()["counters"].get(
+               telemetry.M_SERVING_EVICTIONS),
+           "model_load_spans": len(tel.tracer.spans(
+               telemetry.SPAN_MODEL_LOAD)),
+           "health": mon.counters(),
+           "launches": counts, "launches_by_body": by_body}
+    emit(out)
+    return out
+
+
+def serving_slo(s, kernels, reg, rows, part_frame):
+    """The live plane under a flood: ``xception`` served to 8 interactive
+    clients by a ``ModelServer(admission="shed", slo_window_s=2)`` inside
+    ``Telemetry(window_s=2, export_interval_s=0.25, slo_rules=
+    default_serving_rules(...))``, while featurize_partitioned's frame
+    floods the bulk lane (in float32: three times the card time of a bf16
+    window) for SLO_FLOOD_S, then the clients go on alone.
+
+    The latency target SLO_TARGET_MS is a bound of
+    ``DEFAULT_TIME_BOUNDS``: the rule reads a window's p99 as the
+    geometric midpoint of its bucket, clamped to the window's largest
+    sample, so a window breaches exactly when its p99 request lies above
+    the target.
+
+    Held: the unloaded clients' request p99, measured first at the same
+    target (so at the same coalesce window), is at most the target /
+    SLO_ROOM; a ``ServingOverloaded`` and a ``serving_shed``; the rule
+    ``serving_request_p99_xception`` breaches while the flood runs, its
+    events alternate ``slo_breach``/``slo_recovered`` and end recovered;
+    once the flood's queue waits and requests have left both windows
+    (two windows after it ended) every snapshot judges the rule on
+    requests of its window and finds it unbreached, the final flush
+    included; snapshots at the cadence, the last one the final flush;
+    the Prometheus file names ``sparkdl_serving_request_s``; the
+    report's ``timeline`` has entries."""
+    import json
+    import shutil
+    import threading
+
+    from sparkdl_tpu_torch import serving
+    from sparkdl_tpu_torch.core import health, slo, telemetry
+
+    feat, df = part_frame
+    model = reg.deployment("xception", "v1").model()
+
+    def clients(server, stop, log):
+        def client(t):
+            i = 0
+            while not stop.is_set():
+                idx = (t * 7 + i) % len(rows)
+                i += 1
+                try:
+                    res = server.predict("xception", rows[idx])
+                    log.append(("ok", time.perf_counter(), res.latency_s))
+                except serving.ServingOverloaded:
+                    log.append(("shed", time.perf_counter(), None))
+                    stop.wait(0.005)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        return threads
+
+    def join(threads):
+        for t in threads:
+            t.join(300)
+            assert not t.is_alive(), "a thread of serving_slo hung"
+
+    # unloaded clients at the target, admitted without shedding
+    target_ms = SLO_TARGET_MS
+    assert target_ms / 1e3 in telemetry.DEFAULT_TIME_BOUNDS, target_ms
+    cal_reg = serving.ModelRegistry()
+    cal_reg.deploy("xception", "v1", model=model,
+                   latency_target_ms=target_ms, batch_size=SERVE_BATCH)
+    stop, log = threading.Event(), []
+    threads = clients(serving.ModelServer(cal_reg, admission="block"),
+                      stop, log)
+    time.sleep(SLO_CALIBRATE_S)
+    stop.set()
+    join(threads)
+    unloaded = latency_ms([lat for kind, _, lat in log if kind == "ok"])
+    assert SLO_ROOM * unloaded["p99"] <= target_ms, \
+        f"serving_slo: unloaded request p99 {unloaded['p99']} ms leaves " \
+        f"less than {SLO_ROOM}x room under the {target_ms} ms target"
+    slo_reg = serving.ModelRegistry()
+    slo_reg.deploy("xception", "v1", model=model,
+                   latency_target_ms=target_ms, batch_size=SERVE_BATCH)
+    srv = serving.ModelServer(slo_reg, admission="shed",
+                              slo_window_s=SLO_WINDOW_S)
+    # the flood's float32 graphs, captured before the clock starts
+    s.EngineConfig.inference_precision = "float32"
+    s.EngineConfig.max_workers = WORKERS
+    feat.transform(df).collect()
+    torch.cuda.synchronize()
+    out_dir = tempfile.mkdtemp(prefix="sparkdl_slo_")
+    rule = "serving_request_p99_xception"
+    kernels.reset_launches()
+    try:
+        stop, log, flood_stop = threading.Event(), [], threading.Event()
+        passes = [0]
+
+        def flood():
+            while not flood_stop.is_set():
+                feat.transform(df).collect()
+                passes[0] += 1
+
+        # room in the event log for every shed, so the SLO events after
+        # them are kept in order
+        with health.HealthMonitor("serving_slo",
+                                  max_events=1 << 17) as mon, \
+                telemetry.Telemetry(
+                    "serving_slo", out_dir=out_dir, window_s=SLO_WINDOW_S,
+                    export_interval_s=SLO_EXPORT_S,
+                    slo_rules=slo.default_serving_rules(
+                        slo_reg.targets(), window_s=SLO_WINDOW_S,
+                        for_s=SLO_HOLD_S)) as tel:
+            t0 = time.perf_counter()
+            threads = clients(srv, stop, log)
+            time.sleep(0.5)
+            flooder = threading.Thread(target=flood)
+            flood_t = (time.perf_counter(), None)
+            flooder.start()
+            time.sleep(SLO_FLOOD_S)
+            flood_stop.set()
+            flooder.join(300)
+            assert not flooder.is_alive(), "the flood hung"
+            flood_t = (flood_t[0], time.perf_counter())
+            time.sleep(SLO_RECOVER_S)
+            stop.set()
+            join(threads)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts, by_body = launch_counts(kernels)
+        exp = tel.exporter
+        lines = [json.loads(line) for line in open(exp.snapshot_path)]
+        prom = open(exp.prom_path).read()
+        report = json.load(open(tel.report_path))
+    finally:
+        s.EngineConfig.inference_precision = "bfloat16"
+        shutil.rmtree(out_dir, ignore_errors=True)
+    slo_events = [(e["event"], e["rule"]) for e in mon.events()
+                  if e["event"] in (health.SLO_BREACH, health.SLO_RECOVERED)]
+    mine = [ev for ev, r in slo_events if r == rule]
+    shed = sum(1 for kind, _, _ in log if kind == "shed")
+    expected_lines = wall / SLO_EXPORT_S
+
+    def first_line(pred):
+        return next((line["uptime_s"] for line in lines if pred(line)),
+                    None)
+
+    breach_s = first_line(lambda ln: ln.get("slo", {}).get(
+        rule, {}).get("breached"))
+    recovered_s = next((line["uptime_s"] for line in lines
+                        if breach_s is not None
+                        and line["uptime_s"] > breach_s
+                        and not line["slo"][rule]["breached"]), None)
+    ok = [(t, lat) for kind, t, lat in log if kind == "ok"]
+    start, end = flood_t[0] - t0, flood_t[1] - t0
+    # two windows and a snapshot's interval after the flood's end (the
+    # scope's uptime starts just before t0): its queue waits have left
+    # the admission's window, and its requests the rule's
+    settled = [line for line in lines if line["uptime_s"]
+               >= end + 2 * SLO_WINDOW_S + SLO_EXPORT_S]
+
+    def window_p99(line, metric):
+        h = line["windowed"]["histograms"].get(metric)
+        return None if h is None else h["p99"]
+
+    out = {"phase": "serving_slo", "latency_target_ms": target_ms,
+           "unloaded_request_ms": unloaded,
+           "queue_wait_budget_ms": target_ms * 0.5,
+           "window_s": SLO_WINDOW_S, "export_interval_s": SLO_EXPORT_S,
+           "hold_s": SLO_HOLD_S, "flood_s": [start, end],
+           "flood_passes": passes[0], "seconds": wall,
+           "answered": len(ok), "shed": shed,
+           "request_ms_before_flood": latency_ms(
+               [lat for t, lat in ok if t < flood_t[0]]),
+           "request_ms_during_flood": latency_ms(
+               [lat for t, lat in ok if flood_t[0] <= t < flood_t[1]]),
+           "request_ms_after_flood": latency_ms(
+               [lat for t, lat in ok if t >= flood_t[1]]),
+           "slo_events": slo_events,
+           "breach_uptime_s": breach_s, "recovered_uptime_s": recovered_s,
+           "settled_snapshots": len(settled),
+           # what the rule observed at each of its recoveries (None: an
+           # empty window)
+           "recovered_observed": [
+               e["observed"] for e in mon.events()
+               if e["event"] == health.SLO_RECOVERED and e["rule"] == rule],
+           # each snapshot: uptime, the rule's windowed p99 and verdict,
+           # the windowed queue-wait p99, sheds so far
+           "snapshot_trace": [
+               [line["uptime_s"],
+                window_p99(line, telemetry.serving_request_metric(
+                    "xception")),
+                line.get("slo", {}).get(rule, {}).get("breached"),
+                window_p99(line, telemetry.M_QUEUE_WAIT_S),
+                line["cumulative"]["counters"].get(
+                    telemetry.HEALTH_METRIC_PREFIX + health.SERVING_SHED,
+                    0)] for line in lines],
+           "snapshots": len(lines), "snapshots_expected": expected_lines,
+           "exporter_errors": exp.errors,
+           "timeline_entries": len(report["timeline"]["entries"]),
+           "health": mon.counters(),
+           "launches": counts, "launches_by_body": by_body}
+    emit(out)
+    assert mon.dropped_events() == 0, "serving_slo: events dropped"
+    assert mine and mine == [health.SLO_BREACH, health.SLO_RECOVERED] \
+        * (len(mine) // 2), f"serving_slo: {rule} events {slo_events}"
+    assert breach_s is not None and start <= breach_s <= end, \
+        f"serving_slo: {rule} breached at {breach_s}, flood {start}-{end}"
+    assert len(settled) >= 2 and settled[-1].get("final"), \
+        f"serving_slo: {len(settled)} snapshots after the flood settled"
+    for line in settled:
+        verdict = line["slo"][rule]
+        assert verdict["observed"] is not None \
+            and not verdict["breached"], \
+            f"serving_slo: {rule} at {line['uptime_s']} s: {verdict}"
+    assert shed >= 1 and mon.count(health.SERVING_SHED) == shed, \
+        (shed, mon.count(health.SERVING_SHED))
+    assert len(lines) >= 0.5 * expected_lines and lines[-1].get("final"), \
+        (len(lines), expected_lines)
+    assert all(a["seq"] + 1 == b["seq"] for a, b in zip(lines, lines[1:]))
+    assert "sparkdl_serving_request_s" in prom
+    assert report["timeline"]["entries"], "empty timeline"
+    return out
+
+
+def serving_path(s, kernels, part_frame):
+    """The four serving phases, on the card under ``"force"`` in bf16,
+    with ``serving_warmup`` on and the blind power-of-two ladder (a tuned
+    ladder may adopt a rung after the warm-up, whose first request would
+    then capture; and the deployments and the flood's featurizer share a
+    model name, so they would share one tuned planner)."""
+    from sparkdl_tpu_torch import serving
+
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.coalesce = True
+    s.EngineConfig.serving_warmup = True
+    s.EngineConfig.bucket_ladder = "pow2"
+    try:
+        rows = serving_rows(TARGET, SERVE_ROWS, SERVE_SEED + 2)
+        reg = serving.ModelRegistry()
+        srv = serving.ModelServer(reg)
+        phases = {}
+        phases["serving_predict"], eager = serving_predict(s, kernels, reg,
+                                                           srv, rows)
+        phases["serving_hot_swap"] = serving_hot_swap(s, kernels, reg, srv,
+                                                      rows, eager)
+        phases["serving_slo"] = serving_slo(s, kernels, reg, rows,
+                                            part_frame)
+        phases["serving_residency"] = serving_residency(s, kernels)
+        return phases
+    finally:
+        s.EngineConfig.serving_warmup = False
+        s.EngineConfig.bucket_ladder = "tuned"
+        s.EngineConfig.inference_precision = "bfloat16"
+
+
 AUTOTUNE_PHASES = [
     ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL,
      "bfloat16"),
@@ -2876,6 +3733,9 @@ def main() -> int:
     # load, serve as a SQL UDF; then the classifier at a 16k-image scale
     phases.update(flagship_path(s, kernels))
     phases.update(lr_fit_scale(s, kernels))
+    # online serving: predict, hot swap, the live plane under a flood,
+    # then residency under a byte budget
+    phases.update(serving_path(s, kernels, part_frame))
     s.EngineConfig.inference_precision = "bfloat16"
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 

@@ -44,6 +44,17 @@ _LAZY_EXPORTS = {
     "table": ("sparkdl_tpu_torch.engine", "table"),
     "registerUDF": ("sparkdl_tpu_torch.udf", "registerUDF"),
     "registerImageUDF": ("sparkdl_tpu_torch.udf", "registerImageUDF"),
+    # observability
+    "Telemetry": ("sparkdl_tpu_torch.core", "Telemetry"),
+    "telemetry": ("sparkdl_tpu_torch.core", "telemetry"),
+    "HealthMonitor": ("sparkdl_tpu_torch.core", "HealthMonitor"),
+    "slo": ("sparkdl_tpu_torch.core", "slo"),
+    "SLORule": ("sparkdl_tpu_torch.core", "SLORule"),
+    "SLOWatchdog": ("sparkdl_tpu_torch.core", "SLOWatchdog"),
+    # online serving
+    "ModelServer": ("sparkdl_tpu_torch.serving", "ModelServer"),
+    "ModelRegistry": ("sparkdl_tpu_torch.serving", "ModelRegistry"),
+    "ResidencyManager": ("sparkdl_tpu_torch.serving", "ResidencyManager"),
 }
 
 __all__ = ["__version__"] + sorted(_LAZY_EXPORTS)

@@ -71,8 +71,13 @@ circuit breaker (``executor_breaker_*``,
 per-tenant deficit-round-robin within a lane
 (``executor_tenant_weights``, :class:`tenant_scope`).
 
-The mesh ``multiple=``, pytree inputs, buffer donation and the serving
-plane's ``retire_model`` are not ported yet.
+Eviction: :meth:`DeviceExecutor.retire_model` drops every idle
+coalescing state that pins a model or one of its variants and wakes its
+parked coalescer, so the serving plane's residency manager can free a
+model's weights and graphs.
+
+The mesh ``multiple=``, pytree inputs and buffer donation are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -389,6 +394,7 @@ class _FnState:
         self.breaker_failures: "deque[float]" = deque()
         self.breaker_opened_at = 0.0
         self.breaker_probe_inflight = False
+        self.retired = False  # set by retire_model: exit at next wakeup
 
     def effective_window(self) -> float:
         if self.window_s is not None:
@@ -656,6 +662,33 @@ class DeviceExecutor:
                 self._retire_locked(state, now)
             finally:
                 state.cond.release()
+
+    def retire_model(self, model: Any, variants: Optional[list] = None
+                     ) -> int:
+        """The serving residency manager's eviction hook: drop every idle
+        coalescing state whose strong reference pins ``model`` or one of
+        its memoized ``variants`` (a precision, resize or flatten variant
+        is a distinct program with its own state). Busy states (queued or
+        in-flight work) are skipped: their requests complete, and the idle
+        sweep retires them afterwards. A dropped state's parked coalescer
+        is woken and exits. Returns the number of states dropped."""
+        idents = {id(m) for m in (variants or [model])}
+        idents.add(id(model))
+        with self._lock:
+            victims = [s for s in self._states.values()
+                       if id(s.model) in idents]
+        dropped = 0
+        for state in victims:
+            with state.cond:  # canonical lock order: cond -> lock
+                if state.pending or state.inflight:
+                    continue
+                with self._lock:
+                    if self._states.get(state.key) is state:
+                        del self._states[state.key]
+                        dropped += 1
+                state.retired = True
+                state.cond.notify_all()  # the parked coalescer exits
+        return dropped
 
     def _ensure_thread(self, state: _FnState) -> None:
         # caller holds state.cond
@@ -950,8 +983,11 @@ class DeviceExecutor:
             while True:
                 with state.cond:
                     idle_since = time.monotonic()
-                    while not state.pending and not self._closed:
+                    while (not state.pending and not self._closed
+                           and not state.retired):
                         state.cond.wait(timeout=_idle_exit_s())
+                        if state.retired:
+                            break
                         if (not state.pending and not self._closed
                                 and time.monotonic() - idle_since
                                 >= _idle_exit_s()):
@@ -966,6 +1002,15 @@ class DeviceExecutor:
                                                     time.monotonic())
                             return
                     if self._closed:
+                        crashed = False
+                        return
+                    if state.retired and not state.pending:
+                        # evicted through retire_model with nothing
+                        # queued: exit now rather than at the idle
+                        # timeout, so the state's strong model reference
+                        # dies with the thread. A submit that raced the
+                        # eviction and queued anyway is drained first.
+                        state.thread = None
                         crashed = False
                         return
                     # bounded wait window, anchored at the head request's

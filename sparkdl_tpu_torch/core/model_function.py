@@ -224,6 +224,12 @@ class ModelFunction:
     #: callable has no routes and is not run twice.
     kernel_routable = False
 
+    #: The precision :meth:`with_dtype` built this variant for (None for a
+    #: model that is not such a variant), carried by every wrapper of it.
+    #: A model asked for the precision it already computes in is itself:
+    #: casting bf16 weights to bf16 again would only copy them.
+    compute_dtype: Optional[str] = None
+
     def __init__(self, apply_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                  variables: Any, input_spec: TensorSpec,
                  name: str = "model") -> None:
@@ -272,6 +278,7 @@ class ModelFunction:
         out = ModelFunction(fn, self.variables,
                             input_spec or self.input_spec, name=self.name)
         out.kernel_routable = self.kernel_routable
+        out.compute_dtype = self.compute_dtype
         return out
 
     def with_postprocess(self, post: Callable[[torch.Tensor], torch.Tensor]
@@ -284,6 +291,7 @@ class ModelFunction:
         out = ModelFunction(fn, self.variables, self.input_spec,
                             name=self.name)
         out.kernel_routable = self.kernel_routable
+        out.compute_dtype = self.compute_dtype
         return out
 
     def with_compute_dtype(self, dtype) -> "ModelFunction":
@@ -312,17 +320,19 @@ class ModelFunction:
         is :meth:`with_compute_dtype`; ``"int8"`` is weight-only
         post-training quantization (:meth:`_quantized_int8`). Memoized
         per precision, built once across threads: the coalescing
-        executor keys its queues on the variant."""
+        executor keys its queues on the variant. A variant (or a wrapper
+        of one) asked for its own :attr:`compute_dtype` returns itself."""
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {precision!r}")
-        if precision == "float32":
+        if precision == "float32" or precision == self.compute_dtype:
             return self
         with self._memo_lock:
             out = self._precision_cache.get(precision)
             if out is None:
                 out = (self._quantized_int8() if precision == "int8"
                        else self.with_compute_dtype(precision))
+                out.compute_dtype = precision
                 self._precision_cache[precision] = out
         return out
 
@@ -362,6 +372,45 @@ class ModelFunction:
         else:
             leaves = _tree_leaves(self.variables)
         return sum(int(getattr(t, "nbytes", 0) or 0) for t in leaves)
+
+    def device_variants(self) -> List["ModelFunction"]:
+        """This model and every memoized variant reachable from it: the
+        flattener, the resize wrappers and the precision variants,
+        transitively. Each variant owns its own programs (captured graphs
+        and their memory pool) and a precision variant its own copy of
+        the weights, so an eviction must visit all of them."""
+        seen: Dict[int, "ModelFunction"] = {}
+        stack: List["ModelFunction"] = [self]
+        while stack:
+            m = stack.pop()
+            if id(m) in seen:
+                continue
+            seen[id(m)] = m
+            with m._memo_lock:
+                if m._flat_cache is not None:
+                    stack.append(m._flat_cache)
+                stack.extend(m._precision_cache.values())
+                stack.extend(m._resize_cache.values())
+        return list(seen.values())
+
+    def release_device_state(self) -> None:
+        """Drop every captured graph (and with the last of them its
+        memory pool) of this model and its variants, and forget the
+        variants themselves: the eviction primitive behind the serving
+        residency manager. The weights are untouched (their owner decides
+        whether to drop its reference); the next :meth:`jitted` call
+        captures again, the cold-start cost the ``sparkdl.model_load``
+        span shows."""
+        for m in self.device_variants():
+            with m._memo_lock:
+                programs = list(m._programs.values())
+                m._programs = {}
+            for program in programs:
+                program.release()
+        with self._memo_lock:
+            self._flat_cache = None
+            self._resize_cache.clear()
+            self._precision_cache.clear()
 
     def flattened(self) -> "ModelFunction":
         """Outputs flattened to (batch, -1) — the ``buildFlattener`` analog.
@@ -407,6 +456,7 @@ class ModelFunction:
                 # pre() consults route_preproc whatever the parent's body
                 # holds
                 wrapped.kernel_routable = True
+                wrapped.compute_dtype = self.compute_dtype
                 self._resize_cache[key] = wrapped
         return wrapped
 
@@ -519,6 +569,22 @@ def _resolved(device: torch.device) -> torch.device:
 _PROGRAMS_OVER: "weakref.WeakKeyDictionary[torch.nn.Module, Any]" = \
     weakref.WeakKeyDictionary()
 _PROGRAMS_LOCK = threading.Lock()
+#: one capture stream per device: each warm-up and capture runs on it
+_CAPTURE_STREAMS: Dict[int, Any] = {}
+
+
+def _capture_stream(device: torch.device):
+    """The stream every warm-up and capture on ``device`` runs on. A
+    library's per-stream workspace (cuBLAS's and cuBLASLt's, keyed by
+    handle and stream) is allocated at its first use on a stream; on this
+    one that is the warm-up, outside any graph's pool, so no pool holds a
+    workspace that outlives the pool's model."""
+    with _PROGRAMS_LOCK:
+        stream = _CAPTURE_STREAMS.get(device.index)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[device.index] = \
+                torch.cuda.Stream(device)
+        return stream
 
 
 def _pool_bytes(device: torch.device, pool) -> int:
@@ -575,7 +641,8 @@ class Compiled:
        ``"autotune"``), so no audition ever runs inside a capture;
     2. one eager warm-up forward on the chunk fills every cache a forward
        fills at first use (built kernels, the float32 body's weight
-       layout, the resize tables, library handles) on a side stream;
+       layout, the resize tables, library handles and their per-stream
+       workspaces) on the stream the capture then runs on;
     3. cast → [resize] → preprocess → model → [flatten] is captured as one
        ``torch.cuda.CUDAGraph`` from a static input into a static output.
 
@@ -640,6 +707,15 @@ class Compiled:
         a replay holding a graph of the old one finishes with it."""
         self._graphs = {}
 
+    def release(self) -> None:
+        """Forget every captured graph, the shapes seen and the memory
+        pool, after the replay in flight (if any) has finished; the next
+        call captures again."""
+        with self._lock:
+            self._graphs = {}
+            self._seen = set()
+            self._pool = None
+
     def __call__(self, chunk: torch.Tensor,
                  n_valid: Optional[int] = None) -> torch.Tensor:
         n_valid = chunk.shape[0] if n_valid is None else n_valid
@@ -690,11 +766,11 @@ class Compiled:
             static_in.copy_(chunk, non_blocking=True)
             self._settle(static_in)
             current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
+            stream = _capture_stream(self.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
                 self._forward(static_in)
-            current.wait_stream(side)
+            current.wait_stream(stream)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
@@ -704,7 +780,7 @@ class Compiled:
             try:
                 with kernels.recording_launches() as launches, \
                         kernels.holding_references() as held, \
-                        torch.cuda.graph(graph, pool=self._pool,
+                        torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                          capture_error_mode="thread_local"):
                     static_out = self._forward(static_in)
             except BaseException as err:

@@ -24,10 +24,22 @@ Spans measured in another process (a decode-pool worker, which has no
 tracer of its own) cross as wire records (:func:`remote_span`, with
 timestamps moved onto the parent's clock by :func:`clock_handshake`)
 and are adopted with :meth:`Tracer.record_remote`; a shipped ring is
-merged with :meth:`Tracer.adopt_remote_spans`. The reference's live
-plane (windowed instruments, the periodic snapshot exporter and its SLO
-watchdog), its ring export and its serving and tenant metric names are
-not ported yet.
+merged with :meth:`Tracer.adopt_remote_spans`.
+
+The live plane: every instrument a scope creates also feeds a fixed ring
+of time-bucketed sub-counts (rotated lazily on the module clock
+:data:`_monotonic`, O(1) per record), so
+:meth:`MetricsRegistry.window_snapshot` answers "rate and p50/p95/p99
+over the last N seconds" beside the cumulative views. A
+:class:`SnapshotExporter` thread inside the scope appends a JSON-lines
+snapshot (windowed, cumulative, the executor's and the serving plane's
+state) and atomically replaces a Prometheus text file every
+``export_interval_s``, evaluates the ``core.slo`` watchdog at each tick,
+and flushes one last snapshot at scope exit; the run report gains a
+``timeline`` built from the snapshots. The reference's ring export
+(``Tracer.export_ring``, ``merged_chrome_trace``) and per-process file
+scopes (``process_scope``) belong to its cluster plane and are not
+ported yet.
 
 A :class:`Telemetry` scope activates process-wide (partition ops may run
 on other threads), nests, and restores the previous scope on exit. With
@@ -53,6 +65,14 @@ from collections import deque
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 TELEMETRY_DIR_ENV = "SPARKDL_TELEMETRY_DIR"
+# Opt-in periodic exporter cadence (seconds) for scopes that do not pass
+# export_interval_s; file output needs TELEMETRY_DIR_ENV too.
+EXPORT_INTERVAL_ENV = "SPARKDL_TELEMETRY_EXPORT_S"
+
+# The window rings and the exporter read THIS clock (monotonic), so a
+# test can drive rotation and cadence with a fake clock. The span path
+# reads perf_counter_ns directly.
+_monotonic = time.monotonic
 
 # ---------------------------------------------------------------------------
 # Canonical names: the reference's values, for the spans and metrics the
@@ -70,10 +90,20 @@ SPAN_DECODE_POOL = "sparkdl.decode_pool"      # one pooled decode fan-out
 SPAN_DECODE_CHUNK = "sparkdl.decode_chunk"    # one chunk decoded inside
                                               # a pool worker process
                                               # (core/decode_pool.py)
+SPAN_MODEL_LOAD = "sparkdl.model_load"        # serving cold start: the
+                                              # loader run on a residency
+                                              # miss (serving/residency.py)
+SPAN_SERVING_SHADOW = "sparkdl.serving_shadow"  # shadow-lane replay of one
+                                              # serving request
+                                              # (serving/server.py)
+SPAN_SERVING_WARMUP = "sparkdl.serving.warmup_s"  # bucket-ladder warm-up
+                                              # of one deployment
+                                              # (serving/registry.py)
 
 CANONICAL_SPAN_NAMES = frozenset({
     SPAN_RUN, SPAN_MATERIALIZE, SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
     SPAN_COALESCED_LAUNCH, SPAN_DECODE_POOL, SPAN_DECODE_CHUNK,
+    SPAN_MODEL_LOAD, SPAN_SERVING_SHADOW, SPAN_SERVING_WARMUP,
     # phase names (core/profiling.py constants + literal call sites)
     "sparkdl.decode", "sparkdl.stage", "sparkdl.stage_batch",
     "sparkdl.host_stage", "sparkdl.host_resize", "sparkdl.host_wait",
@@ -126,6 +156,20 @@ M_DECODE_POOL_DECODE_S = "sparkdl.decode_pool.decode_s"    # histogram
 M_KERNEL_AUTOTUNE_S = "sparkdl.kernel.autotune_s"      # histogram
 M_KERNEL_ADOPTED = "sparkdl.kernel.adopted"            # counter
 M_KERNEL_REJECTED = "sparkdl.kernel.rejected"          # counter
+# The online serving plane (serving/): each request's end-to-end
+# latency, the in-flight predict calls, the shadow leg's max
+# |active - shadow| and the residency evictions. Per-model latency
+# histograms are declared at deploy time as
+# "sparkdl.serving.request_s.<model>" (serving_request_metric).
+M_SERVING_REQUEST_S = "sparkdl.serving.request_s"      # histogram (e2e)
+M_SERVING_QUEUE_DEPTH = "sparkdl.serving.queue_depth"  # gauge (in flight)
+M_SERVING_SHADOW_DIVERGENCE = "sparkdl.serving.shadow_divergence"
+                                                       # histogram
+M_SERVING_EVICTIONS = "sparkdl.serving.evictions"      # counter
+# The cluster serving plane's two series, named now so rules over them
+# validate; nothing of the port records them until that plane is ported.
+M_SERVING_FAILOVER = "sparkdl.serving.failover"        # counter
+M_SERVING_REPLICAS = "sparkdl.serving.replicas"        # gauge
 HEALTH_METRIC_PREFIX = "sparkdl.health."
 
 CANONICAL_METRIC_KINDS: Dict[str, str] = {
@@ -155,6 +199,12 @@ CANONICAL_METRIC_KINDS: Dict[str, str] = {
     M_KERNEL_AUTOTUNE_S: "histogram",
     M_KERNEL_ADOPTED: "counter",
     M_KERNEL_REJECTED: "counter",
+    M_SERVING_REQUEST_S: "histogram",
+    M_SERVING_QUEUE_DEPTH: "gauge",
+    M_SERVING_SHADOW_DIVERGENCE: "histogram",
+    M_SERVING_EVICTIONS: "counter",
+    M_SERVING_FAILOVER: "counter",
+    M_SERVING_REPLICAS: "gauge",
 }
 
 CANONICAL_METRIC_NAMES = frozenset(CANONICAL_METRIC_KINDS)
@@ -163,9 +213,11 @@ _declare_lock = threading.Lock()
 
 
 def declare_metric(name: str, kind: str) -> str:
-    """Declare a DYNAMIC metric name (the per-tenant queue-wait histogram)
-    into the catalog. Idempotent; re-declaring with a DIFFERENT kind
-    raises. Returns ``name``."""
+    """Declare a DYNAMIC metric name (the per-model serving latency and
+    the per-tenant queue-wait histograms) into the catalog, so an
+    ``slo.SLORule`` over it validates. Idempotent; re-declaring with a
+    DIFFERENT kind raises (two writers disagreeing on the instrument
+    would corrupt every rule watching it). Returns ``name``."""
     if kind not in ("histogram", "counter", "gauge"):
         raise ValueError(
             f"declare_metric kind must be 'histogram', 'counter' or "
@@ -181,6 +233,14 @@ def declare_metric(name: str, kind: str) -> str:
             CANONICAL_METRIC_KINDS[name] = kind
             CANONICAL_METRIC_NAMES = frozenset(CANONICAL_METRIC_KINDS)
     return name
+
+
+def serving_request_metric(model: str) -> str:
+    """The per-model serving latency histogram name: metrics carry no
+    labels, so per-model p99 objectives get per-model NAMES, declared at
+    deploy time and observed by the ModelServer beside the aggregate
+    ``M_SERVING_REQUEST_S``."""
+    return M_SERVING_REQUEST_S + "." + model
 
 
 def tenant_queue_wait_metric(tenant: str) -> str:
@@ -502,19 +562,70 @@ def _estimate_percentile(q: float, counts: Sequence[int], count: int,
     return vmax
 
 
+def _window_floor(span_s: float, slots: int, window_s: float) -> int:
+    """Oldest slot epoch inside a trailing ``window_s`` window (clamped
+    to the ring capacity). The current partial slot is always included,
+    so the effective window is ``window_s`` ± one slot span."""
+    k = min(slots, max(1, math.ceil(window_s / span_s)))
+    return int(_monotonic() / span_s) - k + 1
+
+
 class Counter:
-    """Monotonic counter."""
+    """Monotonic counter. With ``window=(span_s, slots)`` it also keeps a
+    fixed ring of time-bucketed sub-counts (lazy monotonic-clock
+    rotation, O(1) per inc) so :meth:`window_count` can answer "how many
+    in the last N seconds" without a timer thread."""
 
-    __slots__ = ("name", "_lock", "_value")
+    __slots__ = ("name", "_lock", "_value", "_w_span", "_w_epochs",
+                 "_w_counts")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str,
+                 window: Optional[Tuple[float, int]] = None) -> None:
         self.name = name
         self._lock = threading.Lock()
         self._value = 0
+        self._w_span: Optional[float] = None
+        if window is not None:
+            span_s, slots = window
+            self._w_span = float(span_s)
+            self._w_epochs = [-1] * slots
+            self._w_counts = [0] * slots
 
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self._value += n
+            if self._w_span is not None:
+                epoch = int(_monotonic() / self._w_span)
+                i = epoch % len(self._w_counts)
+                if self._w_epochs[i] != epoch:  # lazy rotation
+                    self._w_epochs[i] = epoch
+                    self._w_counts[i] = 0
+                self._w_counts[i] += n
+
+    def window_count(self, window_s: float) -> int:
+        """Occurrences within the trailing ``window_s`` (0 without a
+        ring; resolution = one ring slot)."""
+        if self._w_span is None:
+            return 0
+        with self._lock:
+            floor_epoch = _window_floor(self._w_span, len(self._w_counts),
+                                        window_s)
+            return sum(c for e, c in zip(self._w_epochs, self._w_counts)
+                       if e >= floor_epoch)
+
+    def window_frame(self) -> Dict[int, int]:
+        """Per-slot ``{epoch: count}`` export of the live ring (one
+        consistent locked copy): the reference's metrics-federation wire
+        format. Epochs are THIS process's monotonic slot indices. Empty
+        without a ring."""
+        if self._w_span is None:
+            return {}
+        with self._lock:
+            floor_epoch = _window_floor(
+                self._w_span, len(self._w_counts),
+                self._w_span * len(self._w_counts))
+            return {e: c for e, c in zip(self._w_epochs, self._w_counts)
+                    if e >= floor_epoch and c}
 
     @property
     def value(self) -> int:
@@ -523,18 +634,72 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins instantaneous value."""
+    """Last-write-wins instantaneous value. With ``window=`` it also
+    remembers (last, min, max) per ring slot so the windowed view can
+    report the envelope of the last N seconds, not just the final
+    write."""
 
-    __slots__ = ("name", "_lock", "_value")
+    __slots__ = ("name", "_lock", "_value", "_w_span", "_w_epochs",
+                 "_w_vals")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str,
+                 window: Optional[Tuple[float, int]] = None) -> None:
         self.name = name
         self._lock = threading.Lock()
         self._value: Optional[float] = None
+        self._w_span: Optional[float] = None
+        if window is not None:
+            span_s, slots = window
+            self._w_span = float(span_s)
+            self._w_epochs = [-1] * slots
+            self._w_vals: List[Optional[Tuple[float, float, float]]] = \
+                [None] * slots
 
     def set(self, value: float) -> None:
+        value = float(value)
         with self._lock:
-            self._value = float(value)
+            self._value = value
+            if self._w_span is not None:
+                epoch = int(_monotonic() / self._w_span)
+                i = epoch % len(self._w_vals)
+                if self._w_epochs[i] != epoch:
+                    self._w_epochs[i] = epoch
+                    self._w_vals[i] = (value, value, value)
+                else:
+                    last, lo, hi = self._w_vals[i]  # type: ignore[misc]
+                    self._w_vals[i] = (value, min(lo, value),
+                                       max(hi, value))
+
+    def window_values(self, window_s: float) -> Optional[Dict[str, float]]:
+        """``{'last', 'min', 'max'}`` over the trailing window; ``None``
+        when the window saw no :meth:`set` (or there is no ring)."""
+        if self._w_span is None:
+            return None
+        with self._lock:
+            floor_epoch = _window_floor(self._w_span, len(self._w_vals),
+                                        window_s)
+            seen = sorted((e, v) for e, v in zip(self._w_epochs,
+                                                 self._w_vals)
+                          if e >= floor_epoch and v is not None)
+        if not seen:
+            return None
+        return {"last": seen[-1][1][0],
+                "min": min(v[1] for _, v in seen),
+                "max": max(v[2] for _, v in seen)}
+
+    def window_frame(self) -> Dict[int, List[float]]:
+        """Per-slot ``{epoch: [last, min, max]}`` envelope export of the
+        live ring — the federation wire format for gauges (see
+        :meth:`Counter.window_frame`). Empty without a ring."""
+        if self._w_span is None:
+            return {}
+        with self._lock:
+            floor_epoch = _window_floor(
+                self._w_span, len(self._w_vals),
+                self._w_span * len(self._w_vals))
+            return {e: list(v) for e, v in zip(self._w_epochs,
+                                               self._w_vals)
+                    if e >= floor_epoch and v is not None}
 
     @property
     def value(self) -> Optional[float]:
@@ -547,14 +712,19 @@ class Histogram:
 
     Buckets are upper bounds (Prometheus ``le`` semantics) growing by a
     constant factor (default 2×), so the relative error of a percentile
-    estimate is bounded by the factor.
+    estimate is bounded by the factor. p50/p95/p99 are estimated at the
+    geometric midpoint of the covering bucket, clamped to the observed
+    [min, max].
     """
 
     __slots__ = ("name", "_lock", "bounds", "_counts", "count", "sum",
-                 "min", "max")
+                 "min", "max", "_w_span", "_w_epochs", "_w_slots",
+                 "_ex_k", "_w_ex")
 
     def __init__(self, name: str,
-                 bounds: Sequence[float] = DEFAULT_TIME_BOUNDS) -> None:
+                 bounds: Sequence[float] = DEFAULT_TIME_BOUNDS,
+                 window: Optional[Tuple[float, int]] = None,
+                 exemplar_k: int = 0) -> None:
         self.name = name
         self._lock = threading.Lock()
         self.bounds = tuple(float(b) for b in bounds)
@@ -563,8 +733,28 @@ class Histogram:
         self.sum = 0.0
         self.min: Optional[float] = None
         self.max: Optional[float] = None
+        self._w_span: Optional[float] = None
+        # opt-in tail-exemplar reservoir: the top-k observations per
+        # window slot, each carrying the span context that produced it —
+        # a breached p99 points at concrete traces, not just a number
+        self._ex_k = int(exemplar_k) if window is not None else 0
+        if window is not None:
+            span_s, slots = window
+            self._w_span = float(span_s)
+            self._w_epochs = [-1] * slots
+            # one sub-histogram per ring slot: [counts, count, sum, min,
+            # max]; reset lazily when its slot's epoch rotates past
+            self._w_slots: List[List[Any]] = [
+                [[0] * (len(self.bounds) + 1), 0, 0.0, None, None]
+                for _ in range(slots)]
+            if self._ex_k:
+                # per-slot exemplar list, ascending by value (min first
+                # for O(1) eviction checks at tiny fixed k)
+                self._w_ex: List[List[Tuple[float, str, int]]] = [
+                    [] for _ in range(slots)]
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float,
+                exemplar: Optional[SpanContext] = None) -> None:
         value = float(value)
         idx = bisect.bisect_left(self.bounds, value)
         with self._lock:
@@ -575,13 +765,46 @@ class Histogram:
                 self.min = value
             if self.max is None or value > self.max:
                 self.max = value
+            if self._w_span is not None:
+                epoch = int(_monotonic() / self._w_span)
+                i = epoch % len(self._w_slots)
+                slot = self._w_slots[i]
+                if self._w_epochs[i] != epoch:  # lazy rotation
+                    self._w_epochs[i] = epoch
+                    slot[0] = [0] * (len(self.bounds) + 1)
+                    slot[1], slot[2] = 0, 0.0
+                    slot[3] = slot[4] = None
+                    if self._ex_k:
+                        self._w_ex[i] = []
+                slot[0][idx] += 1
+                slot[1] += 1
+                slot[2] += value
+                if slot[3] is None or value < slot[3]:
+                    slot[3] = value
+                if slot[4] is None or value > slot[4]:
+                    slot[4] = value
+                if self._ex_k and exemplar is not None:
+                    ex = self._w_ex[i]
+                    if len(ex) < self._ex_k:
+                        bisect.insort(
+                            ex, (value, exemplar.trace_id,
+                                 exemplar.span_id))
+                    elif value > ex[0][0]:  # beats the smallest kept
+                        ex.pop(0)
+                        bisect.insort(
+                            ex, (value, exemplar.trace_id,
+                                 exemplar.span_id))
 
     def percentile(self, q: float) -> Optional[float]:
+        """Estimated q-quantile (q in [0, 1]) from the bucket counts
+        (``None`` on an empty histogram)."""
         with self._lock:
             return _estimate_percentile(q, self._counts, self.count,
                                         self.bounds, self.min, self.max)
 
     def _raw(self) -> Tuple[Tuple[float, ...], List[int], int, float]:
+        """(bounds, counts, count, sum) as one consistent locked copy —
+        the Prometheus exposition source."""
         with self._lock:
             return self.bounds, list(self._counts), self.count, self.sum
 
@@ -593,43 +816,157 @@ class Histogram:
         buckets = {("+Inf" if i == len(self.bounds)
                     else repr(self.bounds[i])): c
                    for i, c in enumerate(counts) if c}
+        # percentiles from the SAME locked copy as the buckets (a
+        # concurrent observe between the copy and the estimate cannot
+        # skew them apart), None — not a midpoint guess — when empty
         return {
             "count": count, "sum": round(total, 9), "min": lo, "max": hi,
-            **{name: _estimate_percentile(q, counts, count, self.bounds,
-                                          lo, hi)
-               for name, q in (("p50", 0.50), ("p95", 0.95),
-                               ("p99", 0.99))},
+            "p50": _estimate_percentile(0.50, counts, count, self.bounds,
+                                        lo, hi),
+            "p95": _estimate_percentile(0.95, counts, count, self.bounds,
+                                        lo, hi),
+            "p99": _estimate_percentile(0.99, counts, count, self.bounds,
+                                        lo, hi),
             "buckets": buckets,
         }
 
+    def window_snapshot(self, window_s: float) -> Dict[str, Any]:
+        """Merged ``{count, sum, rate_per_s, min, max, p50, p95, p99}``
+        over the trailing ``window_s`` (resolution = one ring slot).
+        Percentiles and min/max are ``None`` on an empty window; all
+        zeros/None without a ring. With an armed exemplar reservoir the
+        snapshot additionally carries ``exemplars``: the top-k in-window
+        observations (descending), each
+        ``{value, trace_id, span_id}`` — the key is absent entirely when
+        exemplars are off, keeping the unarmed shape unchanged."""
+        counts = [0] * (len(self.bounds) + 1)
+        count, total = 0, 0.0
+        vmin: Optional[float] = None
+        vmax: Optional[float] = None
+        exemplars: List[Tuple[float, str, int]] = []
+        if self._w_span is not None:
+            with self._lock:
+                floor_epoch = _window_floor(self._w_span,
+                                            len(self._w_slots), window_s)
+                for i, (e, slot) in enumerate(zip(self._w_epochs,
+                                                  self._w_slots)):
+                    if e < floor_epoch or not slot[1]:
+                        continue
+                    for j, c in enumerate(slot[0]):
+                        counts[j] += c
+                    count += slot[1]
+                    total += slot[2]
+                    vmin = slot[3] if vmin is None else min(vmin, slot[3])
+                    vmax = slot[4] if vmax is None else max(vmax, slot[4])
+                    if self._ex_k:
+                        exemplars.extend(self._w_ex[i])
+        out = {
+            "count": count, "sum": round(total, 9),
+            "rate_per_s": round(count / window_s, 9) if window_s else 0.0,
+            "min": vmin, "max": vmax,
+            "p50": _estimate_percentile(0.50, counts, count, self.bounds,
+                                        vmin, vmax),
+            "p95": _estimate_percentile(0.95, counts, count, self.bounds,
+                                        vmin, vmax),
+            "p99": _estimate_percentile(0.99, counts, count, self.bounds,
+                                        vmin, vmax),
+        }
+        if self._ex_k:
+            exemplars.sort(reverse=True)
+            out["exemplars"] = [
+                {"value": v, "trace_id": t, "span_id": s}
+                for v, t, s in exemplars[:self._ex_k]]
+        return out
+
+    def window_frame(self) -> Dict[int, List[Any]]:
+        """Per-slot sub-histogram export of the live ring, keyed by slot
+        epoch: ``{epoch: [bucket_counts, count, sum, min, max]}`` (with
+        an armed exemplar reservoir each entry appends its slot's
+        ``[(value, trace_id, span_id), ...]`` list). Mergeable by
+        construction: bucket counts sum across processes per epoch, so a
+        merged percentile comes from ONE bucket array. Empty without a
+        ring."""
+        if self._w_span is None:
+            return {}
+        out: Dict[int, List[Any]] = {}
+        with self._lock:
+            floor_epoch = _window_floor(
+                self._w_span, len(self._w_slots),
+                self._w_span * len(self._w_slots))
+            for i, (e, slot) in enumerate(zip(self._w_epochs,
+                                              self._w_slots)):
+                if e < floor_epoch or not slot[1]:
+                    continue
+                entry: List[Any] = [list(slot[0]), slot[1], slot[2],
+                                    slot[3], slot[4]]
+                if self._ex_k:
+                    entry.append([list(ex) for ex in self._w_ex[i]])
+                out[e] = entry
+        return out
+
 
 def escape_label_value(value: Any) -> str:
-    """Prometheus text-exposition label-value escaping."""
+    """Prometheus text-exposition label-value escaping: backslash,
+    double-quote and newline (in that order, per the 0.0.4 format)."""
     return (str(value).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
 
 
-class MetricsRegistry:
-    """Get-or-create registry of named instruments (one per name)."""
+def _escape_help(text: str) -> str:
+    """HELP-line escaping: backslash and newline only (quotes are legal
+    in HELP text)."""
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
 
-    def __init__(self) -> None:
+
+class MetricsRegistry:
+    """Get-or-create registry of named instruments (one per name).
+
+    ``window_s``/``window_buckets`` arm the sliding-window rings on every
+    instrument the registry creates: ``window_s`` is the largest
+    queryable trailing window, bucketed into ``window_buckets`` ring
+    slots (the window resolution). ``window_s=None`` (the bare-registry
+    default) creates ring-free instruments — the pre-windowing record
+    path, not even a clock read per record.
+
+    ``exemplar_k`` (opt-in, default 0 = off) arms a per-slot tail
+    exemplar reservoir on every histogram created here: callers passing
+    a span context to :meth:`Histogram.observe` get their top-k
+    observations per window surfaced with ``{value, trace_id, span_id}``
+    in windowed snapshots."""
+
+    def __init__(self, window_s: Optional[float] = None,
+                 window_buckets: int = 12, exemplar_k: int = 0) -> None:
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        self._window: Optional[Tuple[float, int]] = None
+        if exemplar_k < 0:
+            raise ValueError(f"exemplar_k must be >= 0, got {exemplar_k!r}")
+        self.exemplar_k = int(exemplar_k)
+        if window_s is not None:
+            if window_s <= 0 or window_buckets <= 0:
+                raise ValueError(
+                    "window_s and window_buckets must be > 0, got "
+                    f"{window_s!r}/{window_buckets!r}")
+            self._window = (float(window_s) / int(window_buckets),
+                            int(window_buckets))
+        self.window_s = window_s
 
     def counter(self, name: str) -> Counter:
         with self._lock:
             inst = self._counters.get(name)
             if inst is None:
-                inst = self._counters[name] = Counter(name)
+                inst = self._counters[name] = Counter(
+                    name, window=self._window)
             return inst
 
     def gauge(self, name: str) -> Gauge:
         with self._lock:
             inst = self._gauges.get(name)
             if inst is None:
-                inst = self._gauges[name] = Gauge(name)
+                inst = self._gauges[name] = Gauge(name,
+                                                  window=self._window)
             return inst
 
     def histogram(self, name: str,
@@ -638,7 +975,9 @@ class MetricsRegistry:
         with self._lock:
             inst = self._histograms.get(name)
             if inst is None:
-                inst = self._histograms[name] = Histogram(name, bounds)
+                inst = self._histograms[name] = Histogram(
+                    name, bounds, window=self._window,
+                    exemplar_k=self.exemplar_k)
             return inst
 
     def snapshot(self) -> Dict[str, Any]:
@@ -654,25 +993,126 @@ class MetricsRegistry:
                            for k in sorted(histograms)},
         }
 
+    def window_snapshot(self, window_s: Optional[float] = None
+                        ) -> Dict[str, Any]:
+        """Sliding-window view over every instrument: counter counts and
+        rates, gauge last/min/max envelopes, histogram percentiles —
+        all over the trailing ``window_s`` seconds (default and cap: the
+        ring capacity). Resolution is one ring slot, and the current
+        partial slot is included, so the effective window is
+        ``window_s`` ± one slot. Empty sections when the registry was
+        built without windows."""
+        if self._window is None:
+            return {"window_s": None, "counters": {}, "gauges": {},
+                    "histograms": {}}
+        span, slots = self._window
+        if window_s is None:
+            window_s = span * slots
+        window_s = min(float(window_s), span * slots)
+        if window_s <= 0:
+            raise ValueError(f"window_s must be > 0, got {window_s!r}")
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            histograms = dict(self._histograms)
+        out_counters = {}
+        for k in sorted(counters):
+            c = counters[k].window_count(window_s)
+            out_counters[k] = {"count": c,
+                               "rate_per_s": round(c / window_s, 9)}
+        out_gauges = {}
+        for k in sorted(gauges):
+            v = gauges[k].window_values(window_s)
+            if v is not None:
+                out_gauges[k] = v
+        return {
+            "window_s": window_s,
+            "counters": out_counters,
+            "gauges": out_gauges,
+            "histograms": {k: histograms[k].window_snapshot(window_s)
+                           for k in sorted(histograms)},
+        }
+
+    def export_frame(self) -> Optional[Dict[str, Any]]:
+        """The bounded metrics-federation delta frame: every windowed
+        instrument's live ring slots keyed by slot epoch, restricted to
+        the canonical catalog plus the ``sparkdl.health.*`` mirrors.
+        ``None`` without windows: there is nothing windowed to
+        federate. Frame size is bounded by construction — ring slots ×
+        bucket counts per instrument, independent of traffic volume —
+        and each frame is the full state of the ring (a receiver merges
+        by replacing), so a dropped frame heals on the next cadence
+        instead of leaving a permanent gap."""
+        if self._window is None:
+            return None
+        span, slots = self._window
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            histograms = dict(self._histograms)
+
+        def declared(name: str) -> bool:
+            return (name in CANONICAL_METRIC_NAMES
+                    or name.startswith(HEALTH_METRIC_PREFIX))
+
+        out_counters: Dict[str, Any] = {}
+        for name in sorted(counters):
+            if declared(name):
+                frame = counters[name].window_frame()
+                if frame:
+                    out_counters[name] = frame
+        out_gauges: Dict[str, Any] = {}
+        for name in sorted(gauges):
+            if declared(name):
+                frame = gauges[name].window_frame()
+                if frame:
+                    out_gauges[name] = frame
+        out_hists: Dict[str, Any] = {}
+        for name in sorted(histograms):
+            if declared(name):
+                frame = histograms[name].window_frame()
+                if frame:
+                    out_hists[name] = {
+                        "bounds": list(histograms[name].bounds),
+                        "slots": frame,
+                    }
+        return {
+            "span_s": span,
+            "slots": slots,
+            "now_epoch": int(_monotonic() / span),
+            "counters": out_counters,
+            "gauges": out_gauges,
+            "histograms": out_hists,
+        }
+
     def prometheus_text(self) -> str:
-        """Prometheus text exposition (0.0.4) of every instrument."""
-        import re
+        """Prometheus text exposition (0.0.4) dump of every instrument:
+        one ``# HELP`` + ``# TYPE`` pair per metric family, escaped
+        label values, cumulative histogram buckets with a closing
+        ``+Inf``."""
+        import re as _re
+
+        def sane(name: str) -> str:
+            return _re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+        lines: List[str] = []
 
         def family(name: str, kind: str) -> str:
-            n = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
-            help_text = name.replace("\\", "\\\\").replace("\n", "\\n")
-            lines.append(f"# HELP {n} {help_text} (sparkdl_tpu_torch "
-                         f"{kind})")
+            n = sane(name)
+            lines.append(
+                f"# HELP {n} {_escape_help(name)} (sparkdl_tpu_torch {kind})")
             lines.append(f"# TYPE {n} {kind}")
             return n
 
-        lines: List[str] = []
         snap = self.snapshot()
         for name, value in snap["counters"].items():
-            lines.append(f"{family(name, 'counter')} {value}")
+            n = family(name, "counter")
+            lines.append(f"{n} {value}")
         for name, value in snap["gauges"].items():
-            if value is not None:
-                lines.append(f"{family(name, 'gauge')} {value}")
+            if value is None:
+                continue
+            n = family(name, "gauge")
+            lines.append(f"{n} {value}")
         with self._lock:
             hists = dict(self._histograms)
         for name in sorted(hists):
@@ -687,6 +1127,224 @@ class MetricsRegistry:
             lines.append(f"{n}_sum {total}")
             lines.append(f"{n}_count {count}")
         return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# Periodic snapshot exporter (the live half of the run report)
+# ---------------------------------------------------------------------------
+
+
+class SnapshotExporter:
+    """Periodic live-snapshot exporter for one telemetry scope.
+
+    Every ``interval_s`` (daemon thread; drop-safe final flush at
+    :meth:`close`) a tick:
+
+    - appends one JSON line — sequence number, uptime, windowed +
+      cumulative metric snapshots, executor queue/breaker state — to
+      ``sparkdl_snapshots_<run_id>.jsonl`` under ``out_dir``;
+    - atomically replaces ``sparkdl_metrics_<run_id>.prom`` (temp file +
+      ``os.replace``) so a Prometheus textfile collector never reads a
+      torn exposition;
+    - evaluates the scope's SLO watchdog (``core/slo.py``) so breaches
+      surface while the process is alive, not in the post-mortem.
+
+    Without an ``out_dir`` no files are written but ticks still run
+    (watchdog + the bounded in-memory timeline that feeds the run
+    report). A tick that crashes records one ``telemetry_export_error``
+    health event and keeps going — the exporter never takes the run
+    down and never dies silently.
+    """
+
+    def __init__(self, tel: "Telemetry", interval_s: float,
+                 out_dir: Optional[str] = None, watchdog: Any = None,
+                 timeline_max: int = 240) -> None:
+        if interval_s <= 0:
+            raise ValueError(
+                f"export_interval_s must be > 0, got {interval_s!r}")
+        self.tel = tel
+        self.interval_s = float(interval_s)
+        self.out_dir = out_dir
+        self.watchdog = watchdog
+        self.seq = 0
+        self.errors = 0
+        self.snapshot_path: Optional[str] = None
+        self.prom_path: Optional[str] = None
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            self.snapshot_path = os.path.join(
+                out_dir, f"sparkdl_snapshots_{tel.run_id}.jsonl")
+            self.prom_path = os.path.join(
+                out_dir, f"sparkdl_metrics_{tel.run_id}.prom")
+        self._t0 = _monotonic()
+        self._next_due = self._t0 + self.interval_s
+        self._tick_lock = threading.Lock()  # thread tick vs close flush
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._timeline: "deque[Dict[str, Any]]" = deque(maxlen=timeline_max)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"sparkdl-telemetry-export-{self.tel.run_id}")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            wait_s = max(0.005, min(self._next_due - _monotonic(),
+                                    self.interval_s))
+            if self._stop.wait(timeout=wait_s):
+                return
+            self.tick_if_due()
+
+    def close(self) -> None:
+        """Stop the thread, then flush one final snapshot — the tail of
+        the run (where failures live) is never lost to cadence."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        self.tick(final=True)
+
+    # -- ticking -------------------------------------------------------------
+
+    def tick_if_due(self) -> bool:
+        """Export iff the cadence clock says a snapshot is due."""
+        now = _monotonic()
+        if now < self._next_due:
+            return False
+        self._next_due = now + self.interval_s
+        self.tick()
+        return True
+
+    def tick(self, final: bool = False) -> None:
+        """One export. Never raises: a crashed tick records ONE
+        ``telemetry_export_error`` health event and returns, so the
+        exporter thread survives and the next tick gets a fresh try."""
+        from sparkdl_tpu_torch.core import health  # lazy: health imports us
+
+        try:
+            with self._tick_lock:
+                self._export(final=final)
+        except Exception as e:  # noqa: BLE001 - recorded, never re-raised
+            self.errors += 1
+            health.record(health.TELEMETRY_EXPORT_ERROR,
+                          error=type(e).__name__, seq=self.seq)
+            logging.getLogger(__name__).exception(
+                "telemetry snapshot export failed (seq %d): %s",
+                self.seq, e)
+
+    def _export(self, final: bool) -> None:
+        now = _monotonic()
+        tel = self.tel
+        self.seq += 1
+        slo_state = (self.watchdog.evaluate(tel.metrics, now=now)
+                     if self.watchdog is not None else None)
+        snap: Dict[str, Any] = {
+            "seq": self.seq,
+            "run_id": tel.run_id,
+            "uptime_s": round(now - self._t0, 6),
+            "created_unix_s": round(time.time(), 3),
+            "windowed": tel.metrics.window_snapshot(),
+            "cumulative": tel.metrics.snapshot(),
+            "executor": self._executor_status(),
+        }
+        serving = self._serving_status()
+        if serving is not None:
+            snap["serving"] = serving
+        cluster = self._cluster_status()
+        if cluster is not None:
+            snap["cluster"] = cluster
+        if slo_state is not None:
+            snap["slo"] = slo_state
+        if final:
+            snap["final"] = True
+        self._timeline.append(self._compact(snap))
+        # the writes run under _tick_lock: serializing them against the
+        # close() flush is that lock's job
+        if self.snapshot_path is not None:
+            with open(self.snapshot_path, "a") as f:
+                f.write(json.dumps(snap, default=str) + "\n")
+                f.flush()
+        if self.prom_path is not None:
+            tmp = self.prom_path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(tel.metrics.prometheus_text())
+            os.replace(tmp, self.prom_path)
+
+    @staticmethod
+    def _executor_status() -> Optional[Dict[str, Any]]:
+        """Queue/breaker state of the device execution service, read only
+        when the process already imported it (``sys.modules``, not an
+        import: a job that never ran the executor does not pay for it)."""
+        import sys
+
+        mod = sys.modules.get("sparkdl_tpu_torch.core.executor")
+        if mod is None:
+            return None
+        return mod.service().status()
+
+    @staticmethod
+    def _serving_status() -> Optional[Dict[str, Any]]:
+        """The live ModelServers' in-flight depth and models, read the same
+        way as :meth:`_executor_status`: a process that never imported the
+        serving plane, or built no server, gets no ``serving`` key."""
+        import sys
+
+        mod = sys.modules.get("sparkdl_tpu_torch.serving.server")
+        if mod is None:
+            return None
+        return mod.exporter_status()
+
+    @staticmethod
+    def _cluster_status() -> Optional[Dict[str, Any]]:
+        """The federated cluster-metrics view: None until the port has a
+        cluster plane."""
+        return None
+
+    # -- the timeline that feeds RunReport -----------------------------------
+
+    @staticmethod
+    def _compact(snap: Dict[str, Any]) -> Dict[str, Any]:
+        """One bounded timeline entry per snapshot: windowed activity
+        (non-empty instruments only) + the SLO verdicts."""
+        windowed = snap["windowed"]
+        entry: Dict[str, Any] = {
+            "seq": snap["seq"],
+            "uptime_s": snap["uptime_s"],
+            "windowed_histograms": {
+                k: {"count": v["count"], "p50": v["p50"], "p99": v["p99"]}
+                for k, v in windowed["histograms"].items() if v["count"]},
+            "windowed_counters": {
+                k: v for k, v in windowed["counters"].items()
+                if v["count"]},
+        }
+        if snap.get("slo") is not None:
+            entry["slo_breached"] = sorted(
+                name for name, st in snap["slo"].items() if st["breached"])
+            exemplars = {
+                name: st["exemplars"]
+                for name, st in snap["slo"].items()
+                if st["breached"] and st.get("exemplars")}
+            if exemplars:
+                entry["slo_exemplars"] = exemplars
+        if snap.get("final"):
+            entry["final"] = True
+        return entry
+
+    def timeline_summary(self) -> Dict[str, Any]:
+        """The run report's ``timeline`` block: exporter stats + the
+        (bounded, tail-keeping) compact snapshot entries."""
+        return {
+            "export_interval_s": self.interval_s,
+            "snapshots": self.seq,
+            "errors": self.errors,
+            "snapshot_path": self.snapshot_path,
+            "prometheus_path": self.prom_path,
+            "entries": list(self._timeline),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -722,7 +1380,13 @@ class Telemetry:
 
     ``out_dir`` defaults to ``$SPARKDL_TELEMETRY_DIR``; when neither is
     set no files are written and the scope is purely programmatic
-    (``tel.tracer`` / ``tel.metrics`` / ``tel.report()``). While the
+    (``tel.tracer`` / ``tel.metrics`` / ``tel.report()``).
+    ``window_s``/``window_buckets`` size every instrument's ring (None: no
+    rings); ``export_interval_s`` (or ``$SPARKDL_TELEMETRY_EXPORT_S``)
+    starts the :class:`SnapshotExporter`, which evaluates ``slo_rules``
+    (default: ``slo.DEFAULT_RULES``, re-windowed to a smaller ring) at
+    each tick; ``exemplar_k`` keeps the top-k observations per ring slot
+    with their span contexts. While the
     scope is active, log records from the ``sparkdl_tpu_torch`` namespace
     carry ``.run_id`` / ``.trace_id``. To fold the active
     ``HealthMonitor``'s report into the run report, enter the monitor
@@ -731,14 +1395,43 @@ class Telemetry:
 
     def __init__(self, name: str = "run", out_dir: Optional[str] = None,
                  max_spans: int = 65536,
-                 run_id: Optional[str] = None) -> None:
+                 window_s: Optional[float] = 60.0,
+                 window_buckets: int = 12,
+                 export_interval_s: Optional[float] = None,
+                 slo_rules: Optional[Sequence[Any]] = None,
+                 run_id: Optional[str] = None,
+                 exemplar_k: int = 0) -> None:
         self.name = name
         self.out_dir = (out_dir if out_dir is not None
                         else os.environ.get(TELEMETRY_DIR_ENV))
         self.run_id = run_id or (
             f"{name}-{os.getpid():x}-{next(_run_counter):04x}")
         self.tracer = Tracer(trace_id=self.run_id, max_spans=max_spans)
-        self.metrics = MetricsRegistry()
+        self.metrics = MetricsRegistry(window_s=window_s,
+                                       window_buckets=window_buckets,
+                                       exemplar_k=exemplar_k)
+        if export_interval_s is None:
+            env = os.environ.get(EXPORT_INTERVAL_ENV)
+            export_interval_s = float(env) if env else None
+        if export_interval_s is not None and export_interval_s <= 0:
+            raise ValueError("export_interval_s must be > 0, got "
+                             f"{export_interval_s!r}")
+        self.export_interval_s = export_interval_s
+        if slo_rules is not None and window_s is not None:
+            # a rule window past the ring's capacity would judge over
+            # less history than it declares: refuse it here, where both
+            # are in hand (the shipped defaults adapt instead)
+            for rule in slo_rules:
+                if rule.window_s > window_s + 1e-9:
+                    raise ValueError(
+                        f"SLO rule {rule.name!r} window_s="
+                        f"{rule.window_s} exceeds this scope's metric "
+                        f"ring capacity (window_s={window_s}); raise "
+                        "Telemetry(window_s=...) or shrink the rule "
+                        "window")
+        self.slo_rules = slo_rules
+        self.slo_watchdog: Any = None
+        self.exporter: Optional[SnapshotExporter] = None
         self._prev: Optional["Telemetry"] = None
         self._root: Optional[_Span] = None
         self._prev_factory: Any = None
@@ -768,10 +1461,31 @@ class Telemetry:
             logging.setLogRecordFactory(factory)
         self._root = self.tracer.span(SPAN_RUN, parent=ROOT, run=self.name)
         self._root.__enter__()
+        if self.export_interval_s is not None:
+            # lazy: core.slo imports this module for the metric catalog
+            from sparkdl_tpu_torch.core import slo as _slo
+
+            rules = self.slo_rules
+            if rules is None:
+                cap = self.metrics.window_s
+                if cap is not None and cap < _slo.DEFAULT_WINDOW_S:
+                    # the defaults adapt to a smaller ring
+                    rules = _slo.default_rules(window_s=cap)
+                else:
+                    rules = _slo.DEFAULT_RULES
+            self.slo_watchdog = _slo.SLOWatchdog(rules) if rules else None
+            self.exporter = SnapshotExporter(
+                self, self.export_interval_s, out_dir=self.out_dir,
+                watchdog=self.slo_watchdog)
+            self.exporter.start()
         return self
 
     def __exit__(self, *exc: Any) -> None:
         global _active
+        if self.exporter is not None:
+            # stop, then the final flush BEFORE deactivating: SLO events
+            # of the last evaluation still mirror into this scope
+            self.exporter.close()
         if self._root is not None:
             exc3 = exc if len(exc) == 3 else (None, None, None)
             self._root.__exit__(*exc3)
@@ -866,11 +1580,14 @@ def gauge_set(name: str, value: float) -> None:
 
 
 def observe(name: str, value: float,
-            bounds: Sequence[float] = DEFAULT_TIME_BOUNDS) -> None:
-    """Record one histogram observation on the active registry."""
+            bounds: Sequence[float] = DEFAULT_TIME_BOUNDS,
+            exemplar: Optional[SpanContext] = None) -> None:
+    """Record one histogram observation on the active registry, optionally
+    tagged with the span context that produced it (kept only by scopes
+    armed with ``exemplar_k``)."""
     tel = _active
     if tel is not None:
-        tel.metrics.histogram(name, bounds).observe(value)
+        tel.metrics.histogram(name, bounds).observe(value, exemplar)
 
 
 def remote_span(name: str, start_abs_ns: int, end_abs_ns: int, *,
@@ -939,4 +1656,8 @@ class RunReport:
             "phases": _profiling.phase_stats(),
             "overlap": _profiling.overlap_stats(),
             "health": mon.report() if mon is not None else None,
+            # the live plane's view of the same run: one compact entry
+            # per periodic snapshot (None without an exporter)
+            "timeline": (tel.exporter.timeline_summary()
+                         if tel.exporter is not None else None),
         }

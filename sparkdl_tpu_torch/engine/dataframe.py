@@ -153,6 +153,17 @@ class EngineConfig:
     # the observed size distribution (each new rung is one more captured
     # graph); "pow2" keeps the blind power-of-two ladder everywhere.
     bucket_ladder: str = "tuned"
+    # -- the serving plane (serving/) -----------------------------------------
+    # Capture a deployment's whole bucket ladder (one dummy batch per rung
+    # through the executor, which also settles the kernel gate's
+    # verdicts) when it is deployed and at every cold load, so its first
+    # request captures nothing. False (default): the first request of
+    # each rung captures.
+    serving_warmup: bool = False
+    # Route ModelServer.predict through the cluster serving router. The
+    # port has no cluster plane yet: True makes predict raise
+    # NotImplementedError rather than serve in-process.
+    serving_cluster: bool = False
 
     _PRECISIONS = ("float32", "bfloat16", "int8")
     _KERNEL_MODES = ("off", "autotune", "force")
@@ -278,6 +289,14 @@ class EngineConfig:
             raise ValueError(
                 "EngineConfig.bucket_ladder must be 'tuned' or 'pow2', "
                 f"got {cls.bucket_ladder!r}")
+        if not isinstance(cls.serving_warmup, bool):
+            raise ValueError(
+                "EngineConfig.serving_warmup must be a bool, got "
+                f"{cls.serving_warmup!r}")
+        if not isinstance(cls.serving_cluster, bool):
+            raise ValueError(
+                "EngineConfig.serving_cluster must be a bool, got "
+                f"{cls.serving_cluster!r}")
 
 
 def _task_policy() -> resilience.RetryPolicy:

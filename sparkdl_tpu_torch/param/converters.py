@@ -63,12 +63,20 @@ class SparkDLTypeConverters:
     @staticmethod
     def toModelFunction(value: Any):
         """Validate a ModelFunction-like object (duck-typed to avoid
-        cycles). Served model names are not ported yet."""
+        cycles) — or a string naming a serving-registry deployment,
+        resolved to the ACTIVE version's model at transform time (so a
+        hot-swap reaches batch transformers too)."""
+        if isinstance(value, str):
+            if not value:
+                raise TypeError(
+                    "modelFunction name must be non-empty (a serving "
+                    "registry deployment name)")
+            return value
         if hasattr(value, "apply_fn") and hasattr(value, "variables"):
             return value
         raise TypeError(
-            f"Expected a ModelFunction (has .apply_fn/.variables), got "
-            f"{type(value).__name__}")
+            f"Expected a ModelFunction (has .apply_fn/.variables) or a "
+            f"served model name (str), got {type(value).__name__}")
 
     @staticmethod
     def supportedNameConverter(supportedList: List[str]):

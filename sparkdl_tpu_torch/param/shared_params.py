@@ -105,18 +105,28 @@ class HasPriority(Params):
 
 
 class HasModelFunction(Params):
-    """A :class:`sparkdl_tpu_torch.core.model_function.ModelFunction`."""
+    """A :class:`sparkdl_tpu_torch.core.model_function.ModelFunction` — or
+    a served model NAME (str), resolved through the process-wide serving
+    registry at each transform call, so batch transformers follow
+    deployments, cutovers and rollbacks as online requests do."""
 
     modelFunction = Param(
         "HasModelFunction", "modelFunction",
-        "ModelFunction to apply (apply fn + nn.Module weights + input spec)",
+        "ModelFunction to apply (apply fn + nn.Module weights + input "
+        "spec), or the name of a serving-registry deployment",
         typeConverter=SparkDLTypeConverters.toModelFunction)
 
     def setModelFunction(self, value: Any) -> "HasModelFunction":
         return self._set(modelFunction=value)
 
     def getModelFunction(self):
-        return self.getOrDefault(self.modelFunction)
+        value = self.getOrDefault(self.modelFunction)
+        if isinstance(value, str):
+            # lazy import: param stays importable without serving
+            from sparkdl_tpu_torch.serving.registry import default_registry
+
+            return default_registry().model(value)
+        return value
 
 
 class CanLoadImage(Params):

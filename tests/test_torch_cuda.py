@@ -871,3 +871,110 @@ def test_logistic_regression_fits_on_the_card_as_on_the_cpu(
     preds = [[r["prediction"] for r in m.transform(df).collect()]
              for m in (gpu, cpu)]
     assert preds[0] == preds[1]
+
+
+@pytest.fixture
+def serving_config(card):
+    """The engine's knobs back as they were, the executor fresh."""
+    from sparkdl_tpu_torch.core import executor
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+
+    saved = EngineConfig.snapshot()
+    EngineConfig.device = "cuda"
+    executor.reset()
+    yield EngineConfig
+    executor.reset()
+    EngineConfig.restore(saved)
+
+
+def _served_resnet(seed):
+    from sparkdl_tpu_torch.models import registry
+
+    return registry.build_featurizer("ResNet50", seed=seed,
+                                     precision="bfloat16")
+
+
+@pytest.mark.cuda
+def test_eviction_frees_at_least_the_weight_bytes(serving_config):
+    """A served model evicted from the residency manager gives back at
+    least its ``weight_bytes()`` of ``torch.cuda.memory_allocated()``,
+    and every segment of its graph memory pools: nothing (the executor's
+    state, the captured graphs, the variants, a library workspace first
+    used in a capture) keeps its weights, its graphs' outputs or their
+    pools alive. ResNet50's featurizer and VGG16's, whose fully connected
+    layers run cuBLAS GEMMs."""
+    import gc
+
+    from sparkdl_tpu_torch import serving
+    from sparkdl_tpu_torch.core import model_function
+    from sparkdl_tpu_torch.models import registry
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    row = np.random.default_rng(0).integers(0, 256, (224, 224, 3),
+                                            dtype=np.uint8)
+    res = serving.ResidencyManager(1 << 34)
+    reg = serving.ModelRegistry(residency=res)
+    srv = serving.ModelServer(reg)
+    for name, loader in (
+            ("r50", lambda: _served_resnet(0)),
+            ("vgg", lambda: registry.build_featurizer(
+                "VGG16", seed=0, precision="bfloat16"))):
+        reg.deploy(name, "v1", loader=loader, batch_size=4)
+        res.pin(name, "v1", pinned=False)
+        for _ in range(2):
+            assert srv.predict(name, row).output.ndim == 1
+        weight_bytes = res.resident_bytes_for(name, "v1")
+        assert weight_bytes > 40 << 20
+        pools = [p._pool for m in res.acquire(name, "v1").device_variants()
+                 for p in m._programs.values()
+                 if p.device == dev and p._pool is not None]
+
+        def pool_bytes():
+            return sum(model_function._pool_bytes(dev, pool)
+                       for pool in pools)
+
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.empty_cache()
+        reserved, held = torch.cuda.memory_reserved(), pool_bytes()
+        assert held > 0
+        assert res.evict(name, "v1")
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        assert freed >= weight_bytes, (name, freed, weight_bytes)
+        torch.cuda.empty_cache()
+        assert pool_bytes() == 0, name
+        assert reserved - torch.cuda.memory_reserved() >= held, \
+            (name, reserved, held)
+
+
+@pytest.mark.cuda
+def test_warmed_deployment_first_request_captures_no_graph(serving_config):
+    """Under ``serving_warmup`` the deployment captures every rung of its
+    ladder (uint8 rows included) before traffic, so its first requests,
+    alone and coalesced, capture nothing."""
+    import threading
+
+    from sparkdl_tpu_torch import serving
+
+    serving_config.serving_warmup = True
+    reg = serving.ModelRegistry()
+    reg.deploy("r50", "v1", loader=lambda: _served_resnet(1), batch_size=8)
+    model = reg.deployment("r50").model()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    graphs = dict(model.jitted(dev).graphs)
+    assert sorted(k[0][0] for k in graphs) == [8, 8]  # float32 and uint8
+    srv = serving.ModelServer(reg)
+    rows = np.random.default_rng(1).integers(0, 256, (4, 224, 224, 3),
+                                             dtype=np.uint8)
+    out = [None] * 4
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, srv.predict("r50", rows[i]).output)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert all(o is not None and o.shape == (2048,) for o in out)
+    assert model.jitted(dev).graphs.keys() == graphs.keys()

@@ -28,6 +28,10 @@ def test_no_forbidden_imports_in_source():
     for ingest in ("core/decode_pool.py", "native/loader.py",
                    "native/__init__.py", "image/imageIO.py"):
         assert ROOT / "sparkdl_tpu_torch" / ingest in files
+    for serving in ("serving/__init__.py", "serving/registry.py",
+                    "serving/residency.py", "serving/server.py",
+                    "core/slo.py", "core/telemetry.py"):
+        assert ROOT / "sparkdl_tpu_torch" / serving in files
     for flagship in ("engine/sql_expr.py", "udf/__init__.py",
                      "udf/registry.py", "ml/base.py", "ml/linear_utils.py",
                      "ml/lbfgs.py", "ml/classification.py",
@@ -80,6 +84,44 @@ def test_featurize_on_cpu_loads_no_jax(tmp_path):
         "           for t in threading.enumerate())\n"
         "assert executor.status()['models']\n"
         "executor.shutdown()\n"
+        "top = {m.split('.')[0] for m in sys.modules}\n"
+        "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                    'sparkdl_tpu'}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_serving_on_cpu_loads_no_jax(tmp_path):
+    """A deployment served through ``ModelServer`` with a live telemetry
+    scope (exporter and SLO watchdog on), a shadow and a cutover, in a
+    fresh process on the CPU, leaves no JAX and no ``sparkdl_tpu`` in
+    ``sys.modules``."""
+    script = tmp_path / "serve.py"
+    script.write_text(
+        "import sys\n"
+        "import numpy as np\n"
+        "import sparkdl_tpu_torch as s\n"
+        "from sparkdl_tpu_torch.models import registry\n"
+        "s.EngineConfig.device = 'cpu'\n"
+        "reg = s.ModelRegistry(residency=s.ResidencyManager(1 << 20))\n"
+        "for v, seed in (('v1', 0), ('v2', 1)):\n"
+        "    reg.deploy('tn', v, loader=lambda seed=seed:\n"
+        "               registry.build_featurizer('TestNet', seed=seed),\n"
+        "               latency_target_ms=500)\n"
+        "srv = s.ModelServer(reg)\n"
+        "rules = s.slo.default_serving_rules(reg.targets(), window_s=5)\n"
+        f"with s.Telemetry(out_dir={str(tmp_path)!r}, window_s=5,\n"
+        "                 export_interval_s=0.05, slo_rules=rules) as tel:\n"
+        "    reg.shadow('tn', 'v2', fraction=1.0)\n"
+        "    row = np.zeros((32, 32, 3), np.uint8)\n"
+        "    assert srv.predict('tn', row).shadowed\n"
+        "    srv.cutover('tn', 'v2')\n"
+        "    assert srv.predict('tn', row).version == 'v2'\n"
+        "assert tel.report()['timeline']['snapshots'] >= 1\n"
         "top = {m.split('.')[0] for m in sys.modules}\n"
         "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "                    'sparkdl_tpu'}))\n")
