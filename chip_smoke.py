@@ -269,6 +269,39 @@ Four phases serve online (``serving/``), Xception in bf16 under
   ``torch.equal`` to its first; cold-start seconds and each resident's
   graph pool MiB (not in the budget) are printed.
 
+Then durable jobs and the cluster plane, on featurize_partitioned's
+frame (Xception bf16 under ``"force"``, 64 299×299 images in 16
+partitions of 4, batch 16):
+
+- ``durable_featurize``: a child (``python3 chip_smoke.py
+  --durable-child <dir>``) runs the frame with ``EngineConfig.
+  durable_dir`` in a temporary directory (its filesystem is printed)
+  and ``process_kill`` armed at the 6th commit, and must die by
+  SIGKILL; this process resumes the job: ``durable_resumed`` 1,
+  ``durable_partition_restored`` equal to the records committed, tasks
+  only for the rest, ``sep2d`` 34 × forwards (``wgmma``), each restored
+  partition's encoding equal to its spill's sha256, all 64 rows within
+  the CPU run's tolerance; commit and journal-rewrite ms p50/p99 and
+  the spill bytes are printed;
+- ``cluster_featurize_2`` / ``_4``: ``EngineConfig.cluster_workers`` 2,
+  then 4 (a warm-up pass that spawns the workers and captures, then a
+  counted pass): images/s beside the in-process coalesced pass, each
+  worker's boot seconds (spawn, imports, CUDA init, the op chain with
+  its weights), tasks, op-chain seconds, forwards and
+  ``memory_reserved`` over its life; the counted pass's forwards and
+  ``sep2d`` launches summed over the workers (all ``wgmma``, 34 a
+  forward: the difference of the workers' counts pulled just before and
+  just after the pass), the router's results per worker (no late
+  duplicate), every row held;
+- ``cluster_worker_kill``: ``cluster_worker_kill`` fires once, with the
+  journal on: one ``cluster_worker_lost``, re-dispatches equal to the
+  dead worker's in-flight tasks, each partition's result delivered once
+  and committed once, every row held;
+- ``cluster_trace``: a 2-worker pass inside a ``Telemetry`` scope: every
+  ``sparkdl.cluster_task`` span carries its worker's pid and parents
+  under a ``sparkdl.cluster_dispatch`` span of this process, and the
+  merged Chrome trace labels ``coordinator`` and each worker.
+
 The line ``{"phase": "total", ...}`` gives the script's seconds so far.
 
 ``--profile`` adds device times from ``torch.profiler`` beside each event
@@ -3543,6 +3576,418 @@ def serving_path(s, kernels, part_frame):
         s.EngineConfig.inference_precision = "bfloat16"
 
 
+# -- durable jobs and the cluster inference plane ----------------------------
+
+#: the commit after which the durable child SIGKILLs itself (0-based: the
+#: 6th commit)
+DURABLE_KILL_AFTER = 5
+#: the worker counts of cluster_featurize
+CLUSTER_WORKERS = (2, 4)
+#: the dispatch after which cluster_worker_kill fires (0-based)
+CLUSTER_KILL_AFTER = 5
+
+
+def partitioned_frame(s):
+    """featurize_partitioned's transformer and frame, built as
+    ``partitioned_path`` builds them (the same seeded images, the same
+    seeded weights), with its engine settings: a process of its own
+    builds the same job."""
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.max_workers = WORKERS
+    s.EngineConfig.coalesce = True
+    rng = np.random.default_rng(SEED + 100 + TARGET[0])
+    images = [rng.integers(0, 256, size=(*TARGET, 3), dtype=np.uint8)
+              for _ in range(PART_IMAGES)]
+    return featurize(s, ("Xception", "named"), images, "random", BATCH,
+                     parts=PARTITIONS)
+
+
+def durable_child(root: str) -> int:
+    """``python3 chip_smoke.py --durable-child <root>``: run
+    featurize_partitioned's frame as a durable job under ``root`` with
+    ``process_kill`` armed at the 6th commit. Returns 3 if it was not
+    killed."""
+    import sparkdl_tpu_torch as s
+    from sparkdl_tpu_torch.core.resilience import Fault, FaultInjector
+
+    feat, df = partitioned_frame(s)
+    s.EngineConfig.durable_dir = root
+    with FaultInjector.seeded(0, process_kill=Fault(
+            times=1, after=DURABLE_KILL_AFTER)):
+        feat.transform(df).collect()
+    return 3
+
+
+def filesystem_of(path: str) -> dict:
+    """The mount point and filesystem type that hold ``path``."""
+    real = os.path.realpath(path)
+    best = ("", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            mnt, fstype = fields[1], fields[2]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best[0]):
+                best = (mnt, fstype)
+    return {"path": real, "mount": best[0], "type": best[1]}
+
+
+def percentiles(values) -> dict:
+    if not values:
+        return {"p50": None, "p99": None, "n": 0}
+    arr = np.asarray(values, np.float64)
+    return {"p50": float(np.percentile(arr, 50)),
+            "p99": float(np.percentile(arr, 99)), "n": len(values)}
+
+
+def rows_held(name, rows, cpu, rel_tol) -> dict:
+    """Every row of a pass against the CPU run within ``rel_tol`` of
+    max|cpu| (a recomputed or worker-computed row is not bit-identical
+    to an in-process one on the card, Queue 3 of ROADMAP.md)."""
+    gpu, _ = row_vectors(rows)
+    assert gpu.shape == cpu.shape, f"{name}: rows {gpu.shape} != {cpu.shape}"
+    assert np.isfinite(gpu).all(), f"{name}: non-finite features"
+    limit = rel_tol * float(np.max(np.abs(cpu)))
+    per_row = np.max(np.abs(gpu - cpu), axis=1)
+    err = float(per_row.max())
+    assert err <= limit, f"{name}: row {int(per_row.argmax())} differs " \
+                         f"from the CPU run by {err} > {limit}"
+    return {"max_abs_err_vs_cpu": err, "rows_vs_cpu": len(per_row),
+            "tolerance": limit}
+
+
+def check_worker_launches(name, dev, per_forward=34) -> None:
+    """The workers' summed counts: every ``sep2d`` launch on the
+    tensor-core body, 34 a forward (a capture's warm-up counts as one)."""
+    forwards = dev["forwards"] + dev["captures"]
+    assert dev["forwards"] > 0, f"{name}: the workers ran no forward"
+    assert dev["launches"]["sep2d"] == per_forward * forwards, \
+        f"{name}: sep2d launches {dev['launches']} != {per_forward} × " \
+        f"{forwards}"
+    assert dev["launches_by_body"]["sep2d"]["wgmma"] \
+        == dev["launches"]["sep2d"], \
+        f"{name}: sep2d off the wgmma body: {dev['launches_by_body']}"
+
+
+def worker_lines(rep) -> dict:
+    """Each worker's tasks, seconds inside its op chains and its forwards,
+    boot seconds, forwards and reserved card memory, over the worker's
+    whole life (its end-of-run snapshot)."""
+    out = {}
+    for wname, snap in sorted(rep["workers"].items()):
+        dev = snap["device"]
+        phases = snap.get("phases") or {}
+        out[wname] = {"pid": snap["pid"], "tasks": snap["tasks"],
+                      "exec_s": snap["exec_s"],
+                      "device_apply_s": (phases.get("sparkdl.device_apply")
+                                         or {}).get("total_s"),
+                      "boot": dev["boot"], "forwards": dev["forwards"],
+                      "captures": dev["captures"],
+                      "memory_reserved_mib":
+                          dev["memory_reserved"] / 2 ** 20}
+    return out
+
+
+def durable_featurize(s, kernels, feat, df, cpu, rel_tol):
+    """Kill a durable run of the frame in a child process at its 6th
+    commit, then resume the job here: the committed partitions come from
+    their spills (held bit for bit by sha256), only the others run."""
+    import hashlib
+    import signal
+
+    from sparkdl_tpu_torch.core import durability, health, profiling
+
+    root = tempfile.mkdtemp(prefix="sparkdl_durable_")
+    fs = filesystem_of(root)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--durable-child", root],
+        capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    assert child.returncode == -signal.SIGKILL, \
+        f"durable child exited {child.returncode}, not by SIGKILL:\n" \
+        f"{child.stderr[-3000:]}"
+    (job,) = [d for d in os.listdir(root)
+              if os.path.isdir(os.path.join(root, d))]
+    killed = {r["partition"]: r for r in
+              durability.PartitionJournal(root, job, PARTITIONS).records()}
+    assert len(killed) > DURABLE_KILL_AFTER, killed.keys()
+
+    run = executed_model(s, feat, TARGET)
+    compiled = run.jitted(s.EngineConfig.device)
+    s.EngineConfig.durable_dir = root
+    kernels.reset_launches()
+    profiling.reset_phase_stats()
+    durability.reset_commit_stats()
+    replays = compiled.replays
+    try:
+        with health.HealthMonitor("durable_featurize") as monitor:
+            t0 = time.perf_counter()
+            batches = list(feat.transform(df).partitionsIter())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        s.EngineConfig.durable_dir = None
+    stats = durability.commit_stats()
+    counts = dict(kernels.launches)
+    by_body = {k: dict(v) for k, v in kernels.launches_by_body.items()}
+    captures = profiling.phase_stats().get(
+        "sparkdl.compile", {"count": 0})["count"]
+    forwards = compiled.replays - replays
+    recomputed = PARTITIONS - len(killed)
+    assert monitor.count(health.DURABLE_RESUMED) == 1
+    assert monitor.count(health.DURABLE_PARTITION_RESTORED) == len(killed)
+    assert monitor.count(health.TASK_STARTED) == recomputed, \
+        monitor.counters()
+    assert forwards > 0 and counts["sep2d"] == 34 * (forwards + captures), \
+        f"durable_featurize: sep2d {counts} != 34 × {forwards + captures}"
+    assert by_body["sep2d"]["wgmma"] == counts["sep2d"], by_body
+    for i, rec in killed.items():
+        got = hashlib.sha256(durability.encode_batch(batches[i])).hexdigest()
+        assert got == rec["sha256"], \
+            f"durable_featurize: restored partition {i} is not its spill"
+    rows = [r for b in batches for r in
+            [{"features": f} for f in b.column("features")]]
+    held = rows_held("durable_featurize", rows, cpu, rel_tol)
+    job_dir = os.path.join(root, job)
+    spills = [os.path.join(job_dir, n) for n in os.listdir(job_dir)
+              if n.endswith(".spill")]
+    out = {"phase": "durable_featurize", "durable_dir": fs,
+           "child_s": child_s, "child_rc": child.returncode,
+           "committed_before_kill": sorted(killed),
+           "restored": len(killed), "recomputed": recomputed,
+           "seconds": seconds, "images_per_s": PART_IMAGES / seconds,
+           "forwards": forwards, "captures_in_pass": captures,
+           "launches": counts, "launches_by_body": by_body,
+           "health": monitor.counters(),
+           "commit_ms": percentiles(stats["commit_ms"]),
+           "journal_rewrite_ms": percentiles(stats["rewrite_ms"]),
+           "spill_bytes_resume": stats["spill_bytes"],
+           "spill_bytes_total": sum(os.path.getsize(p) for p in spills),
+           "spills": len(spills), **held}
+    emit(out)
+    return out
+
+
+def pass_counts(label, before, after) -> dict:
+    """The workers' summed device counts of one pass: the difference of
+    two pulls of every worker's ``device`` section, one just before the
+    pass and one just after."""
+    from sparkdl_tpu_torch.cluster import aggregate
+
+    assert before and set(before) == set(after), \
+        f"{label}: workers answered {sorted(before)} then {sorted(after)}"
+    b, a = (aggregate.sum_device_counts([{"device": d} for d in x.values()])
+            for x in (before, after))
+    return {"launches": {k: n - b["launches"].get(k, 0)
+                         for k, n in a["launches"].items()},
+            "launches_by_body": {
+                k: {body: n - b["launches_by_body"].get(k, {}).get(body, 0)
+                    for body, n in bodies.items()}
+                for k, bodies in a["launches_by_body"].items()},
+            "forwards": a["forwards"] - b["forwards"],
+            "captures": a["captures"] - b["captures"]}
+
+
+def cluster_run(s, label, feat, df, workers, inj=None):
+    """The frame on ``workers`` cluster workers, then the router shut
+    down (its report merges the workers' snapshots). Without ``inj``: a
+    warm-up pass (spawn, weights, captures), then a counted pass whose
+    launch counts are the difference of the workers' counts pulled just
+    before and just after it. With ``inj`` armed: one pass, which spawns
+    the workers, counted by their end-of-run snapshots."""
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.core import health
+
+    s.EngineConfig.cluster_workers = workers
+    counted = None
+    try:
+        with health.HealthMonitor(label) as monitor:
+            t0 = time.perf_counter()
+            if inj is None:
+                feat.transform(df).collect()  # warm-up
+                before = cluster_router.maybe_router().device_sections()
+            warmup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if inj is not None:
+                with inj:
+                    rows = feat.transform(df).collect()
+            else:
+                rows = feat.transform(df).collect()
+            seconds = time.perf_counter() - t0
+            router = cluster_router.maybe_router()
+            if inj is None:
+                counted = pass_counts(label, before,
+                                      router.device_sections())
+            t0 = time.perf_counter()
+            cluster_router.shutdown()
+            close_s = time.perf_counter() - t0
+    finally:
+        s.EngineConfig.cluster_workers = 0
+    rep = cluster_router.last_cluster_report()
+    for w in router._workers:
+        w.proc.join(timeout=30)
+        assert not w.proc.is_alive(), f"{label}: {w.proc.name} still runs"
+    return rows, rep, monitor, {"warmup_s": warmup_s, "seconds": seconds,
+                                "close_s": close_s}, counted
+
+
+def cluster_featurize(s, kernels, feat, df, cpu, rel_tol, workers,
+                      in_process):
+    """The frame on ``workers`` worker processes sharing the card, beside
+    the in-process coalesced pass of featurize_partitioned: images/s,
+    each worker's boot (spawn, imports, CUDA init, the op chain with its
+    weights), forwards and ``sep2d`` launches summed over the workers,
+    each worker's ``memory_reserved``, every row held."""
+    from sparkdl_tpu_torch.core import health
+
+    name = f"cluster_featurize_{workers}"
+    rows, rep, monitor, times, dev = cluster_run(
+        s, name, feat, df, workers)
+    assert rep["worker_count"] == workers, rep["worker_count"]
+    check_worker_launches(name, dev)
+    check_worker_launches(f"{name} (warm-up and pass)", rep["device"])
+    assert rep["results"]["late"] == 0, rep["results"]
+    assert monitor.count(health.CLUSTER_WORKER_LOST) == 0
+    held = rows_held(name, rows, cpu, rel_tol)
+    out = {"phase": name, "workers": workers, **times,
+           "images_per_s": PART_IMAGES / times["seconds"],
+           "in_process_images_per_s": in_process,
+           "forwards": dev["forwards"], "captures": dev["captures"],
+           "launches": dev["launches"],
+           "launches_by_body": dev["launches_by_body"],
+           "sep2d_launches_warmup_and_pass":
+               rep["device"]["launches"]["sep2d"],
+           "per_worker": worker_lines(rep),
+           "results": rep["results"], "health": monitor.counters(), **held}
+    emit(out)
+    return out
+
+
+def cluster_worker_kill(s, kernels, feat, df, cpu, rel_tol):
+    """``cluster_worker_kill`` once, with the journal on: one worker
+    lost, each of its in-flight partitions re-dispatched once, every
+    partition computed once and committed once, every row held."""
+    from sparkdl_tpu_torch.core import durability, health
+    from sparkdl_tpu_torch.core.resilience import Fault, FaultInjector
+
+    root = tempfile.mkdtemp(prefix="sparkdl_cluster_kill_")
+    s.EngineConfig.durable_dir = root
+    inj = FaultInjector.seeded(0, cluster_worker_kill=Fault(
+        times=1, after=CLUSTER_KILL_AFTER))
+    try:
+        rows, rep, monitor, times, _ = cluster_run(
+            s, "cluster_worker_kill", feat, df, 2, inj=inj)
+    finally:
+        s.EngineConfig.durable_dir = None
+    assert inj.fired == {"cluster_worker_kill": 1}, inj.fired
+    (lost,) = monitor.events(health.CLUSTER_WORKER_LOST)
+    moved = [e["partition"] for e in
+             monitor.events(health.CLUSTER_REDISPATCH)]
+    assert len(moved) == lost["in_flight"] == len(set(moved)) > 0, \
+        (moved, lost)
+    # every partition ran once: the dead worker's delivered results, the
+    # survivor's, no late duplicate
+    assert sum(rep["results"]["per_worker"].values()) == PARTITIONS \
+        and rep["results"]["late"] == 0, rep["results"]
+    (job,) = [d for d in os.listdir(root)
+              if os.path.isdir(os.path.join(root, d))]
+    records = durability.PartitionJournal(root, job, PARTITIONS).records()
+    assert [r["partition"] for r in records] == list(range(PARTITIONS))
+    assert all(r["attempts"] == 1 for r in records), records
+    assert rep["worker_count"] == 1
+    check_worker_launches("cluster_worker_kill", rep["device"])
+    held = rows_held("cluster_worker_kill", rows, cpu, rel_tol)
+    out = {"phase": "cluster_worker_kill", **times,
+           "lost": lost["worker"], "in_flight_at_death": lost["in_flight"],
+           "redispatched": sorted(moved), "results": rep["results"],
+           "committed": len(records),
+           "launches": rep["device"]["launches"],
+           "launches_by_body": rep["device"]["launches_by_body"],
+           "per_worker": worker_lines(rep),
+           "health": monitor.counters(), **held}
+    emit(out)
+    return out
+
+
+def cluster_trace(s, kernels, feat, df, cpu, rel_tol):
+    """A 2-worker pass inside a ``Telemetry`` scope: each worker's
+    ``sparkdl.cluster_task`` spans carry its pid and parent under a
+    ``sparkdl.cluster_dispatch`` span of this process, and the merged
+    Chrome trace names this process and every worker."""
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.core import health, telemetry
+
+    out_dir = tempfile.mkdtemp(prefix="sparkdl_cluster_trace_")
+    s.EngineConfig.cluster_workers = 2
+    try:
+        with health.HealthMonitor("cluster_trace") as monitor, \
+                telemetry.Telemetry("cluster_trace", out_dir=out_dir) as tel:
+            t0 = time.perf_counter()
+            rows = feat.transform(df).collect()
+            seconds = time.perf_counter() - t0
+            cluster_router.shutdown()
+    finally:
+        s.EngineConfig.cluster_workers = 0
+    rep = cluster_router.last_cluster_report()
+    spans = {sp["span_id"]: sp for sp in tel.tracer.spans()}
+    tasks = [sp for sp in spans.values()
+             if sp["name"] == telemetry.SPAN_CLUSTER_TASK]
+    pids = {snap["pid"]: w for w, snap in rep["workers"].items()}
+    assert len(tasks) == PARTITIONS, len(tasks)
+    for sp in tasks:
+        assert sp["pid"] in pids and sp["pid"] != os.getpid(), sp
+        parent = spans.get(sp["parent_id"])
+        assert parent is not None \
+            and parent["name"] == telemetry.SPAN_CLUSTER_DISPATCH, sp
+        assert parent.get("pid", os.getpid()) == os.getpid()
+    with open(tel.trace_path) as f:
+        doc = json.load(f)
+    labels = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["name"] == "process_name"}
+    assert labels.get(os.getpid()) == "coordinator", labels
+    assert set(pids.values()) <= set(labels.values()), (labels, pids)
+    assert rep["trace"]["span_rings_lost"] == []
+    check_worker_launches("cluster_trace", rep["device"])
+    held = rows_held("cluster_trace", rows, cpu, rel_tol)
+    out = {"phase": "cluster_trace", "seconds": seconds,
+           "task_spans": len(tasks),
+           "task_spans_by_worker": {
+               w: sum(sp["pid"] == p for sp in tasks)
+               for p, w in pids.items()},
+           "process_names": sorted(labels.values()),
+           "trace": rep["trace"], "trace_path": tel.trace_path,
+           "launches": rep["device"]["launches"],
+           "launches_by_body": rep["device"]["launches_by_body"],
+           "health": monitor.counters(), **held}
+    emit(out)
+    return out
+
+
+def cluster_path(s, kernels, part_frame, cpu, in_process):
+    """The durable and cluster phases on featurize_partitioned's frame
+    (Xception bf16 under ``"force"``, 64 299×299 images in 16 partitions
+    of 4, batch 16)."""
+    feat, df = part_frame
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.max_workers = WORKERS
+    s.EngineConfig.coalesce = True
+    phases = {"durable_featurize": durable_featurize(
+        s, kernels, feat, df, cpu, BF16_REL)}
+    for workers in CLUSTER_WORKERS:
+        phases[f"cluster_featurize_{workers}"] = cluster_featurize(
+            s, kernels, feat, df, cpu, BF16_REL, workers, in_process)
+    phases["cluster_worker_kill"] = cluster_worker_kill(
+        s, kernels, feat, df, cpu, BF16_REL)
+    phases["cluster_trace"] = cluster_trace(s, kernels, feat, df, cpu,
+                                            BF16_REL)
+    return phases
+
+
 AUTOTUNE_PHASES = [
     ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL,
      "bfloat16"),
@@ -3736,6 +4181,12 @@ def main() -> int:
     # online serving: predict, hot swap, the live plane under a flood,
     # then residency under a byte budget
     phases.update(serving_path(s, kernels, part_frame))
+    # durable jobs and the cluster plane on the partitioned frame: a
+    # durable run killed by SIGKILL and resumed, then 2 and 4 worker
+    # processes sharing the card, a worker killed, the merged trace
+    phases.update(cluster_path(
+        s, kernels, part_frame, part_cpu,
+        phases["featurize_partitioned"]["images_per_s"]))
     s.EngineConfig.inference_precision = "bfloat16"
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 
@@ -3824,4 +4275,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--durable-child"]:
+        sys.exit(durable_child(sys.argv[2]))
     sys.exit(main())

@@ -12,6 +12,9 @@ _LAZY_EXPORTS = {
                       "ModelFunction"),
     "TensorSpec": ("sparkdl_tpu_torch.core.model_function", "TensorSpec"),
     "slo": ("sparkdl_tpu_torch.core", "slo"),
+    "durability": ("sparkdl_tpu_torch.core", "durability"),
+    "PartitionJournal": ("sparkdl_tpu_torch.core.durability",
+                         "PartitionJournal"),
     "telemetry": ("sparkdl_tpu_torch.core", "telemetry"),
     "health": ("sparkdl_tpu_torch.core", "health"),
     "HealthMonitor": ("sparkdl_tpu_torch.core.health", "HealthMonitor"),

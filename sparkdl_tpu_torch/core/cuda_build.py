@@ -12,16 +12,24 @@ the package, keyed by a hash of the sources (and the shared headers)
 and the flags, a host library's key also by what ``-march=native``
 means on the building host (a library copied to another host is built
 again there). So a fresh checkout builds everything it runs and a
-changed source rebuilds; each build writes a file of its own and renames
-it into place, so processes that build the same library at once do not
-collide. :func:`build_all` starts one compiler per source, all at once.
+changed source rebuilds. Builds in one process serialize on a thread
+lock, and builds across processes on a file lock per library
+(``fcntl.flock`` on ``build/sparkdl_tpu_torch/.<name>.lock``): a second
+process asking for a library that another is building waits, then finds
+it built and only loads it. Each build writes a file of its own and
+renames it into place. :func:`build_all` starts one compiler per source,
+all at once. A cluster worker calls :func:`forbid_builds`: its
+coordinator built every library before it spawned, so a worker only
+loads.
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -30,7 +38,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparkdl_tpu_torch"
@@ -49,6 +57,14 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 = cached)
 build_seconds: Dict[str, float] = {}
+_builds_forbidden = False
+
+
+def forbid_builds() -> None:
+    """From now on, a library that is not built raises instead of
+    building (a cluster worker: its coordinator builds before spawning)."""
+    global _builds_forbidden
+    _builds_forbidden = True
 
 
 def _nvcc() -> str:
@@ -114,6 +130,11 @@ def _start(name: str):
     target = _library_path(name)
     if target.exists():
         return None
+    if _builds_forbidden:
+        raise RuntimeError(
+            f"{target.name} is not built, and this process may only load "
+            "libraries (a cluster worker: its coordinator builds every "
+            "library before it spawns one)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
     log = target.with_suffix(".log")
@@ -135,16 +156,40 @@ def _finish(name: str, started) -> None:
     build_seconds[name] = time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _file_locks(names: Sequence[str]) -> Iterator[None]:
+    """Hold the cross-process lock of each named library (taken in sorted
+    order, so two processes never wait on each other)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    held = []
+    try:
+        for name in sorted(set(names)):
+            f = open(BUILD_DIR / f".{name}.lock", "a+b")
+            held.append(f)
+            fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+        yield
+    finally:
+        for f in reversed(held):
+            fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+            f.close()
+
+
 def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, float]:
     """Build every named library in parallel (one nvcc each); returns the
-    seconds each build took (0.0 for one already built)."""
+    seconds each build took (0.0 for one already built, here or by
+    another process while this one waited for it)."""
     with _lock:
-        started = {n: _start(n) for n in names}
-        for n, s in started.items():
-            if s is None:
+        if all(_library_path(n).exists() for n in names):
+            for n in names:
                 build_seconds.setdefault(n, 0.0)
-            else:
-                _finish(n, s)
+            return {n: build_seconds[n] for n in names}
+        with _file_locks(names):
+            started = {n: _start(n) for n in names}
+            for n, s in started.items():
+                if s is None:
+                    build_seconds.setdefault(n, 0.0)
+                else:
+                    _finish(n, s)
     return {n: build_seconds[n] for n in names}
 
 

@@ -246,6 +246,32 @@ class ModelFunction:
         # coalescing queues) for the same function
         self._memo_lock = threading.Lock()
 
+    #: what stays behind when a model is pickled (a cluster worker's op
+    #: chain): the memo lock, the device programs with their captured
+    #: graphs, and the memoized variants, which a worker builds again
+    _LOCAL_STATE = ("_memo_lock", "_programs", "_flat_cache",
+                    "_resize_cache", "_precision_cache")
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """The model without its process-local state (:attr:`_LOCAL_STATE`):
+        its apply function, weights, spec, name and flags. The cluster
+        transport (``cluster/transport.py``) sends every tensor of the
+        weights as a CPU array, once per pickle however many variants
+        share it; the receiving process moves them to its own
+        ``EngineConfig.device`` at its first forward, as here."""
+        state = dict(self.__dict__)
+        for key in self._LOCAL_STATE:
+            state.pop(key, None)
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._flat_cache = None
+        self._resize_cache = {}
+        self._precision_cache = {}
+        self._programs = {}
+        self._memo_lock = threading.Lock()
+
     @classmethod
     def fromFunction(cls, fn: Callable[[Any, torch.Tensor], torch.Tensor],
                      variables: Any, input_spec: TensorSpec,
@@ -610,6 +636,14 @@ def _oom_in_chain(err: BaseException) -> Optional[BaseException]:
         err = err.__cause__ or err.__context__
         seen += 1
     return None
+
+
+def programs() -> List["Compiled"]:
+    """Every live device program of this process (each counts its
+    forwards in ``replays``): a cluster worker sums them into its
+    end-of-run snapshot."""
+    with _PROGRAMS_LOCK:
+        return [p for progs in _PROGRAMS_OVER.values() for p in progs]
 
 
 @dataclass

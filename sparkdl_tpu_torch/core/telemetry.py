@@ -23,8 +23,12 @@ A port of the core of ``sparkdl_tpu.core.telemetry``, in three parts:
 Spans measured in another process (a decode-pool worker, which has no
 tracer of its own) cross as wire records (:func:`remote_span`, with
 timestamps moved onto the parent's clock by :func:`clock_handshake`)
-and are adopted with :meth:`Tracer.record_remote`; a shipped ring is
-merged with :meth:`Tracer.adopt_remote_spans`.
+and are adopted with :meth:`Tracer.record_remote`. A process with a
+tracer of its own (a cluster worker) ships its whole ring with
+:meth:`Tracer.export_ring`, rebased onto the parent's clock, and the
+parent merges it with :meth:`Tracer.adopt_remote_spans` (or, without
+touching its own ring, :meth:`Tracer.merged_chrome_trace`); the merged
+Chrome trace labels one process group per worker.
 
 The live plane: every instrument a scope creates also feeds a fixed ring
 of time-bucketed sub-counts (rotated lazily on the module clock
@@ -36,10 +40,10 @@ snapshot (windowed, cumulative, the executor's and the serving plane's
 state) and atomically replaces a Prometheus text file every
 ``export_interval_s``, evaluates the ``core.slo`` watchdog at each tick,
 and flushes one last snapshot at scope exit; the run report gains a
-``timeline`` built from the snapshots. The reference's ring export
-(``Tracer.export_ring``, ``merged_chrome_trace``) and per-process file
-scopes (``process_scope``) belong to its cluster plane and are not
-ported yet.
+``timeline`` built from the snapshots, and a snapshot a ``cluster`` key
+while a cluster router with metrics federation is live. Cluster workers
+pin the coordinator's run id (``Telemetry(run_id=...)``) and name their
+files apart with ``Telemetry(process_scope=...)``.
 
 A :class:`Telemetry` scope activates process-wide (partition ops may run
 on other threads), nests, and restores the previous scope on exit. With
@@ -99,11 +103,18 @@ SPAN_SERVING_SHADOW = "sparkdl.serving_shadow"  # shadow-lane replay of one
 SPAN_SERVING_WARMUP = "sparkdl.serving.warmup_s"  # bucket-ladder warm-up
                                               # of one deployment
                                               # (serving/registry.py)
+SPAN_CLUSTER_DISPATCH = "sparkdl.cluster_dispatch"  # one partition's
+                                              # round trip to a cluster
+                                              # worker (cluster/router.py)
+SPAN_CLUSTER_TASK = "sparkdl.cluster_task"    # a worker's run of one
+                                              # dispatched partition
+                                              # (cluster/worker.py)
 
 CANONICAL_SPAN_NAMES = frozenset({
     SPAN_RUN, SPAN_MATERIALIZE, SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
     SPAN_COALESCED_LAUNCH, SPAN_DECODE_POOL, SPAN_DECODE_CHUNK,
     SPAN_MODEL_LOAD, SPAN_SERVING_SHADOW, SPAN_SERVING_WARMUP,
+    SPAN_CLUSTER_DISPATCH, SPAN_CLUSTER_TASK,
     # phase names (core/profiling.py constants + literal call sites)
     "sparkdl.decode", "sparkdl.stage", "sparkdl.stage_batch",
     "sparkdl.host_stage", "sparkdl.host_resize", "sparkdl.host_wait",
@@ -170,6 +181,17 @@ M_SERVING_EVICTIONS = "sparkdl.serving.evictions"      # counter
 # validate; nothing of the port records them until that plane is ported.
 M_SERVING_FAILOVER = "sparkdl.serving.failover"        # counter
 M_SERVING_REPLICAS = "sparkdl.serving.replicas"        # gauge
+# The cluster inference plane (cluster/): the router's view of rows in
+# flight across workers, each partition's round trip and each
+# re-dispatch after a worker died (the losses and re-dispatches also
+# arrive as sparkdl.health.* mirrors); the live worker count and how
+# long a drain takes from its notice to the worker's clean exit.
+M_CLUSTER_OUTSTANDING_ROWS = "sparkdl.cluster.outstanding_rows"  # gauge
+M_CLUSTER_DISPATCH_S = "sparkdl.cluster.dispatch_s"    # histogram
+M_CLUSTER_REDISPATCH = "sparkdl.cluster.redispatch"    # counter
+M_CLUSTER_WORKERS = "sparkdl.cluster.workers"          # gauge (live,
+                                                       # not draining)
+M_CLUSTER_DRAIN_S = "sparkdl.cluster.drain_s"          # histogram
 HEALTH_METRIC_PREFIX = "sparkdl.health."
 
 CANONICAL_METRIC_KINDS: Dict[str, str] = {
@@ -205,6 +227,11 @@ CANONICAL_METRIC_KINDS: Dict[str, str] = {
     M_SERVING_EVICTIONS: "counter",
     M_SERVING_FAILOVER: "counter",
     M_SERVING_REPLICAS: "gauge",
+    M_CLUSTER_OUTSTANDING_ROWS: "gauge",
+    M_CLUSTER_DISPATCH_S: "histogram",
+    M_CLUSTER_REDISPATCH: "counter",
+    M_CLUSTER_WORKERS: "gauge",
+    M_CLUSTER_DRAIN_S: "histogram",
 }
 
 CANONICAL_METRIC_NAMES = frozenset(CANONICAL_METRIC_KINDS)
@@ -466,6 +493,55 @@ class Tracer:
             self.remote_rejected += rejected
         return adopted, rejected
 
+    def export_ring(self, *, clock_offset_ns: int = 0,
+                    process: Optional[str] = None,
+                    parent_remap: Optional[Dict[int, int]] = None,
+                    limit: int = 4096) -> Dict[str, Any]:
+        """The shippable view of this ring: every span rebased onto the
+        PARENT's clock (``abs_ns = rel + t0 + offset``, the offset from
+        :func:`clock_handshake`) and stamped with this process's pid and
+        ``process`` label. ``parent_remap`` rewrites parent ids: a
+        worker's still-open ``sparkdl.run`` root never ships, so spans
+        under it re-parent onto the coordinator's root. Keeps the newest
+        ``limit`` spans; what it leaves out adds to the shipped
+        ``dropped``."""
+        spans = self.spans()
+        shipped_dropped = self.dropped
+        if len(spans) > limit:
+            shipped_dropped += len(spans) - limit
+            spans = spans[-limit:]
+        pid = os.getpid()
+        remap = parent_remap or {}
+        out = []
+        for s in spans:
+            rec = dict(s)
+            rec["start_ns"] = s["start_ns"] + self._t0_ns + clock_offset_ns
+            rec["end_ns"] = s["end_ns"] + self._t0_ns + clock_offset_ns
+            rec["pid"] = pid
+            if process is not None:
+                rec["process"] = process
+            parent = rec.get("parent_id")
+            if parent in remap:
+                rec["parent_id"] = remap[parent]
+            out.append(rec)
+        return {"spans": out, "dropped": shipped_dropped,
+                "clock_offset_ns": clock_offset_ns}
+
+    def merged_chrome_trace(self, rings: Sequence[Dict[str, Any]]
+                            ) -> Dict[str, Any]:
+        """A Chrome-trace document of this ring's current spans merged
+        with :meth:`export_ring` payloads, leaving this ring untouched (a
+        mid-run postmortem pulls rings that the workers ship again at
+        close; adopting them here would count them twice). A scratch
+        tracer on this tracer's epoch does the merge."""
+        scratch = Tracer(self.trace_id, max_spans=self.max_spans)
+        scratch._t0_ns = self._t0_ns
+        with self._lock:
+            scratch._spans.extend(dict(s) for s in self._spans)
+        for ring in rings:
+            scratch.adopt_remote_spans(ring.get("spans") or ())
+        return scratch.chrome_trace()
+
     # -- querying / export ---------------------------------------------------
 
     def spans(self, name: Optional[str] = None) -> List[Dict[str, Any]]:
@@ -503,13 +579,18 @@ class Tracer:
         """Chrome-trace (Trace Event Format) document: complete ("X")
         events in microseconds on one track per thread, loadable by
         ``chrome://tracing`` and Perfetto. Adopted spans keep the pid of
-        the process that measured them."""
+        the process that measured them; once another process's spans are
+        in, each pid gets a ``process_name`` label (``coordinator`` for
+        this one, a worker's its ``process``)."""
         events: List[Dict[str, Any]] = []
         own = os.getpid()
         seen_threads: Dict[Tuple[int, int], str] = {}
+        seen_procs: Dict[int, Optional[str]] = {}
         for s in self.spans():
             pid = s.get("pid", own)
             seen_threads.setdefault((pid, s["thread_id"]), s["thread_name"])
+            if s.get("process") is not None or pid not in seen_procs:
+                seen_procs[pid] = s.get("process") or seen_procs.get(pid)
             events.append({
                 "name": s["name"], "cat": "sparkdl", "ph": "X",
                 "ts": s["start_ns"] / 1e3,
@@ -523,6 +604,15 @@ class Tracer:
         for (pid, tid), tname in seen_threads.items():
             events.append({"name": "thread_name", "ph": "M", "pid": pid,
                            "tid": tid, "args": {"name": tname}})
+        # process labels only once remote spans merged in: a trace of one
+        # process keeps its shape
+        if len(seen_procs) > 1 or any(seen_procs.values()):
+            for pid, label in seen_procs.items():
+                name = label or ("coordinator" if pid == own
+                                 else f"pid-{pid}")
+                events.append({"name": "process_name", "ph": "M",
+                               "pid": pid, "tid": 0,
+                               "args": {"name": name}})
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
@@ -1172,10 +1262,14 @@ class SnapshotExporter:
         self.prom_path: Optional[str] = None
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
+            # cluster workers pin the coordinator's run id, so a shared
+            # out_dir needs the scope's process suffix (the coordinator,
+            # process_scope None, keeps the bare names)
+            suffix = _scope_suffix(tel)
             self.snapshot_path = os.path.join(
-                out_dir, f"sparkdl_snapshots_{tel.run_id}.jsonl")
+                out_dir, f"sparkdl_snapshots_{tel.run_id}{suffix}.jsonl")
             self.prom_path = os.path.join(
-                out_dir, f"sparkdl_metrics_{tel.run_id}.prom")
+                out_dir, f"sparkdl_metrics_{tel.run_id}{suffix}.prom")
         self._t0 = _monotonic()
         self._next_due = self._t0 + self.interval_s
         self._tick_lock = threading.Lock()  # thread tick vs close flush
@@ -1272,6 +1366,7 @@ class SnapshotExporter:
             tmp = self.prom_path + ".tmp"
             with open(tmp, "w") as f:
                 f.write(tel.metrics.prometheus_text())
+                f.write(self._cluster_prometheus_text())
             os.replace(tmp, self.prom_path)
 
     @staticmethod
@@ -1300,9 +1395,27 @@ class SnapshotExporter:
 
     @staticmethod
     def _cluster_status() -> Optional[Dict[str, Any]]:
-        """The federated cluster-metrics view: None until the port has a
-        cluster plane."""
-        return None
+        """The federated view of the live partition router (the windowed
+        cluster-wide fold and ``workers_reporting``), read the same way
+        as :meth:`_executor_status`: a run that never imported the
+        cluster plane, or whose router has no federation, gets no
+        ``cluster`` key."""
+        import sys
+
+        mod = sys.modules.get("sparkdl_tpu_torch.cluster.router")
+        if mod is None:
+            return None
+        return mod.exporter_status()
+
+    @staticmethod
+    def _cluster_prometheus_text() -> str:
+        """The live router's federated Prometheus series, or ``""``."""
+        import sys
+
+        mod = sys.modules.get("sparkdl_tpu_torch.cluster.router")
+        if mod is None:
+            return ""
+        return mod.exporter_prometheus_text()
 
     # -- the timeline that feeds RunReport -----------------------------------
 
@@ -1354,6 +1467,11 @@ class SnapshotExporter:
 _run_counter = itertools.count(1)
 
 
+def _scope_suffix(tel: Any) -> str:
+    scope = getattr(tel, "process_scope", None)
+    return f".{scope}" if scope else ""
+
+
 class _RunContextFilter(logging.Filter):
     """Stamps run_id/trace_id onto log records."""
 
@@ -1390,7 +1508,10 @@ class Telemetry:
     scope is active, log records from the ``sparkdl_tpu_torch`` namespace
     carry ``.run_id`` / ``.trace_id``. To fold the active
     ``HealthMonitor``'s report into the run report, enter the monitor
-    BEFORE (outside) the telemetry scope.
+    BEFORE (outside) the telemetry scope. ``run_id`` pins the scope's
+    identity (a restarted durable job, ``durability.pinned_run_id``; a
+    cluster worker, the coordinator's); ``process_scope`` then tells the
+    files of processes sharing one run id and ``out_dir`` apart.
     """
 
     def __init__(self, name: str = "run", out_dir: Optional[str] = None,
@@ -1400,12 +1521,14 @@ class Telemetry:
                  export_interval_s: Optional[float] = None,
                  slo_rules: Optional[Sequence[Any]] = None,
                  run_id: Optional[str] = None,
-                 exemplar_k: int = 0) -> None:
+                 exemplar_k: int = 0,
+                 process_scope: Optional[str] = None) -> None:
         self.name = name
         self.out_dir = (out_dir if out_dir is not None
                         else os.environ.get(TELEMETRY_DIR_ENV))
         self.run_id = run_id or (
             f"{name}-{os.getpid():x}-{next(_run_counter):04x}")
+        self.process_scope = process_scope
         self.tracer = Tracer(trace_id=self.run_id, max_spans=max_spans)
         self.metrics = MetricsRegistry(window_s=window_s,
                                        window_buckets=window_buckets,
@@ -1508,7 +1631,9 @@ class Telemetry:
         """Write the run report + Chrome trace JSONs (each through a temp
         file and ``os.replace``); returns the report path."""
         os.makedirs(out_dir, exist_ok=True)
-        trace_path = os.path.join(out_dir, f"sparkdl_trace_{self.run_id}.json")
+        suffix = _scope_suffix(self)
+        trace_path = os.path.join(out_dir,
+                                  f"sparkdl_trace_{self.run_id}{suffix}.json")
         tmp = f"{trace_path}.tmp"
         with open(tmp, "w") as f:
             json.dump(self.tracer.chrome_trace(), f)
@@ -1516,7 +1641,7 @@ class Telemetry:
         report = self.report()
         report["chrome_trace"] = trace_path
         report_path = os.path.join(
-            out_dir, f"sparkdl_run_report_{self.run_id}.json")
+            out_dir, f"sparkdl_run_report_{self.run_id}{suffix}.json")
         tmp = f"{report_path}.tmp"
         with open(tmp, "w") as f:
             json.dump(report, f, indent=2, default=str)

@@ -21,8 +21,15 @@ pool from one of its own threads could deadlock. ``streamPartitions``
 yields the partitions one at a time from the same pool, with at most
 ``prefetch + 1`` started and not yet yielded (the supervisor's streaming
 mode).
-Durability, the cluster dispatch, ``join``, ``groupBy``, ``orderBy``,
-``union``, ``distinct`` and ``sample`` are not ported yet.
+With ``EngineConfig.durable_dir`` set, a materialization or stream is a
+durable job (``core/durability.py``): each finished partition is spilled
+and journaled, and a rerun of the same plan after a crash loads the
+committed partitions and computes only the rest. With
+``EngineConfig.cluster_workers`` set, the supervised paths run each
+partition's op chain on one of that many spawned worker processes
+(``cluster/router.py``) instead of a thread of this process; the journal
+wraps outside the router. ``join``, ``groupBy``, ``orderBy``, ``union``,
+``distinct`` and ``sample`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -161,9 +168,59 @@ class EngineConfig:
     # each rung captures.
     serving_warmup: bool = False
     # Route ModelServer.predict through the cluster serving router. The
-    # port has no cluster plane yet: True makes predict raise
+    # port has no cluster serving plane yet: True makes predict raise
     # NotImplementedError rather than serve in-process.
     serving_cluster: bool = False
+    # -- durable job recovery (core/durability.py) ----------------------------
+    # Root directory of the write-ahead partition journals and their
+    # spills. None (the default): no durability, and nothing of the
+    # journal is imported or opened. Set, each materialize and
+    # streamPartitions job derives a stable job id under this root and
+    # survives kill -9: on restart the committed partitions load from
+    # their verified spills, only the others run, and rows come back in
+    # their order.
+    durable_dir: Optional[str] = None
+    # -- the cluster inference plane (cluster/) -------------------------------
+    # Spawned worker PROCESSES, each with a whole inference stack of its
+    # own (its CUDA context, DeviceExecutor and captured graphs, telemetry
+    # pinned to the coordinator's run id); supervised materialize and
+    # stream partitions go to the least-loaded worker, with the retry,
+    # hedging, quarantine and deadlines kept in this process. 0 (the
+    # default) keeps the in-process path, and the cluster package is
+    # never imported.
+    cluster_workers: int = 0
+    # Dispatches in flight router-wide (bounds the coordinator's memory
+    # for shipped, unconsumed partitions); None = 2 * cluster_workers.
+    cluster_inflight_partitions: Optional[int] = None
+    # -- elastic capacity (the router's autoscaler and graceful drain) -------
+    # Grow and shrink the live worker set between cluster_min_workers and
+    # cluster_max_workers from the windowed queue-wait p99 and the rows in
+    # flight per worker. False (the default) keeps exactly
+    # cluster_workers. Always off inside workers.
+    cluster_autoscale: bool = False
+    cluster_min_workers: int = 1
+    cluster_max_workers: int = 8
+    # The telemetry window the scaling signals are read over, and the
+    # least quiet time between two scaling actions.
+    autoscale_window_s: float = 5.0
+    autoscale_cooldown_s: float = 5.0
+    # Scale up when the windowed queue-wait p99 passes the high mark (or
+    # rows in flight per worker pass theirs); scale down only when the
+    # p99 is under the much lower low mark and a worker is idle.
+    autoscale_queue_wait_high_s: float = 0.5
+    autoscale_queue_wait_low_s: float = 0.05
+    autoscale_rows_per_worker_high: int = 4096
+    # -- live metrics federation (cluster/aggregate.ClusterMetricsView) ------
+    # Seconds between the windowed-metrics frames each worker ships; the
+    # coordinator folds them into one live view (merged percentiles,
+    # summed rates) that the federated SLO watchdog, the autoscaler and
+    # the exporter read. None (the default): no frames, no view. Not
+    # forced off inside workers: their loop reads it for its cadence.
+    cluster_federation_s: Optional[float] = None
+    # The tenant tag of this job's partition dispatches through the
+    # cluster router (an executor.tenant_scope around each task in its
+    # worker); None leaves partition work on the default tenant.
+    job_tenant: Optional[str] = None
 
     _PRECISIONS = ("float32", "bfloat16", "int8")
     _KERNEL_MODES = ("off", "autotune", "force")
@@ -297,6 +354,55 @@ class EngineConfig:
             raise ValueError(
                 "EngineConfig.serving_cluster must be a bool, got "
                 f"{cls.serving_cluster!r}")
+        if cls.cluster_workers < 0:
+            raise ValueError(
+                "EngineConfig.cluster_workers must be >= 0 (0 disables "
+                f"the cluster plane), got {cls.cluster_workers!r}")
+        positive("cluster_inflight_partitions",
+                 cls.cluster_inflight_partitions)
+        if not isinstance(cls.cluster_autoscale, bool):
+            raise ValueError(
+                "EngineConfig.cluster_autoscale must be a bool, got "
+                f"{cls.cluster_autoscale!r}")
+        if cls.cluster_min_workers < 1:
+            raise ValueError(
+                "EngineConfig.cluster_min_workers must be >= 1, got "
+                f"{cls.cluster_min_workers!r}")
+        if cls.cluster_max_workers < cls.cluster_min_workers:
+            raise ValueError(
+                "EngineConfig.cluster_max_workers must be >= "
+                f"cluster_min_workers ({cls.cluster_min_workers}), got "
+                f"{cls.cluster_max_workers!r}")
+        positive("autoscale_window_s", cls.autoscale_window_s,
+                 allow_none=False)
+        positive("autoscale_cooldown_s", cls.autoscale_cooldown_s,
+                 allow_none=False, exclusive=False)
+        positive("autoscale_queue_wait_high_s",
+                 cls.autoscale_queue_wait_high_s, allow_none=False)
+        positive("autoscale_queue_wait_low_s",
+                 cls.autoscale_queue_wait_low_s, allow_none=False)
+        if cls.autoscale_queue_wait_low_s >= cls.autoscale_queue_wait_high_s:
+            raise ValueError(
+                "EngineConfig.autoscale_queue_wait_low_s must be < "
+                "autoscale_queue_wait_high_s "
+                f"({cls.autoscale_queue_wait_high_s}), got "
+                f"{cls.autoscale_queue_wait_low_s!r} — the hysteresis "
+                "gap is what keeps the worker set from flapping")
+        if cls.autoscale_rows_per_worker_high < 1:
+            raise ValueError(
+                "EngineConfig.autoscale_rows_per_worker_high must be "
+                f">= 1, got {cls.autoscale_rows_per_worker_high!r}")
+        positive("cluster_federation_s", cls.cluster_federation_s)
+        if cls.job_tenant is not None and (
+                not isinstance(cls.job_tenant, str) or not cls.job_tenant):
+            raise ValueError(
+                "EngineConfig.job_tenant must be None or a non-empty "
+                f"tenant string, got {cls.job_tenant!r}")
+        if cls.durable_dir is not None and (
+                not isinstance(cls.durable_dir, str) or not cls.durable_dir):
+            raise ValueError(
+                "EngineConfig.durable_dir must be None or a non-empty "
+                f"directory path, got {cls.durable_dir!r}")
 
 
 def _task_policy() -> resilience.RetryPolicy:
@@ -359,6 +465,32 @@ def _run_partition(index: int, batch: "Batch",
         telemetry.count(telemetry.M_ENGINE_ROWS_OUT, out.num_rows)
         telemetry.count(telemetry.M_ENGINE_BYTES_OUT, out.nbytes)
     return out
+
+
+def _cluster_dispatch() -> Callable[..., "Batch"]:
+    """The partition runner of the supervised paths: ``_run_partition``
+    in this process at the default ``cluster_workers = 0`` (the cluster
+    package is never imported), else the process-wide router's
+    :meth:`~sparkdl_tpu_torch.cluster.router.ClusterRouter.run_partition`.
+    Resolved once per materialization or stream. The inline paths of a
+    partition thread stay ``_run_partition``: a task already running on
+    a cluster worker must not route back into a router."""
+    if not EngineConfig.cluster_workers:
+        return _run_partition
+    from sparkdl_tpu_torch.cluster import router as _cluster_router
+
+    router = _cluster_router.maybe_router()
+    return _run_partition if router is None else router.run_partition
+
+
+def _maybe_journal(partitions, columns, ops):
+    """The job's durable journal, or None with ``durable_dir`` unset
+    (then ``core/durability.py`` is not even imported)."""
+    if not EngineConfig.durable_dir:
+        return None
+    from sparkdl_tpu_torch.core import durability
+
+    return durability.maybe_journal(partitions, columns, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -577,19 +709,95 @@ class DataFrame:
                     _run_partition(i, b, ops)
                     for i, b in enumerate(self._partitions)]
                 return self._materialized
+            journal = _maybe_journal(self._partitions, self._columns, ops)
+            if journal is not None:
+                with telemetry.span(telemetry.SPAN_MATERIALIZE,
+                                    partitions=len(self._partitions),
+                                    ops=len(ops), durable=True):
+                    self._materialized = self._materialize_durable(journal,
+                                                                   ops)
+                return self._materialized
             sup = _sup.PartitionSupervisor(
                 _executor(), _supervisor_config(),
                 quarantine_probe=self._quarantine_probe)
+            dispatch = _cluster_dispatch()
             # the span is open while tasks are CREATED, so every
             # partition task's trace context parents under it
             with telemetry.span(telemetry.SPAN_MATERIALIZE,
                                 partitions=len(self._partitions),
                                 ops=len(ops)):
                 self._materialized = sup.run_all(
-                    [(i, lambda cancel, i=i, b=b: _run_partition(
+                    [(i, lambda cancel, i=i, b=b: dispatch(
                         i, b, ops, cancel))
                      for i, b in enumerate(self._partitions)])
             return self._materialized
+
+    def _durable_supervisor(self, journal) -> _sup.PartitionSupervisor:
+        """A supervisor whose quarantine verdicts COMMIT: a poisoned
+        partition's zero-row stand-in is journaled (``quarantined``), so
+        a restarted job keeps the verdict instead of running it again."""
+        return _sup.PartitionSupervisor(
+            _executor(), _supervisor_config(),
+            quarantine_probe=lambda i: journal.commit(
+                i, self._quarantine_probe(i), quarantined=True))
+
+    def _durable_runner(self, journal, i: int, ops,
+                        dispatch: Callable[..., Batch]):
+        """A partition runner that journals: count the attempt, run the
+        op chain (here or through the cluster router: the journal wraps
+        OUTSIDE the dispatch, so a re-dispatch after a worker dies never
+        reruns a committed partition), spill and commit the result."""
+        b = self._partitions[i]
+
+        def run(cancel=None, i=i, b=b):
+            journal.note_attempt(i)
+            return journal.commit(i, dispatch(i, b, ops, cancel))
+
+        return run
+
+    def _materialize_durable(self, journal, ops) -> List[Batch]:
+        """Durable materialization: verified committed partitions load
+        from their spills, only the others run through the supervisor,
+        each committing as it finishes. Order and bytes are those of an
+        uninterrupted run."""
+        committed = journal.resume()
+        todo = [i for i in range(len(self._partitions)) if i not in committed]
+        results: Dict[int, Batch] = {}
+        if todo:
+            sup = self._durable_supervisor(journal)
+            dispatch = _cluster_dispatch()
+            computed = sup.run_all(
+                [(i, self._durable_runner(journal, i, ops, dispatch))
+                 for i in todo])
+            results.update(zip(todo, computed))
+        for i in committed:
+            results[i] = journal.load(i)
+        return [results[i] for i in range(len(self._partitions))]
+
+    def _stream_durable(self, journal, indices: List[int], prefetch: int
+                        ) -> Iterator[Batch]:
+        """Durable streaming: restored partitions come from their spills,
+        the others stream through the supervisor (the same bounded
+        prefetch), each in its place in the visit order."""
+        committed = journal.resume()
+        ops = self._ops
+        todo = [i for i in indices if i not in committed]
+        sup = self._durable_supervisor(journal)
+        dispatch = _cluster_dispatch()
+
+        def runners():
+            for i in todo:
+                yield i, self._durable_runner(journal, i, ops, dispatch)
+
+        stream = sup.run_stream(runners(), prefetch=prefetch)
+        try:
+            for i in indices:
+                if i in committed:
+                    yield journal.load(i)
+                else:
+                    yield next(stream)
+        finally:
+            stream.close()
 
     def _joined_columns(self) -> Dict[str, Any]:
         """The whole frame as ``{name: column}``, its partitions' pieces
@@ -652,9 +860,9 @@ class DataFrame:
         round-robin share of the visit order (positions ``p, p+n,
         p+2n, …``); every process must pass the same ``order``.
 
-        Not ported yet: the reference's durable branch (a journal of the
-        stream's partitions, ``core/durability.py``) and its cluster
-        dispatch of partitions to workers.
+        With ``EngineConfig.durable_dir`` set the stream is journaled
+        (committed partitions come from their spills); with
+        ``cluster_workers`` its partitions run on the cluster workers.
         """
         indices = list(order) if order is not None else list(range(
             len(self._partitions)))
@@ -681,13 +889,18 @@ class DataFrame:
             for i in indices:
                 yield _run_partition(i, parts[i], ops)
             return
+        journal = _maybe_journal(parts, self._columns, ops)
+        if journal is not None:
+            yield from self._stream_durable(journal, indices, prefetch)
+            return
         sup = _sup.PartitionSupervisor(
             _executor(), _supervisor_config(),
             quarantine_probe=self._quarantine_probe)
+        dispatch = _cluster_dispatch()
 
         def runners():
             for i in indices:
-                yield i, (lambda cancel, i=i: _run_partition(
+                yield i, (lambda cancel, i=i: dispatch(
                     i, parts[i], ops, cancel))
 
         yield from sup.run_stream(runners(), prefetch=prefetch)

@@ -74,6 +74,15 @@ def available() -> bool:
     return _load() is not None
 
 
+def status() -> Optional[str]:
+    """``"loaded"``, or why the library is unavailable, or None while
+    nothing in this process has asked for it (this asks for nothing)."""
+    with _lib_lock:
+        if not _load_attempted:
+            return None
+        return "loaded" if _lib is not None else unavailable_reason
+
+
 def decode(data: bytes, target_size: Optional[Tuple[int, int]] = None
            ) -> Optional[np.ndarray]:
     """Decode (and optionally bilinear-resize) JPEG/PNG bytes to HWC

@@ -37,6 +37,10 @@ def test_no_forbidden_imports_in_source():
                      "ml/lbfgs.py", "ml/classification.py",
                      "ml/evaluation.py", "ml/persistence.py"):
         assert ROOT / "sparkdl_tpu_torch" / flagship in files
+    for cluster in ("core/durability.py", "cluster/__init__.py",
+                    "cluster/worker.py", "cluster/router.py",
+                    "cluster/aggregate.py", "cluster/transport.py"):
+        assert ROOT / "sparkdl_tpu_torch" / cluster in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -176,6 +180,81 @@ def test_ingest_loads_its_own_loader_and_no_jax(tmp_path):
         assert own_loader == "True"
     assert theirs == "False"
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_port_imports_no_pyarrow_or_cloudpickle():
+    """The card's machine has neither: the spill format and the op-chain
+    transport are the port's own."""
+    files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad.extend(f"{path.relative_to(ROOT)}: {n}" for n in names
+                       if n.split(".")[0] in ("pyarrow", "cloudpickle"))
+    assert not bad, bad
+
+
+def test_durable_cluster_runs_with_pyarrow_cloudpickle_and_jax_blocked(
+        tmp_path):
+    """In a fresh process where importing pyarrow, cloudpickle or JAX
+    fails (``sys.modules[name] = None``, in the workers too: they run the
+    script's top again), a frame at the defaults imports neither the
+    cluster package nor the journal; then a durable materialize on 2
+    cluster workers equals the in-process rows, and neither the
+    coordinator nor a worker holds any of the blocked modules."""
+    script = tmp_path / "blocked.py"
+    script.write_text(
+        "import sys\n"
+        "BLOCKED = ('pyarrow', 'cloudpickle', 'jax', 'jaxlib', 'flax',\n"
+        "           'sparkdl_tpu')\n"
+        "for name in BLOCKED:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "import sparkdl_tpu_torch as s\n"
+        "\n"
+        "def loaded(batch):\n"
+        "    top = {m.split('.')[0] for m in sys.modules\n"
+        "           if sys.modules[m] is not None}\n"
+        "    return [','.join(sorted(top & set(BLOCKED)))] * batch.num_rows\n"
+        "\n"
+        "if __name__ == '__main__':\n"
+        "    s.EngineConfig.device = 'cpu'\n"
+        "    def frame(k=3):\n"
+        "        df = s.DataFrame.fromColumns({'x': np.arange(12)},\n"
+        "                                     numPartitions=4)\n"
+        "        return (df.withColumnBatch('y', lambda b: b.column('x') * k)\n"
+        "                .withColumnBatch('mods', loaded))\n"
+        "    want = frame().collect()\n"
+        "    print(sorted(m for m in sys.modules if m.startswith(\n"
+        "        ('sparkdl_tpu_torch.cluster',\n"
+        "         'sparkdl_tpu_torch.core.durability'))))\n"
+        f"    s.EngineConfig.durable_dir = {str(tmp_path / 'durable')!r}\n"
+        "    s.EngineConfig.cluster_workers = 2\n"
+        "    from sparkdl_tpu_torch.cluster import router\n"
+        "    got = frame().collect()\n"
+        "    pids = [w.proc.pid for w in router.maybe_router()._workers]\n"
+        "    router.shutdown()\n"
+        "    assert [r['y'] for r in got] == [r['y'] for r in want]\n"
+        "    print(sorted({r['mods'] for r in got}), len(pids))\n"
+        "    print(loaded(s.DataFrame.fromColumns({'x': [1]})\n"
+        "                 ._partitions[0]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    defaults, workers, coordinator = out.stdout.strip().splitlines()[-3:]
+    assert defaults == "[]"
+    assert workers == "[''] 2"
+    assert coordinator == "['']"
 
 
 def test_default_device_without_cuda_raises():
