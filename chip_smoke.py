@@ -302,6 +302,36 @@ partitions of 4, batch 16):
   under a ``sparkdl.cluster_dispatch`` span of this process, and the
   merged Chrome trace labels ``coordinator`` and each worker.
 
+Then the cluster serving plane: ``EngineConfig.serving_cluster`` on one
+router of 2 workers sharing the card, each holding a replica of
+serving_predict's deployment (Xception's featurizer in bf16 under
+``"force"``, batch 16, ``latency_target_ms=250``, ``serving_warmup``, the
+``"pow2"`` ladder); the deployments' loaders build their seeded weights
+in the workers:
+
+- ``cluster_serving_predict``: each replica warmed (one probe predict
+  each), then 8 clients × 16 single-row predicts: requests/s and latency
+  p50/p99 beside serving_predict's in-process numbers, the replica map,
+  each worker's ``memory_allocated`` and ``memory_reserved``, the
+  workers' captures over the counted traffic (0) and their ``sep2d``
+  launches (34 × forwards, all ``wgmma``: the difference of two pulls of
+  their counts), every answer within ``5e-2·max|ref|`` of the eager
+  forward of the same weights in this process;
+- ``cluster_serving_cutover``: v1 → v2 → rollback while 8 clients
+  stream: no request that started after the first answer of the new
+  version ended gets the old one (for the cutover and for the
+  rollback), every answer held against its version's eager forward; then
+  a v3 whose loader raises in the worker named ``...-1``:
+  ``CutoverFailed``, one ``serving_prepare_failed``, v1 active and
+  answering on every replica, ``report_section()["prepare_failures"]``
+  1;
+- ``cluster_serving_failover``: ``serving_worker_kill`` fires once under
+  8 clients' traffic: every request answered within its deadline (a
+  survivor holds the deployment, so none may fail), one
+  ``serving_failover`` event per moved request (the router's ledger
+  agrees), the moved requests' ids and seconds, the survivor's answers
+  held, its launches counted.
+
 The line ``{"phase": "total", ...}`` gives the script's seconds so far.
 
 ``--profile`` adds device times from ``torch.profiler`` beside each event
@@ -2867,12 +2897,13 @@ def latency_ms(latencies) -> dict:
             "p99": float(np.percentile(lat, 99)), "max": float(lat.max())}
 
 
-def run_clients(srv, name, rows, clients, requests, on_result=None):
+def run_clients(srv, name, rows, clients, requests, on_result=None,
+                deadline_ms=None):
     """``clients`` threads, each sending ``requests`` single-row predicts
     of ``rows`` (client t's i-th request takes row (t·requests + i) mod
-    len(rows)); returns ``[(client, i, row, result, t_done)]`` in answer
-    order, and the seconds from the first send to the last answer. Any
-    error in a client raises here."""
+    len(rows)), each with ``deadline_ms``; returns ``[(client, i, row,
+    result, t_done)]`` in answer order, and the seconds from the first
+    send to the last answer. Any error in a client raises here."""
     import threading
 
     answers, errors = [], []
@@ -2884,7 +2915,7 @@ def run_clients(srv, name, rows, clients, requests, on_result=None):
             barrier.wait()
             for i in range(requests):
                 idx = (t * requests + i) % len(rows)
-                res = srv.predict(name, rows[idx])
+                res = srv.predict(name, rows[idx], deadline_ms=deadline_ms)
                 with lock:
                     answers.append((t, i, idx, res, time.perf_counter()))
                     n = len(answers)
@@ -3128,7 +3159,7 @@ def serving_hot_swap(s, kernels, reg, srv, rows, eager_v1):
            "health": mon.counters(),
            "launches": counts, "launches_by_body": by_body}
     emit(out)
-    return out
+    return out, eager
 
 
 class MemoryAtEvents:
@@ -3548,7 +3579,8 @@ def serving_path(s, kernels, part_frame):
     with ``serving_warmup`` on and the blind power-of-two ladder (a tuned
     ladder may adopt a rung after the warm-up, whose first request would
     then capture; and the deployments and the flood's featurizer share a
-    model name, so they would share one tuned planner)."""
+    model name, so they would share one tuned planner). Returns the
+    phases, the rows served and each version's eager answers to them."""
     from sparkdl_tpu_torch import serving
 
     s.EngineConfig.device = "cuda"
@@ -3564,12 +3596,12 @@ def serving_path(s, kernels, part_frame):
         phases = {}
         phases["serving_predict"], eager = serving_predict(s, kernels, reg,
                                                            srv, rows)
-        phases["serving_hot_swap"] = serving_hot_swap(s, kernels, reg, srv,
-                                                      rows, eager)
+        phases["serving_hot_swap"], eager = serving_hot_swap(
+            s, kernels, reg, srv, rows, eager)
         phases["serving_slo"] = serving_slo(s, kernels, reg, rows,
                                             part_frame)
         phases["serving_residency"] = serving_residency(s, kernels)
-        return phases
+        return phases, rows, eager
     finally:
         s.EngineConfig.serving_warmup = False
         s.EngineConfig.bucket_ladder = "tuned"
@@ -3988,6 +4020,456 @@ def cluster_path(s, kernels, part_frame, cpu, in_process):
     return phases
 
 
+# -- the cluster serving plane ------------------------------------------------
+
+#: single-row predicts each of the 8 clients sends in a cluster phase
+CLUSTER_SERVE_REQUESTS = 16
+#: a cluster phase's per-request deadline: a request that neither answers
+#: nor fails classified within it fails the phase
+CLUSTER_SERVE_DEADLINE_MS = 60_000.0
+#: answers of each version the cutover phase waits for: of v1 before the
+#: cutover, of v2 before the rollback, of v1 again before it ends
+CLUSTER_CUTOVER_AT = 32
+#: the dispatch (0-based) that carries the armed serving_worker_kill
+CLUSTER_SERVE_KILL_AFTER = 24
+
+
+def refusing_model(name, seed):
+    """:func:`served_model`, except in the cluster worker whose process
+    name ends in ``-1``, where the loader raises (a prepare that fails on
+    one replica)."""
+    load = served_model(name, seed)
+
+    def refusing():
+        import multiprocessing
+
+        if multiprocessing.current_process().name.endswith("-1"):
+            raise RuntimeError(f"{name} v3 refuses to load here")
+        return load()
+
+    return refusing
+
+
+def worker_memory(sections) -> dict:
+    """Each worker's ``memory_allocated`` and ``memory_reserved`` in MiB,
+    from a pull of the workers' ``device`` sections."""
+    return {w: {"memory_allocated_mib": d["memory_allocated"] / 2 ** 20,
+                "memory_reserved_mib": d["memory_reserved"] / 2 ** 20}
+            for w, d in sorted(sections.items())}
+
+
+def answers_summary(answers, seconds) -> dict:
+    n = len(answers)
+    return {"requests": n, "seconds": seconds, "requests_per_s": n / seconds,
+            "request_ms": latency_ms([r.latency_s for *_, r, _ in answers])}
+
+
+def no_version_mix(label, answers, old, new, lo, hi) -> int:
+    """Of the requests that started at ``lo`` or later and ended before
+    ``hi`` (a request starts at its answer's time less its latency),
+    none that started after the first answer of ``new`` ended may be
+    answered by ``old``. Returns how many such later requests there
+    were."""
+    window = [(t_done - r.latency_s, t_done, r.version)
+              for *_, r, t_done in answers
+              if t_done - r.latency_s >= lo and t_done < hi]
+    ends = [t1 for _, t1, v in window if v == new]
+    assert ends, f"{label}: no answer from {new}"
+    later = [v for t0, _, v in window if t0 > min(ends)]
+    assert all(v == new for v in later), \
+        f"{label}: {later.count(old)} {old} answer(s) after the first {new}"
+    return len(later)
+
+
+def cluster_serving_predict(s, kernels, reg, srv, rows, eager, in_process):
+    """Deploy serving_predict's v1 under a name of its own, spawn the
+    workers with the first predict, warm the other replica with a probe
+    predict on each, then 8 clients × CLUSTER_SERVE_REQUESTS single rows.
+    Held: every answer v1 and within the bf16 tolerance of ``eager``,
+    one forward a request and no capture over the counted traffic,
+    ``sep2d`` 34 × forwards on ``wgmma`` (the workers' pulled counts),
+    both replicas resident. Returns the phase line and the served name."""
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.core import health
+    from sparkdl_tpu_torch.serving import cluster as serving_cluster
+
+    name = "xception_cluster"
+    t0 = time.perf_counter()
+    reg.deploy(name, "v1", loader=served_model("Xception", SERVE_SEED),
+               latency_target_ms=SERVE_TARGET_MS, batch_size=SERVE_BATCH)
+    with health.HealthMonitor("cluster_serving_warm") as mon:
+        # the first predict spawns the workers; one replica cold-loads
+        # and warms. Then one probe predict on each replica warms the
+        # other: locality routing sends all traffic to the warm replicas
+        first = srv.predict(name, rows[0],
+                            deadline_ms=CLUSTER_SERVE_DEADLINE_MS)
+        first_s = time.perf_counter() - t0
+        cluster = serving_cluster.maybe_cluster_serving()
+        each = cluster.predict_each(name, reg, rows[0],
+                                    deadline_ms=CLUSTER_SERVE_DEADLINE_MS)
+    warm_s = time.perf_counter() - t0
+    router = cluster_router.maybe_router()
+    assert len(each) == 2 and all(v == "v1" for _, v in each.values())
+    held_rows("cluster_serving_predict warm-up",
+              [(0, first.output)] + [(0, out) for out, _ in each.values()],
+              eager["v1"])
+    before = router.device_sections()
+    with health.HealthMonitor("cluster_serving_predict") as mon:
+        answers, seconds = run_clients(
+            srv, name, rows, SERVE_CLIENTS, CLUSTER_SERVE_REQUESTS,
+            deadline_ms=CLUSTER_SERVE_DEADLINE_MS)
+    after = router.device_sections()
+    dev = pass_counts("cluster_serving_predict", before, after)
+    n = SERVE_CLIENTS * CLUSTER_SERVE_REQUESTS
+    assert len(answers) == n and all(r.version == "v1"
+                                     for *_, r, _ in answers)
+    assert dev["captures"] == 0, f"captured after warm-up: {dev}"
+    assert dev["forwards"] == n, (dev["forwards"], n)  # one row each
+    check_worker_launches("cluster_serving_predict", dev)
+    err = held_rows("cluster_serving_predict",
+                    [(idx, r.output) for _, _, idx, r, _ in answers],
+                    eager["v1"])
+    replicas = srv.status()["cluster"][name]["replicas"]
+    assert len(replicas) == 2 and all(
+        v["resident"] == ["v1"] for v in replicas.values()), replicas
+    out = {"phase": "cluster_serving_predict", "workers": 2,
+           "first_request_s": first_s, "warm_s": warm_s,
+           **answers_summary(answers, seconds),
+           "in_process_requests_per_s": in_process["requests_per_s"],
+           "in_process_request_ms": in_process["request_ms_measured"],
+           "replicas": replicas, "per_worker": worker_memory(after),
+           "forwards": dev["forwards"], "captures": dev["captures"],
+           "launches": dev["launches"],
+           "launches_by_body": dev["launches_by_body"],
+           "forwards_by_worker": {
+               w: after[w]["forwards"] - before[w]["forwards"]
+               for w in sorted(after)},
+           "max_abs_err_vs_eager": err,
+           "eager_tolerance": BF16_REL * float(np.abs(eager["v1"]).max()),
+           "health": mon.counters()}
+    emit(out)
+    return out, name
+
+
+def stream_clients(srv, name, rows, clients, stop, answers, errors):
+    """``clients`` threads sending single-row predicts of ``rows`` until
+    ``stop`` is set, each with CLUSTER_SERVE_DEADLINE_MS; each answer is
+    appended to ``answers`` as ``(client, i, row, result, t_done)``, each
+    error to ``errors``. Returns the threads, started."""
+    import threading
+
+    lock = threading.Lock()
+
+    def client(t):
+        i = 0
+        while not stop.is_set():
+            idx = (t * 7 + i) % len(rows)
+            try:
+                res = srv.predict(name, rows[idx],
+                                  deadline_ms=CLUSTER_SERVE_DEADLINE_MS)
+            except Exception as e:  # noqa: BLE001 - raised by the caller
+                with lock:
+                    errors.append(e)
+                return
+            with lock:
+                answers.append((t, i, idx, res, time.perf_counter()))
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(clients)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def cluster_serving_cutover(s, kernels, reg, srv, rows, eager, name):
+    """v2 (serving_hot_swap's weights) deployed dark, then 8 streaming
+    clients: CLUSTER_CUTOVER_AT v1 answers, the cutover to v2 (its
+    prepare loads and warms v2 in both workers), as many v2 answers, the
+    rollback, as many v1 answers. Held: no version mix either way, each
+    answer against its version's eager forward, 2 ``serving_cutover``
+    events. Then v3, whose loader raises in the worker named ``...-1``:
+    ``CutoverFailed``, one ``serving_prepare_failed``, v1 active and
+    answering on each replica, one prepare failure in the router's
+    report."""
+    import threading
+
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.core import health
+    from sparkdl_tpu_torch.serving import cluster as serving_cluster
+
+    router = cluster_router.maybe_router()
+    cluster = serving_cluster.maybe_cluster_serving()
+    reg.deploy(name, "v2", loader=served_model("Xception", SERVE_SEED + 1),
+               latency_target_ms=SERVE_TARGET_MS, batch_size=SERVE_BATCH)
+    answers, errors = [], []
+    stop = threading.Event()
+    marks = {}
+
+    def wait_for(version, count, since):
+        deadline = time.monotonic() + CLUSTER_SERVE_DEADLINE_MS / 1e3
+        while time.monotonic() < deadline and not errors:
+            if sum(r.version == version and t_done - r.latency_s > since
+                   for *_, r, t_done in list(answers)) >= count:
+                return
+            time.sleep(0.01)
+        raise AssertionError(f"cluster_serving_cutover: fewer than {count} "
+                             f"{version} answers: {errors[:1]}")
+
+    before = router.device_sections()
+    with health.HealthMonitor("cluster_serving_cutover") as mon:
+        t0 = time.perf_counter()
+        threads = stream_clients(srv, name, rows, SERVE_CLIENTS, stop,
+                                 answers, errors)
+        try:
+            wait_for("v1", CLUSTER_CUTOVER_AT, t0)
+            marks["cutover_t"] = time.perf_counter()
+            assert srv.cutover(name, "v2") == "v1"
+            marks["cutover_done_t"] = time.perf_counter()
+            wait_for("v2", CLUSTER_CUTOVER_AT, marks["cutover_done_t"])
+            marks["rollback_t"] = time.perf_counter()
+            assert srv.rollback(name) == "v2"
+            marks["rollback_done_t"] = time.perf_counter()
+            wait_for("v1", CLUSTER_CUTOVER_AT, marks["rollback_done_t"])
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(CLUSTER_SERVE_DEADLINE_MS / 1e3)
+                assert not t.is_alive(), "a serving client hung"
+        seconds = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    after = router.device_sections()
+    dev = pass_counts("cluster_serving_cutover", before, after)
+    assert mon.count(health.SERVING_CUTOVER) == 2
+    keys = [(t, i) for t, i, _, _, _ in answers]
+    assert len(set(keys)) == len(keys), "an answer came twice"
+    errs = {v: held_rows(f"cluster_serving_cutover {v}",
+                         [(idx, r.output) for _, _, idx, r, _ in answers
+                          if r.version == v], eager[v])
+            for v in ("v1", "v2")}
+    end = max(t_done for *_, t_done in answers) + 1.0
+    later_cutover = no_version_mix("cluster_serving_cutover", answers, "v1",
+                                   "v2", t0, marks["rollback_t"])
+    later_rollback = no_version_mix("cluster_serving_cutover rollback",
+                                    answers, "v2", "v1",
+                                    marks["cutover_done_t"], end)
+    check_worker_launches("cluster_serving_cutover", dev)
+
+    def segment(lo, hi):
+        mine = [r.latency_s for *_, r, t_done in answers if lo <= t_done < hi]
+        return {"answers": len(mine), "seconds": hi - lo,
+                "requests_per_s": len(mine) / (hi - lo),
+                "latency_ms": latency_ms(mine)}
+
+    # a prepare that fails on one replica: v3's loader raises in -1
+    reg.deploy(name, "v3", loader=refusing_model("Xception", SERVE_SEED + 2),
+               latency_target_ms=SERVE_TARGET_MS, batch_size=SERVE_BATCH)
+    with health.HealthMonitor("cluster_serving_prepare") as prep:
+        t1 = time.perf_counter()
+        try:
+            srv.cutover(name, "v3")
+        except serving_cluster.CutoverFailed as e:
+            failure = str(e)
+        else:
+            raise AssertionError("the cutover to v3 did not fail")
+        failed_s = time.perf_counter() - t1
+    assert "still serving everywhere" in failure, failure
+    assert prep.count(health.SERVING_PREPARE_FAILED) == 1
+    assert prep.count(health.SERVING_CUTOVER) == 0
+    assert reg.active_version(name) == "v1"
+    each = cluster.predict_each(name, reg, rows[:2],
+                                deadline_ms=CLUSTER_SERVE_DEADLINE_MS)
+    assert len(each) == 2 and all(v == "v1" for _, v in each.values())
+    each_err = held_rows("cluster_serving_cutover v1 on each replica",
+                         [(i, out[i]) for out, _ in each.values()
+                          for i in range(2)], eager["v1"])
+    section = cluster.report_section()
+    assert section["prepare_failures"] == 1, section
+    assert section["deployments"][name]["active"] == "v1"
+    out = {"phase": "cluster_serving_cutover",
+           **answers_summary(answers, seconds),
+           "answers_by_version": {v: sum(r.version == v
+                                         for *_, r, _ in answers)
+                                  for v in ("v1", "v2")},
+           "cutover_s": marks["cutover_done_t"] - marks["cutover_t"],
+           "rollback_s": marks["rollback_done_t"] - marks["rollback_t"],
+           "before_cutover": segment(t0, marks["cutover_t"]),
+           "during_cutover": segment(marks["cutover_t"],
+                                     marks["cutover_done_t"]),
+           "on_v2": segment(marks["cutover_done_t"], marks["rollback_t"]),
+           "after_rollback": segment(marks["rollback_done_t"], end - 1.0
+                                     + 1e-9),
+           "requests_checked_after_first_v2": later_cutover,
+           "requests_checked_after_first_v1_again": later_rollback,
+           "max_abs_err_vs_eager": errs,
+           "failed_prepare": {"error": failure, "seconds": failed_s,
+                              "v1_on_each_replica_err": each_err,
+                              "replicas": sorted(each)},
+           "router": {k: section[k] for k in ("predicts", "cutovers",
+                                              "prepare_failures")},
+           "forwards": dev["forwards"], "captures": dev["captures"],
+           "launches": dev["launches"],
+           "launches_by_body": dev["launches_by_body"],
+           "per_worker": worker_memory(after),
+           "health": {**mon.counters(), **prep.counters()}}
+    emit(out)
+    return out
+
+
+def cluster_serving_failover(s, kernels, reg, srv, rows, eager, name):
+    """8 clients × CLUSTER_SERVE_REQUESTS with ``serving_worker_kill``
+    armed at dispatch CLUSTER_SERVE_KILL_AFTER: the worker that receives
+    it SIGKILLs itself. Held: every request answered within its deadline
+    (none may fail: a survivor holds the deployment), one
+    ``cluster_worker_lost``, one
+    ``serving_failover`` event per moved request (the router's ledger
+    agrees), the answers held, the survivor's launches counted."""
+    import threading
+
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.core import health
+    from sparkdl_tpu_torch.core.resilience import Fault, FaultInjector
+    from sparkdl_tpu_torch.serving import cluster as serving_cluster
+
+    router = cluster_router.maybe_router()
+    cluster = serving_cluster.maybe_cluster_serving()
+    before = router.device_sections()
+    failovers0 = cluster.report_section()["failovers"]
+    inj = FaultInjector.seeded(0, serving_worker_kill=Fault(
+        times=1, after=CLUSTER_SERVE_KILL_AFTER))
+    answers, errors = [], []
+    lock = threading.Lock()
+
+    def client(t):
+        for i in range(CLUSTER_SERVE_REQUESTS):
+            idx = (t * CLUSTER_SERVE_REQUESTS + i) % len(rows)
+            try:
+                res = srv.predict(name, rows[idx],
+                                  deadline_ms=CLUSTER_SERVE_DEADLINE_MS)
+            except Exception as e:  # noqa: BLE001 - fails the phase below
+                with lock:
+                    errors.append((t, i, e))
+                continue
+            with lock:
+                answers.append((t, i, idx, res, time.perf_counter()))
+
+    with health.HealthMonitor("cluster_serving_failover") as mon, inj:
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(CLUSTER_SERVE_DEADLINE_MS / 1e3 * CLUSTER_SERVE_REQUESTS)
+            assert not t.is_alive(), "a serving client hung"
+        seconds = time.perf_counter() - t0
+    assert inj.fired == {"serving_worker_kill": 1}, inj.fired
+    # a survivor holds the deployment and every deadline is far off, so a
+    # working failover answers every request, the moved ones included
+    assert not errors, [f"{t}/{i}: {e!r}" for t, i, e in errors]
+    n = SERVE_CLIENTS * CLUSTER_SERVE_REQUESTS
+    assert len(answers) == n, "a request was lost"
+    (lost,) = mon.events(health.CLUSTER_WORKER_LOST)
+    events = mon.events(health.SERVING_FAILOVER)
+    moved = [e["request"] for e in events]
+    assert moved and len(moved) == len(set(moved)), moved
+    section = cluster.report_section()
+    assert section["failovers"] - failovers0 == len(events), section
+    assert set(moved) <= set(section["moved_requests"])
+    moved_s = {r: section["moved_latency_s"][r] for r in moved}
+    assert all(v < CLUSTER_SERVE_DEADLINE_MS / 1e3 for v in moved_s.values())
+    err = held_rows("cluster_serving_failover",
+                    [(idx, r.output) for _, _, idx, r, _ in answers],
+                    eager["v1"])
+    after = router.device_sections()
+    assert len(after) == 1 and lost["worker"] not in after, (after, lost)
+    dev = pass_counts("cluster_serving_failover",
+                      {w: before[w] for w in after}, after)
+    check_worker_launches("cluster_serving_failover (survivor)", dev)
+    # the router spawns no replacement after a death (only a preemption
+    # drain does); any spawn would have been topped up with the replicas
+    spawned = [e["worker"] for e in router.autoscale_events
+               if e["action"] == "spawn"]
+    replicas = srv.status()["cluster"][name]["replicas"]
+    assert set(spawned) <= set(replicas), (spawned, replicas)
+    out = {"phase": "cluster_serving_failover",
+           **answers_summary(answers, seconds),
+           "lost_worker": lost["worker"],
+           "moved_requests": moved, "moved_latency_s": moved_s,
+           "failover_events": len(events), "respawned": spawned,
+           "replicas": replicas, "max_abs_err_vs_eager": err,
+           "forwards": dev["forwards"], "captures": dev["captures"],
+           "launches": dev["launches"],
+           "launches_by_body": dev["launches_by_body"],
+           "launches_cover": "the surviving worker (the killed one's "
+                             "counts die with it)",
+           "health": mon.counters()}
+    emit(out)
+    return out
+
+
+def cluster_serving_path(s, kernels, rows, eager, in_process):
+    """The three cluster serving phases on one router of 2 workers sharing
+    the card (the settings of serving_path, taken by the workers at their
+    spawn), then the router shut down: its merged report's ``serving``
+    section and no worker left."""
+    import multiprocessing
+
+    from sparkdl_tpu_torch import serving
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.serving import cluster as serving_cluster
+
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.pallas_kernels = "force"
+    s.EngineConfig.inference_precision = "bfloat16"
+    s.EngineConfig.coalesce = True
+    s.EngineConfig.serving_warmup = True
+    s.EngineConfig.bucket_ladder = "pow2"
+    s.EngineConfig.cluster_workers = 2
+    s.EngineConfig.serving_cluster = True
+    phases = {}
+    t0 = time.perf_counter()
+    try:
+        reg = serving.ModelRegistry()
+        srv = serving.ModelServer(reg)
+        phases["cluster_serving_predict"], name = cluster_serving_predict(
+            s, kernels, reg, srv, rows, eager, in_process)
+        phases["cluster_serving_cutover"] = cluster_serving_cutover(
+            s, kernels, reg, srv, rows, eager, name)
+        phases["cluster_serving_failover"] = cluster_serving_failover(
+            s, kernels, reg, srv, rows, eager, name)
+        router = cluster_router.maybe_router()
+        cluster_router.shutdown()
+    finally:
+        s.EngineConfig.cluster_workers = 0
+        s.EngineConfig.serving_cluster = False
+        s.EngineConfig.serving_warmup = False
+        s.EngineConfig.bucket_ladder = "tuned"
+        cluster_router.shutdown()
+        serving_cluster.reset()
+    for w in router._workers:
+        w.proc.join(timeout=30)
+        assert not w.proc.is_alive(), f"{w.proc.name} still runs"
+    assert not [p for p in multiprocessing.active_children()
+                if p.name.startswith("sparkdl-cluster")]
+    rep = cluster_router.last_cluster_report()
+    srv_rep = rep["serving"]
+    fail = phases["cluster_serving_failover"]
+    assert srv_rep["router"]["failovers"] == fail["failover_events"]
+    assert srv_rep["router"]["cutovers"] == 2
+    emit({"phase": "cluster_serving_report",
+          "seconds_all_phases": time.perf_counter() - t0,
+          "router": {k: v for k, v in srv_rep["router"].items()
+                     if k != "moved_latency_s"},
+          "workers": {w: {k: v[k] for k in ("predicts", "errors",
+                                            "resident_bytes")}
+                      for w, v in srv_rep["workers"].items()},
+          "lost_workers": rep.get("trace", {}).get("span_rings_lost"),
+          "worker_count": rep["worker_count"]})
+    return phases
+
+
 AUTOTUNE_PHASES = [
     ("featurize_native_autotune", ("Xception", "named"), TARGET, BF16_REL,
      "bfloat16"),
@@ -4180,13 +4662,20 @@ def main() -> int:
     phases.update(lr_fit_scale(s, kernels))
     # online serving: predict, hot swap, the live plane under a flood,
     # then residency under a byte budget
-    phases.update(serving_path(s, kernels, part_frame))
+    serving_phases, serve_rows, serve_eager = serving_path(s, kernels,
+                                                           part_frame)
+    phases.update(serving_phases)
     # durable jobs and the cluster plane on the partitioned frame: a
     # durable run killed by SIGKILL and resumed, then 2 and 4 worker
     # processes sharing the card, a worker killed, the merged trace
     phases.update(cluster_path(
         s, kernels, part_frame, part_cpu,
         phases["featurize_partitioned"]["images_per_s"]))
+    # the cluster serving plane: replicas of serving_predict's deployment
+    # on 2 workers sharing the card, a cutover and a rollback under
+    # traffic, a failed prepare, a replica killed under traffic
+    phases.update(cluster_serving_path(s, kernels, serve_rows, serve_eager,
+                                       phases["serving_predict"]))
     s.EngineConfig.inference_precision = "bfloat16"
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 

@@ -61,8 +61,8 @@ def build_snapshot(worker: str, pid: int, tel: Any, monitor: Any, *,
     ``span_ring`` is :meth:`Tracer.export_ring`'s shippable view of the
     worker's spans (rebased onto the coordinator's clock); the key is
     absent entirely when tracing is off, keeping the off-path snapshot
-    byte-identical. ``serving`` is the reference's key for a worker's
-    serving plane (the port has none yet; the key is absent). ``device``
+    byte-identical. ``serving`` is the worker's serving replica
+    (``WorkerServingPlane.stats``; absent when it served nothing). ``device``
     is the worker's kernel launch counts, forwards, captures, boot
     times and reserved card memory."""
     snap = {

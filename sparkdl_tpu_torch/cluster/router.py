@@ -1,7 +1,6 @@
 """Partition router: one engine job fanned across N worker processes.
 
-The port of ``sparkdl_tpu.cluster.router``, without its serving plane
-(the ``serving_*`` methods of the reference's cluster serving).
+The port of ``sparkdl_tpu.cluster.router``.
 ``engine/dataframe.py`` swaps its in-process ``_run_partition`` for
 :meth:`ClusterRouter.run_partition` when ``EngineConfig.cluster_workers``
 is set (the ONE knob; 0 keeps today's path byte-identical and never
@@ -59,6 +58,16 @@ build_all``) before it spawns a worker; a worker only loads them. The op
 chains and the boot snapshot travel through ``cluster/transport.py``
 (closures by value, weights as CPU arrays); an op that cannot be
 pickled fails its task naming the op, and never runs here instead.
+
+The cluster serving plane (``serving/cluster.py``) rides the same
+workers: it attaches itself as the router's serving handler
+(:meth:`ClusterRouter.serving_attach`) and sends ``srv_*`` messages
+through :meth:`~ClusterRouter.serving_send`. The router routes the
+workers' ``srv_*`` replies, the exact serving request ids a dead worker
+owed, replica top-ups after a spawn, and its close to the handler. Lock
+order is one way only: the serving lock may take the router lock, never
+the reverse; the router calls every handler callback with its own lock
+released.
 """
 
 from __future__ import annotations
@@ -125,6 +134,20 @@ def _build_before_spawn() -> float:
     return time.perf_counter() - t0
 
 
+def _tf32_flags() -> Optional[Tuple[bool, bool]]:
+    """This process's ``(matmul, cudnn)`` TF32 switches, which a spawned
+    worker would otherwise take from PyTorch's defaults: with them the
+    workers' float32 products and convolutions round as this process's
+    do. None when torch is not loaded here."""
+    import sys
+
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    return (bool(torch.backends.cuda.matmul.allow_tf32),
+            bool(torch.backends.cudnn.allow_tf32))
+
+
 def _rebuild_error(type_name: str, msg: str, kind: str) -> BaseException:
     """Reconstruct a worker-side exception coordinator-side, preserving
     classification exactly: prefer the original type (builtin, then a
@@ -187,7 +210,8 @@ class _Worker:
 
     __slots__ = ("wid", "proc", "queue", "conn", "clock", "assigned",
                  "tokens", "outstanding_rows", "finished", "lost",
-                 "draining", "drain_started", "drain_reason", "pilled")
+                 "draining", "drain_started", "drain_reason", "pilled",
+                 "serving_assigned")
 
     def __init__(self, wid: int, proc: Any, queue: Any, conn: Any,
                  clock: Any) -> None:
@@ -197,6 +221,11 @@ class _Worker:
         self.conn = conn  # parent's read end; None once EOF-drained
         self.clock = clock  # clock-handshake pipe; None once answered
         self.assigned: Set[int] = set()
+        # in-flight SERVING request ids (predicts and prepare acks), kept
+        # apart from the partition tasks: a death hands exactly these to
+        # the serving handler, and a draining worker is not pilled from
+        # under an unanswered predict
+        self.serving_assigned: Set[int] = set()
         self.tokens: Set[str] = set()
         self.outstanding_rows = 0
         self.finished = False  # final snapshot received
@@ -270,6 +299,7 @@ class ClusterRouter:
         # None (tracing off) keeps the worker's trace fully local
         self._boot_blob = transport.dumps(
             {"config": config,
+             "tf32": _tf32_flags(),
              "root_ctx": tel.root_context if tel is not None else None,
              # exemplar reservoirs are per-registry opt-in: workers arm
              # the SAME k as the coordinator, or federated breach events
@@ -277,6 +307,11 @@ class ClusterRouter:
              "exemplar_k": (tel.metrics.exemplar_k
                             if tel is not None else 0)})
         self._lock = threading.Lock()
+        # the attached cluster serving handler (serving/cluster.py), or
+        # None while the serving plane is off: srv_* replies, the exact
+        # lost request ids of a dead worker, and replica top-ups after a
+        # spawn go to it, always with this lock released
+        self._serving: Optional[Any] = None
         self._pending: Dict[int, _Task] = {}
         self._ids = itertools.count(1)
         self._ops_blobs: Dict[str, bytes] = {}
@@ -618,6 +653,80 @@ class ClusterRouter:
             telemetry.gauge_set(telemetry.M_CLUSTER_OUTSTANDING_ROWS,
                                 total)
 
+    # -- the serving-plane transport (serving/cluster.py) --------------------
+
+    def serving_attach(self, handler: Any) -> None:
+        """Attach the cluster serving handler: ``srv_*`` worker replies
+        (``on_message``), worker losses with the exact lost request ids
+        (``on_worker_lost``), replica top-ups after a spawn
+        (``on_worker_spawn``) and the router's close (``on_close``) go to
+        it. One handler per router; attaching replaces the previous."""
+        with self._lock:
+            self._serving = handler
+
+    def serving_live_workers(self) -> List[int]:
+        """Worker ids that may take NEW serving dispatches: live and not
+        draining (a draining worker finishes its in-flight predicts but
+        admits none, as batch dispatch does)."""
+        with self._lock:
+            return [w.wid for w in self._workers
+                    if not w.lost and not w.finished and not w.draining]
+
+    def serving_worker_name(self, wid: int) -> str:
+        with self._lock:
+            worker = self._worker_by_wid_locked(wid)
+            return (worker.proc.name if worker is not None
+                    else f"sparkdl-cluster-{wid}")
+
+    def serving_send(self, wid: int, msg: Tuple,
+                     req_id: Optional[int] = None) -> None:
+        """Put one serving-plane message on worker ``wid``'s private task
+        queue (its replies come back over its result pipe as ``srv_*``
+        messages, routed to the handler). ``req_id`` registers an
+        expected reply under ``serving_assigned``: the worker's death
+        then hands exactly this request to the handler, and a draining
+        worker is pilled only once it has answered."""
+        with self._lock:
+            worker = self._worker_by_wid_locked(wid)
+            if (worker is None or worker.lost or worker.finished
+                    or self._closed):
+                raise resilience.ServingReplicaLost(
+                    f"cluster worker {wid} is gone (or the router is "
+                    "closed); cannot dispatch the serving message")
+            if worker.draining and req_id is not None:
+                raise resilience.WorkerDraining(
+                    f"cluster worker {wid} is draining; it admits no "
+                    "new serving requests")
+            try:
+                worker.queue.put(msg)
+            except ValueError:
+                raise resilience.ServingReplicaLost(
+                    f"cluster worker {wid}'s task queue is closed"
+                ) from None
+            if req_id is not None:
+                worker.serving_assigned.add(req_id)
+
+    def serving_done(self, wid: int, req_id: int) -> None:
+        """Discount one answered (or abandoned) serving request from its
+        worker; a draining worker whose partition AND serving in-flight
+        sets just emptied is pilled here (the serving side of the drain
+        hook in ``_on_message``)."""
+        with self._lock:
+            worker = self._worker_by_wid_locked(wid)
+            if worker is None:
+                return
+            worker.serving_assigned.discard(req_id)
+            if (worker.draining and not worker.assigned
+                    and not worker.serving_assigned and not worker.pilled
+                    and not self._closed):
+                self._pill_locked(worker)
+
+    def _worker_by_wid_locked(self, wid: int) -> Optional[_Worker]:
+        for w in self._workers:
+            if w.wid == wid:
+                return w
+        return None
+
     # -- the collector thread ------------------------------------------------
 
     def _collect(self) -> None:
@@ -672,6 +781,14 @@ class ClusterRouter:
 
     def _on_message(self, worker: _Worker, msg: Tuple) -> None:
         kind = msg[0]
+        if isinstance(kind, str) and kind.startswith("srv_"):
+            # a serving-plane reply: the handler resolves its waiter and
+            # discounts it through serving_done (which pills a draining
+            # worker once its serving in-flight set empties)
+            handler = self._serving
+            if handler is not None:
+                handler.on_message(worker.wid, msg)
+            return
         if kind == "frame":
             # windowed metrics delta frame (the federation cadence):
             # fold it, then judge the merged fold
@@ -702,9 +819,11 @@ class ClusterRouter:
                 self._discount_locked(task)
             total = self._outstanding_locked()
             if (worker.draining and not worker.assigned
+                    and not worker.serving_assigned
                     and not worker.pilled and not self._closed):
-                # last in-flight task just finished: retire the worker
-                # (it ships its final snapshot and EOFs cleanly)
+                # last in-flight task just finished (and no serving
+                # request awaits an answer): retire the worker (it ships
+                # its final snapshot and EOFs cleanly)
                 self._pill_locked(worker)
         with self._lock:
             if kind == "ok":
@@ -758,7 +877,8 @@ class ClusterRouter:
             worker.draining = True
             worker.drain_started = time.monotonic()
             worker.drain_reason = reason
-            if not worker.assigned and not worker.pilled:
+            if (not worker.assigned and not worker.serving_assigned
+                    and not worker.pilled):
                 self._pill_locked(worker)
             if reason == "preemption":
                 spawned = self._ensure_capacity_locked()
@@ -806,6 +926,11 @@ class ClusterRouter:
         self._gauge_workers_locked_free()
         self._note_autoscale_event("spawn", worker=worker.proc.name,
                                    reason=reason)
+        handler = self._serving
+        if handler is not None:
+            # replica top-up: the deployments fan out to the new worker,
+            # and the serving plane regains its replication factor
+            handler.on_worker_spawn(worker.wid)
 
     def _gauge_workers_locked_free(self) -> None:
         if telemetry.active() is None:
@@ -831,6 +956,7 @@ class ClusterRouter:
         redispatched: List[_Task] = []
         failed: List[_Task] = []
         held: List[int] = []
+        srv_lost: List[int] = []
         lost = False
         drained = False
         with self._lock:
@@ -840,6 +966,11 @@ class ClusterRouter:
             if not worker.finished and not self._closed:
                 lost = True
                 worker.lost = True
+                # the exact serving loss set: the request ids awaiting an
+                # answer from this worker, handed to the serving handler
+                # (outside the lock) for re-admission within deadlines
+                srv_lost = sorted(worker.serving_assigned)
+                worker.serving_assigned.clear()
                 # abandon the dead worker's queue WITHOUT joining its
                 # feeder thread (it may be blocked writing to a pipe
                 # nobody will ever read — the decode-pool lesson)
@@ -902,6 +1033,10 @@ class ClusterRouter:
         for task in failed:
             task.event.set()
             self._sem.release()
+        if lost:
+            handler = self._serving
+            if handler is not None:
+                handler.on_worker_lost(worker.wid, srv_lost)
 
     # -- metrics federation + the flight recorder -----------------------------
 
@@ -1257,6 +1392,12 @@ class ClusterRouter:
                 "cluster router closed mid-stream")
             task.event.set()
             self._sem.release()
+        handler = self._serving
+        if handler is not None:
+            # serving requests still unanswered now are orphans (their
+            # worker exited without replying): fail them classified
+            # rather than let a waiter spin to its deadline
+            handler.on_close()
         self._wake_w.close()
         self._wake_r.close()
         with self._lock:
@@ -1296,6 +1437,16 @@ class ClusterRouter:
             if self.run_report is not None:
                 self.run_report.setdefault(
                     "cluster", {})["federation"] = fed_sec
+        if handler is not None:
+            # the coordinator's half of the serving plane (replica map,
+            # failovers, cutovers) joins the workers' serving stats that
+            # the snapshot merge folded: one `serving` section per report
+            srv = handler.report_section()
+            self.cluster_report.setdefault("serving", {})["router"] = srv
+            if self.run_report is not None:
+                cluster_sec = self.run_report.setdefault("cluster", {})
+                cluster_sec.setdefault("serving", {})["router"] = srv
+                self.run_report["serving"] = cluster_sec["serving"]
 
     def __enter__(self) -> "ClusterRouter":
         return self

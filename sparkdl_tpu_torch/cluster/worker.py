@@ -1,15 +1,15 @@
 """The cluster worker process: one whole inference stack per process.
 
-The port of ``sparkdl_tpu.cluster.worker``, without the serving plane's
-``srv_*`` messages. Each worker is a **spawn-context** process (never
-fork: the coordinator holds a live CUDA context, which a forked child
-must not inherit) with everything a single-process run has: its own
-CUDA context and copy of the weights, its own ``DeviceExecutor`` and
-captured graphs (reached through the op chain as inline execution
-reaches them), and its own ``Telemetry(run_id=...)`` scope pinned to
-the COORDINATOR's run id, so every worker's spans and metrics carry the
-run identity the merged report (``cluster/aggregate.py``) is keyed on.
-On one card the workers share it.
+The port of ``sparkdl_tpu.cluster.worker``. Each worker is a
+**spawn-context** process (never fork: the coordinator holds a live CUDA
+context, which a forked child must not inherit) with everything a
+single-process run has: its own CUDA context and copy of the weights, its
+own ``DeviceExecutor`` and captured graphs (reached through the op chain
+as inline execution reaches them), and its own ``Telemetry(run_id=...)``
+scope pinned to the COORDINATOR's run id, so every worker's spans and
+metrics carry the run identity the merged report
+(``cluster/aggregate.py``) is keyed on. On one card the workers share
+it.
 
 Transport, as the decode pool's: a PRIVATE task queue in and a PRIVATE
 result pipe back per worker (one writer per pipe: a worker killed
@@ -25,11 +25,18 @@ Boot: the coordinator's ``EngineConfig`` snapshot is restored with the
 cluster, durability and decode-pool knobs forced off (a worker never
 starts a cluster of its own, journals the coordinator's job or nests a
 decode pool), the kernels' libraries may be loaded but not built (the
-coordinator built them all before it spawned a worker), and on the card
-the CUDA context is made before the first task.
+coordinator built them all before it spawned a worker), PyTorch's TF32
+switches are set as the coordinator's are, and on the card the CUDA
+context is made before the first task.
 
 Protocol (coordinator -> worker queue):
   ``("ops", token, blob)``                  register an op chain
+  ``("srv_*", ...)``                        the cluster serving plane
+      (``serving/cluster.py``): deploy, retire and pin fan-out, the
+      prepares of a two-phase cutover, and routed predicts. The first
+      ``srv_*`` message builds this worker's ``WorkerServingPlane`` (a
+      registry of its own, an optional residency budget): a batch-only
+      run never imports the serving plane
   ``("task", task_id, index, token, payload, crash, preempt, tenant,
   ctx)``  run one partition. ``ctx`` is the coordinator's dispatch
       span (None with tracing off), which the worker's
@@ -48,6 +55,10 @@ Protocol (coordinator -> worker queue):
 (worker -> coordinator pipe):
   ``("ok", task_id, payload, meta)`` / ``("err", task_id, type, msg,
   kind)``  a task's result, or its error with its ``classify`` kind
+  ``("srv_ok", req_id, blob, meta)`` / ``("srv_err", req_id, type,
+  msg, kind)`` / ``("srv_prepared", req_id, ok, err, resident_bytes)``
+      a routed predict's answer (a pickle of numpy arrays) or error, and
+      a cutover prepare's ack or nack
   ``("draining", worker_id)``               SIGTERM received: the router
       stops dispatching here and pills this worker once its in-flight
       tasks finish (the worker never exits on SIGTERM by itself, so no
@@ -59,7 +70,8 @@ Protocol (coordinator -> worker queue):
   ``("final", worker_id, snapshot)``        the last message before EOF:
       the end-of-run snapshot, with the span ring rebased onto the
       coordinator's clock when tracing is on, and the ``device``
-      section (launch counts, forwards, boot times, reserved memory)
+      section (launch counts, forwards, boot times, reserved memory),
+      and the ``serving`` section of a worker that served
 """
 
 from __future__ import annotations
@@ -83,7 +95,8 @@ _IN_WORKER = False
 
 def _device_section(boot: Dict[str, float]) -> Dict[str, Any]:
     """This process's kernel launches, forwards, captures, boot times,
-    reserved card memory and native image loader (``loader.status``)."""
+    allocated and reserved card memory and native image loader
+    (``loader.status``)."""
     import torch
 
     from sparkdl_tpu_torch.core import kernels, model_function, profiling
@@ -96,6 +109,8 @@ def _device_section(boot: Dict[str, float]) -> Dict[str, Any]:
             "forwards": sum(p.replays for p in model_function.programs()),
             "captures": int(compiles.get("count", 0)),
             "boot": boot,
+            "memory_allocated": (torch.cuda.memory_allocated()
+                                 if torch.cuda.is_initialized() else None),
             "memory_reserved": (torch.cuda.memory_reserved()
                                 if torch.cuda.is_initialized() else None),
             "native_loader": loader.status()}
@@ -129,6 +144,12 @@ def _worker_main(worker_id: int, tasks: Any, conn: Any, owner_pid: int,
     boot = transport.loads(boot_blob)
     EngineConfig.restore(boot["config"])
     cuda_build.forbid_builds()
+    if boot.get("tf32") is not None:
+        # the coordinator's TF32 switches, not PyTorch's defaults
+        import torch
+
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = boot["tf32"]
     imported = time.time()
     if EngineConfig.device.startswith("cuda"):
         import torch
@@ -159,6 +180,7 @@ def _worker_main(worker_id: int, tasks: Any, conn: Any, owner_pid: int,
         clock_offset = telemetry.clock_handshake(clock_conn)
         clock_conn.close()
     ops_cache: Dict[str, Any] = {}
+    serving_plane = None
     tasks_done = 0
     rows_out = 0
     exec_s_total = 0.0
@@ -228,6 +250,15 @@ def _worker_main(worker_id: int, tasks: Any, conn: Any, owner_pid: int,
             if msg[0] == "pull_device":
                 conn.send(("device", worker_id, _device_section(boot_s)))
                 continue
+            if isinstance(msg[0], str) and msg[0].startswith("srv_"):
+                if serving_plane is None:
+                    from sparkdl_tpu_torch.serving.cluster import \
+                        WorkerServingPlane
+
+                    serving_plane = WorkerServingPlane(worker_id, name,
+                                                       conn)
+                serving_plane.handle(msg)
+                continue
             _, task_id, index, token, payload, crash, preempt, tenant, \
                 ctx = msg
             if crash:
@@ -265,6 +296,8 @@ def _worker_main(worker_id: int, tasks: Any, conn: Any, owner_pid: int,
             name, os.getpid(), tel, monitor, tasks=tasks_done,
             rows=rows_out, exec_s=exec_s_total,
             phases=profiling.phase_stats(), span_ring=span_ring,
+            serving=(serving_plane.stats()
+                     if serving_plane is not None else None),
             device=_device_section(boot_s))
     conn.send(("final", worker_id, snapshot))
     conn.close()

@@ -100,6 +100,9 @@ SPAN_MODEL_LOAD = "sparkdl.model_load"        # serving cold start: the
 SPAN_SERVING_SHADOW = "sparkdl.serving_shadow"  # shadow-lane replay of one
                                               # serving request
                                               # (serving/server.py)
+SPAN_SERVING_PREDICT = "sparkdl.serving_predict"  # a cluster replica's
+                                              # run of one routed predict
+                                              # (serving/cluster.py)
 SPAN_SERVING_WARMUP = "sparkdl.serving.warmup_s"  # bucket-ladder warm-up
                                               # of one deployment
                                               # (serving/registry.py)
@@ -113,8 +116,8 @@ SPAN_CLUSTER_TASK = "sparkdl.cluster_task"    # a worker's run of one
 CANONICAL_SPAN_NAMES = frozenset({
     SPAN_RUN, SPAN_MATERIALIZE, SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
     SPAN_COALESCED_LAUNCH, SPAN_DECODE_POOL, SPAN_DECODE_CHUNK,
-    SPAN_MODEL_LOAD, SPAN_SERVING_SHADOW, SPAN_SERVING_WARMUP,
-    SPAN_CLUSTER_DISPATCH, SPAN_CLUSTER_TASK,
+    SPAN_MODEL_LOAD, SPAN_SERVING_SHADOW, SPAN_SERVING_PREDICT,
+    SPAN_SERVING_WARMUP, SPAN_CLUSTER_DISPATCH, SPAN_CLUSTER_TASK,
     # phase names (core/profiling.py constants + literal call sites)
     "sparkdl.decode", "sparkdl.stage", "sparkdl.stage_batch",
     "sparkdl.host_stage", "sparkdl.host_resize", "sparkdl.host_wait",
@@ -1383,15 +1386,24 @@ class SnapshotExporter:
 
     @staticmethod
     def _serving_status() -> Optional[Dict[str, Any]]:
-        """The live ModelServers' in-flight depth and models, read the same
-        way as :meth:`_executor_status`: a process that never imported the
-        serving plane, or built no server, gets no ``serving`` key."""
+        """The live ModelServers' in-flight depth and models, and beside
+        them (``cluster``) the cluster serving router's replica map, each
+        read the same way as :meth:`_executor_status`: a process that
+        never imported the serving plane, or built no server, gets no
+        ``serving`` key, and one that never imported the cluster serving
+        plane no ``cluster`` in it."""
         import sys
 
+        out: Dict[str, Any] = {}
         mod = sys.modules.get("sparkdl_tpu_torch.serving.server")
-        if mod is None:
-            return None
-        return mod.exporter_status()
+        servers = mod.exporter_status() if mod is not None else None
+        if servers is not None:
+            out.update(servers)
+        mod = sys.modules.get("sparkdl_tpu_torch.serving.cluster")
+        replicas = mod.exporter_status() if mod is not None else None
+        if replicas is not None:
+            out["cluster"] = replicas
+        return out or None
 
     @staticmethod
     def _cluster_status() -> Optional[Dict[str, Any]]:

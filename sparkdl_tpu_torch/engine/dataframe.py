@@ -167,10 +167,24 @@ class EngineConfig:
     # request captures nothing. False (default): the first request of
     # each rung captures.
     serving_warmup: bool = False
-    # Route ModelServer.predict through the cluster serving router. The
-    # port has no cluster serving plane yet: True makes predict raise
-    # NotImplementedError rather than serve in-process.
+    # Route ModelServer.predict through the cluster serving router
+    # (serving/cluster.py): deployments replicate across the cluster
+    # workers, requests route with load and locality awareness, a worker's
+    # death re-admits its in-flight predicts on survivors within the
+    # caller's deadline, and cutover is cluster-atomic and two-phase.
+    # Needs cluster_workers > 0; False (default) keeps the single-process
+    # serving path, and serving/cluster.py is never imported. Always
+    # forced off inside a worker (a replica must not recurse).
     serving_cluster: bool = False
+    # Per-worker card residency budget of the replicated deployments; None
+    # gives each worker's registry an unbudgeted cache (a model stays
+    # resident until retired).
+    serving_worker_residency_bytes: Optional[int] = None
+    # How many times one in-flight predict may be re-admitted after
+    # replica deaths before it fails with ServingReplicaLost (the
+    # caller's deadline bounds it anyway; this bounds rolling-death
+    # churn).
+    serving_failover_max: int = 2
     # -- durable job recovery (core/durability.py) ----------------------------
     # Root directory of the write-ahead partition journals and their
     # spills. None (the default): no durability, and nothing of the
@@ -354,6 +368,13 @@ class EngineConfig:
             raise ValueError(
                 "EngineConfig.serving_cluster must be a bool, got "
                 f"{cls.serving_cluster!r}")
+        positive("serving_worker_residency_bytes",
+                 cls.serving_worker_residency_bytes)
+        if cls.serving_failover_max < 0:
+            raise ValueError(
+                "EngineConfig.serving_failover_max must be >= 0 (0 "
+                "fails a moved request on first replica death), got "
+                f"{cls.serving_failover_max!r}")
         if cls.cluster_workers < 0:
             raise ValueError(
                 "EngineConfig.cluster_workers must be >= 0 (0 disables "

@@ -10,9 +10,11 @@ a :class:`~sparkdl_tpu_torch.serving.residency.ResidencyManager` keeps
 many models resident on the card under a byte budget with LRU/weighted
 eviction, pinning, and ``sparkdl.model_load`` cold-start spans.
 
-The reference's cluster serving plane (replicated deployments across
-worker processes) is not ported yet: its names resolve lazily here, as
-in the reference, and raise ``NotImplementedError``.
+The cluster serving plane (``serving/cluster.py``: replicated
+deployments across the cluster workers, failover, a cluster-atomic
+cutover) is exported lazily, as in the reference: touching
+:class:`ClusterServingRouter`, :class:`CutoverFailed` or
+:class:`WorkerServingPlane` imports it; importing this package does not.
 """
 
 from sparkdl_tpu_torch.serving.registry import (  # noqa: F401
@@ -30,8 +32,9 @@ from sparkdl_tpu_torch.serving.server import (  # noqa: F401
     ServingOverloaded,
 )
 
-# the lazy cluster names stay out of __all__: a star import would raise
 __all__ = [
+    "ClusterServingRouter",
+    "CutoverFailed",
     "Deployment",
     "ModelRegistry",
     "ModelServer",
@@ -39,6 +42,7 @@ __all__ = [
     "ResidencyExhausted",
     "ResidencyManager",
     "ServingOverloaded",
+    "WorkerServingPlane",
     "default_registry",
 ]
 
@@ -47,10 +51,11 @@ _LAZY_CLUSTER = ("ClusterServingRouter", "CutoverFailed",
 
 
 def __getattr__(name):
+    # PEP 562 lazy export: touching a cluster-serving name imports the
+    # module; importing the serving package never does
     if name in _LAZY_CLUSTER:
-        raise NotImplementedError(
-            f"sparkdl_tpu_torch.serving.{name} belongs to the cluster "
-            "serving plane (serving/cluster.py), which is not yet ported "
-            "to sparkdl_tpu_torch")
+        from sparkdl_tpu_torch.serving import cluster as _cluster
+
+        return getattr(_cluster, name)
     raise AttributeError(
         f"module {__name__!r} has no attribute {name!r}")

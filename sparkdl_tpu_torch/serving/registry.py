@@ -185,10 +185,18 @@ class ModelRegistry:
     plane; :func:`default_registry` is the process-wide one the ml/udf
     layers resolve string model names through)."""
 
-    def __init__(self, residency: Optional[Any] = None) -> None:
+    def __init__(self, residency: Optional[Any] = None, *,
+                 defer_warmup: bool = False) -> None:
         self._lock = threading.Lock()
         self._entries: Dict[str, _Entry] = {}
         self._residency = residency
+        # Cluster replicas set this: their boot config clears
+        # serving_cluster (a worker is not a coordinator), so without it
+        # the deploy fan-out would materialize EVERY version on EVERY
+        # replica. A replica warms at its own cold load (its first routed
+        # predict or its srv_prepare), where a broken loader nacks the
+        # prepare instead of killing the worker.
+        self._defer_warmup = bool(defer_warmup)
 
     # -- deployment lifecycle ------------------------------------------------
 
@@ -252,8 +260,10 @@ class ModelRegistry:
             self.cutover(name, version)
         # Eagerly materialize (and therefore warm) at deploy time so the
         # FIRST request captures nothing — except when the cluster plane
-        # is armed, whose replicas would load worker-side.
-        if _serving_warmup_armed() and not _serving_cluster_armed():
+        # is armed, whose replicas load worker-side, and in a replica,
+        # which loads at its own cold load.
+        if _serving_warmup_armed() and not _serving_cluster_armed() \
+                and not self._defer_warmup:
             dep.model()
         return dep
 

@@ -25,15 +25,18 @@ What the serving layer ADDS on top of the executor:
   fraction mirrors to the shadow version on the bulk lane (compared and
   recorded, never answering), and cutover/rollback are atomic pointer
   flips.
-
-The reference's cluster branch (routing predicts to replicas in worker
-processes) is not ported yet: with ``EngineConfig.serving_cluster`` set,
-:meth:`ModelServer.predict`, :meth:`~ModelServer.cutover` and
-:meth:`~ModelServer.rollback` raise ``NotImplementedError``.
+- **The cluster branch.** With ``EngineConfig.serving_cluster`` and
+  ``cluster_workers`` set, :meth:`ModelServer.predict`,
+  :meth:`~ModelServer.cutover` and :meth:`~ModelServer.rollback` go
+  through ``serving/cluster.py``: replicas in the cluster workers,
+  failover, and a cluster-atomic two-phase cutover. With no live replica
+  a predict raises the classified ``ServingReplicaLost``; it is never
+  answered in this process instead.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 import weakref
@@ -156,7 +159,12 @@ class ModelServer:
         queue-wait series + shed attribution (None resolves through the
         ambient ``executor.tenant_scope`` / EngineConfig default)."""
         t0 = time.monotonic()
-        self._refuse_cluster()
+        cluster = self._cluster()
+        if cluster is not None:
+            return self._predict_cluster(cluster, model, rows,
+                                         deadline_ms=deadline_ms,
+                                         priority=priority,
+                                         tenant=tenant, t0=t0)
         active, shadow = self.registry.resolve(model)
         # shed BEFORE paying for staging / cold load
         self._admit(active, tenant=tenant)
@@ -195,31 +203,71 @@ class ModelServer:
     # -- the cluster serving plane -------------------------------------------
 
     @staticmethod
-    def _refuse_cluster() -> None:
-        """``EngineConfig.serving_cluster`` asks for the cluster serving
-        plane, which the port does not have yet: refuse rather than serve
-        in-process without saying so. Read through ``sys.modules``, as
-        the reference does, so a process that never configured the
-        engine takes the single-process path."""
-        import sys
-
+    def _cluster() -> Optional[Any]:
+        """The cluster serving router iff the knobs arm it. Read through
+        ``sys.modules``, so a process that never configured the engine,
+        or left ``cluster_workers = 0`` or ``serving_cluster`` off, keeps
+        the single-process request path and NEVER imports
+        ``serving/cluster.py``."""
         eng = sys.modules.get("sparkdl_tpu_torch.engine.dataframe")
-        if eng is not None and eng.EngineConfig.serving_cluster:
-            raise NotImplementedError(
-                "EngineConfig.serving_cluster is set, but the cluster "
-                "serving plane (serving/cluster.py and the cluster "
-                "workers) is not yet ported to sparkdl_tpu_torch")
+        if eng is None:
+            return None
+        cfg = eng.EngineConfig
+        if not (cfg.serving_cluster and cfg.cluster_workers):
+            return None
+        from sparkdl_tpu_torch.serving import cluster as serving_cluster
+
+        return serving_cluster.maybe_cluster_serving()
+
+    def _predict_cluster(self, cluster: Any, model: str, rows: Any, *,
+                         deadline_ms: Optional[float], priority: str,
+                         tenant: Optional[str], t0: float
+                         ) -> PredictResult:
+        """A predict routed to a replica: version resolution, routing,
+        failover and the cutover gate live in ``serving/cluster.py``;
+        SLO-aware admission and the in-flight gauge stay here. Shadow
+        mirroring is single-process only (in cluster mode a candidate
+        replicates dark and cuts over cluster-atomically instead). The
+        latency observation carries the request's span context as an
+        exemplar, so a moved request's trace lands among the tail
+        exemplars."""
+        active = self.registry.deployment(model)
+        self._admit(active, tenant=tenant)
+        ctx = telemetry.current_context()
+        self._note_inflight(1)
+        try:
+            out, version = cluster.predict(
+                model, self.registry, rows, deadline_ms=deadline_ms,
+                priority=priority, tenant=tenant, ctx=ctx)
+        finally:
+            self._note_inflight(-1)
+        latency_s = time.monotonic() - t0
+        if telemetry.active() is not None:
+            telemetry.observe(telemetry.M_SERVING_REQUEST_S, latency_s,
+                              exemplar=ctx)
+            telemetry.observe(telemetry.serving_request_metric(model),
+                              latency_s, exemplar=ctx)
+        return PredictResult(out, model, version, latency_s, False)
 
     def cutover(self, model: str, version: str) -> str:
         """Hot-swap ``model`` to ``version``; returns the previous
-        active version: the registry's atomic pointer flip."""
-        self._refuse_cluster()
+        active version. Single-process: the registry's atomic pointer
+        flip. Cluster mode: the two-phase cluster-atomic cutover (every
+        replica loads and acks the new version, then ONE flip), and a
+        failed prepare rolls back with the old version still serving
+        everywhere."""
+        cluster = self._cluster()
+        if cluster is not None:
+            return cluster.cutover(model, self.registry, version)
         return self.registry.cutover(model, version)
 
     def rollback(self, model: str) -> str:
         """Cut back to the previous active version — the same primitive
-        as :meth:`cutover`, aimed backwards."""
-        self._refuse_cluster()
+        as :meth:`cutover`, aimed backwards, cluster-atomic when the
+        cluster serving plane is armed."""
+        cluster = self._cluster()
+        if cluster is not None:
+            return cluster.rollback(model, self.registry)
         return self.registry.rollback(model)
 
     # -- SLO-aware admission -------------------------------------------------
@@ -299,6 +347,18 @@ class ModelServer:
             telemetry.gauge_set(telemetry.M_SERVING_QUEUE_DEPTH, depth)
 
     def status(self) -> Dict[str, Any]:
+        out = self._local_status()
+        # the replica map of each deployment (worker -> versions deployed
+        # and resident, resident bytes, depth in flight), read through
+        # sys.modules: a status read never imports the cluster plane nor
+        # spawns or replaces a router
+        mod = sys.modules.get("sparkdl_tpu_torch.serving.cluster")
+        cluster = mod.exporter_status() if mod is not None else None
+        if cluster is not None:
+            out["cluster"] = cluster
+        return out
+
+    def _local_status(self) -> Dict[str, Any]:
         with self._lock:
             inflight = self._inflight
         return {"inflight": inflight, "admission": self._admission,
@@ -341,9 +401,11 @@ _servers: "weakref.WeakSet[ModelServer]" = weakref.WeakSet()
 
 
 def exporter_status() -> Optional[Dict[str, Any]]:
-    """The live servers' :meth:`ModelServer.status` (None when there is
-    none): the ``serving`` key of the telemetry exporter's snapshots."""
+    """The live servers' in-flight depth and models (None when there is
+    none): the ``serving`` key of the telemetry exporter's snapshots. It
+    never reaches for the cluster router (which a read could spawn); the
+    exporter reads the replica map from ``serving/cluster.py`` itself."""
     servers = list(_servers)
     if not servers:
         return None
-    return {"servers": [srv.status() for srv in servers]}
+    return {"servers": [srv._local_status() for srv in servers]}

@@ -560,6 +560,10 @@ def test_aggregate_breach_fires_live_and_dumps_a_postmortem(
                 "y", ops.aggregate_breach).collect()
             _wait_for(lambda: mon.count(health.SLO_BREACH) == 1,
                       "the federated breach")
+            # the flight recorder writes the bundle after the breach,
+            # on its own thread
+            _wait_for(lambda: mon.count(health.POSTMORTEM_DUMPED) == 1,
+                      "the postmortem bundle")
             assert len(glob.glob(os.path.join(out, "postmortem_*"))) == 1
             _wait_for(lambda: mon.count(health.SLO_RECOVERED) == 1,
                       "the federated recovery")

@@ -978,3 +978,71 @@ def test_warmed_deployment_first_request_captures_no_graph(serving_config):
         t.join(120)
     assert all(o is not None and o.shape == (2048,) for o in out)
     assert model.jitted(dev).graphs.keys() == graphs.keys()
+
+
+@pytest.mark.cuda
+def test_cluster_serves_testnet_on_two_workers(serving_config):
+    """``serving_cluster`` on 2 workers sharing the card: TestNet (float32,
+    seeded weights built in each worker) answers single rows and a batch
+    routed to its replicas within the float32 bound of the eager forward
+    of the same weights here; a cutover to another seed's weights and a
+    rollback are cluster-atomic. The workers compute with this process's
+    TF32 settings (off, by the ``card`` fixture). The loaders are partials
+    of the registry's builder, which a worker imports by name (a loader
+    of this test module would need ``tests`` importable there)."""
+    import functools
+
+    from sparkdl_tpu_torch import serving
+    from sparkdl_tpu_torch.cluster import router as cluster_router
+    from sparkdl_tpu_torch.models import registry
+    from sparkdl_tpu_torch.serving import cluster as serving_cluster
+    from sparkdl_tpu_torch.serving.residency import place
+
+    serving_config.inference_precision = "float32"
+    serving_config.cluster_workers = 2
+    serving_config.serving_cluster = True
+    rows = np.random.default_rng(2).integers(0, 256, (5, 32, 32, 3),
+                                             dtype=np.uint8)
+    try:
+        reg = serving.ModelRegistry()
+        srv = serving.ModelServer(reg)
+        for version, seed in (("v1", 3), ("v2", 4)):
+            reg.deploy("tn", version, batch_size=4,
+                       loader=functools.partial(registry.build_featurizer,
+                                                "TestNet", seed=seed))
+
+        def eager(seed):
+            model = place(registry.build_featurizer("TestNet", seed=seed))
+            with torch.inference_mode():
+                x = torch.from_numpy(rows).to("cuda").float()
+                return model(x).float().cpu().numpy()
+
+        def held(seed, version):
+            ref = eager(seed)
+            got = [srv.predict("tn", r, deadline_ms=120_000)
+                   for r in rows]
+            got.append(srv.predict("tn", rows[:3], deadline_ms=120_000))
+            assert {g.version for g in got} == {version}
+            out = np.concatenate([np.stack([g.output for g in got[:-1]]),
+                                  got[-1].output])
+            want = np.concatenate([ref, ref[:3]])
+            assert out.shape == want.shape and np.isfinite(out).all()
+            err = float(np.abs(out - want).max())
+            assert err <= _f32_bound(torch.from_numpy(want)), err
+
+        held(3, "v1")
+        assert srv.cutover("tn", "v2") == "v1"
+        held(4, "v2")
+        assert srv.rollback("tn") == "v2"
+        held(3, "v1")
+        status = srv.status()["cluster"]["tn"]
+        assert status["active"] == "v1" and len(status["replicas"]) == 2
+        router = cluster_router.maybe_router()
+        router.close()
+        section = router.cluster_report["serving"]["router"]
+        assert section["cutovers"] == 2 and section["failovers"] == 0
+        assert router.cluster_report["device"]["forwards"] > 0
+    finally:
+        cluster_router.shutdown()
+        serving_cluster.reset()
+

@@ -30,7 +30,8 @@ def test_no_forbidden_imports_in_source():
         assert ROOT / "sparkdl_tpu_torch" / ingest in files
     for serving in ("serving/__init__.py", "serving/registry.py",
                     "serving/residency.py", "serving/server.py",
-                    "core/slo.py", "core/telemetry.py"):
+                    "serving/cluster.py", "core/slo.py",
+                    "core/telemetry.py"):
         assert ROOT / "sparkdl_tpu_torch" / serving in files
     for flagship in ("engine/sql_expr.py", "udf/__init__.py",
                      "udf/registry.py", "ml/base.py", "ml/linear_utils.py",
@@ -53,6 +54,29 @@ def test_no_forbidden_imports_in_source():
                 continue
             bad.extend(f"{path.relative_to(ROOT)}: {n}" for n in names
                        if _forbidden(n))
+    assert not bad, bad
+
+
+def test_no_cloudpickle_or_pyarrow_in_the_port():
+    """Nothing guarantees cloudpickle or pyarrow on the card's machine:
+    the port (its cluster serving plane included) and chip_smoke.py
+    import neither; loaders travel through ``cluster/transport.py`` and
+    rows as plain pickles of numpy arrays."""
+    files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert ROOT / "sparkdl_tpu_torch" / "serving" / "cluster.py" in files
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad.extend(f"{path.relative_to(ROOT)}: {n}" for n in names
+                       if n.split(".")[0] in ("cloudpickle", "pyarrow"))
     assert not bad, bad
 
 

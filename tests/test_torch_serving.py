@@ -298,7 +298,10 @@ def test_admission_sheds_alike_on_windowed_queue_wait(testnet_weights):
 
 
 def test_serving_knobs_validate_alike():
-    for knob, bad in (("serving_warmup", 1), ("serving_cluster", "yes")):
+    for knob, bad in (("serving_warmup", 1), ("serving_cluster", "yes"),
+                      ("serving_worker_residency_bytes", 0),
+                      ("serving_worker_residency_bytes", -4096),
+                      ("serving_failover_max", -1)):
         msgs = []
         for cfg in (EngineConfig, JaxEngineConfig):
             saved = cfg.snapshot()
@@ -310,23 +313,13 @@ def test_serving_knobs_validate_alike():
             finally:
                 cfg.restore(saved)
         assert msgs[0] == msgs[1], knob
-    for knob in ("serving_warmup", "serving_cluster"):
+    for knob in ("serving_warmup", "serving_cluster",
+                 "serving_worker_residency_bytes", "serving_failover_max"):
         assert EngineConfig.snapshot()[knob] == \
             JaxEngineConfig.snapshot()[knob]
 
 
-def test_cluster_serving_refused_not_served_in_process(testnet_weights):
-    srv, _, _, _ = _servers(testnet_weights)
-    EngineConfig.serving_cluster = True
-    for call in (lambda: srv.predict("tn", np.zeros((32, 32, 3))),
-                 lambda: srv.cutover("tn", "v2"),
-                 lambda: srv.rollback("tn")):
-        with pytest.raises(NotImplementedError, match="cluster"):
-            call()
-    for name in ("ClusterServingRouter", "CutoverFailed",
-                 "WorkerServingPlane"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            getattr(serving, name)
+def test_serving_names_resolve_at_the_top_level():
     assert serving.ModelServer is sparkdl_tpu_torch.ModelServer
     assert sparkdl_tpu_torch.SLORule is sparkdl_tpu_torch.slo.SLORule
 
