@@ -1711,6 +1711,25 @@ def _route_weight(weight, cout: int, cin: int, dtype) -> torch.Tensor:
     return weight.reshape(cout, cin).to(dtype).contiguous().t()
 
 
+def _refuse_recording(site: Site, *tensors) -> None:
+    """A kernel has no backward, as the reference's ``pallas_call`` has
+    none (``jax.grad`` through it raises): a route that would launch one
+    while autograd records a gradient through its operands raises rather
+    than return an output cut off from the graph. It raises on the CPU
+    too, where the plain version would differentiate without complaint,
+    and never falls back to that version quietly."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise ValueError(
+            f"kernel site {site.kernel} ({site.family}, shape {site.shape}, "
+            f"{site.dtype}) would run a kernel with no backward while "
+            "autograd records a gradient through its operands; run the "
+            "forward under torch.no_grad() or torch.inference_mode(), or "
+            "set EngineConfig.pallas_kernels = 'off' to train through "
+            "the plain layers")
+
+
 def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
                 bn_var, eps: float, *, family: str):
     """The fused sepconv body for one site, or None (the caller runs its
@@ -1722,6 +1741,8 @@ def route_sep2d(x, dw_weight, pw_weight, bn_weight, bn_bias, bn_mean,
     site = Site("sep2d", family, (b, h, w, cin, cout), _dtype_name(x.dtype))
     if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
         return None
+    _refuse_recording(site, x, dw_weight, pw_weight, bn_weight, bn_bias,
+                      bn_mean, bn_var)
     dw9 = dw_weight.reshape(cin, 9).t().to(x.dtype).contiguous()
     pw2 = _route_weight(pw_weight, cout, cin, x.dtype)
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
@@ -1739,6 +1760,8 @@ def route_pw1x1(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
                 (b, h, w, cin, cout), _dtype_name(x.dtype))
     if not _decide(site, x.dtype in _FLOAT_TYPES, x.device):
         return None
+    _refuse_recording(site, x, conv_weight, bn_weight, bn_bias, bn_mean,
+                      bn_var)
     w2 = _route_weight(conv_weight, cout, cin, x.dtype)
     scale, shift = _fold_bn(bn_weight, bn_bias, bn_mean, bn_var, eps)
     return pw1x1(x.contiguous(), w2, scale, shift, relu=relu)
@@ -1754,4 +1777,5 @@ def route_preproc(x, target_hw: Tuple[int, int], out_dtype, *,
     feasible = x.dtype in _DTYPE_CODES and out_dtype in _FLOAT_TYPES
     if not _decide(site, feasible, x.device):
         return None
+    _refuse_recording(site, x)
     return preproc_resize(x.contiguous(), (th, tw), out_dtype)
