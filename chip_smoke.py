@@ -332,6 +332,43 @@ in the workers:
   agrees), the moved requests' ids and seconds, the survivor's answers
   held, its launches counted.
 
+Then training (``train/``): ``Xception(classes=10)`` behind its registry
+preprocessing, with seeded weights, on 299×299 seeded uint8 images whose
+colour follows one of 10 classes (12 batches of 32):
+
+- ``train_step_vs_cpu``: one float32 SGD step (lr 0.01) of
+  ``Trainer.from_module`` at batch 4 from one seeded state, on the card
+  and on the host's CPU: the loss and every param and BN buffer after
+  the step held within ``TRAIN_STEP_REL·max(1, max|cpu|)`` (TF32 is off
+  for cuBLAS and cuDNN in this script; the line says so);
+- ``train_f32``: ``fit`` with adam (lr 1e-4), 24 steps over 2 epochs,
+  ``sync_every=8``, ``prefetch=2``, under ``torch.profiler`` (CUDA
+  activity): the loss descends (the mean of the last 4 steps below the
+  first 4's); ms a step p50/p99 between CUDA events recorded after each
+  step (and the first step's), images/s over the fit and at the p50
+  step, host syncs a step, the card's idle share across the fit (and
+  the steady steps' estimate: mean busy ms a step over the mean step
+  interval) and its 15 heaviest kernels (device ms a step), peak
+  ``memory_allocated``; no kernel of ours launches (train mode takes the
+  plain body);
+- ``train_bf16``: the same with ``compute_dtype=torch.bfloat16``; the
+  params, the optimizer's moments and the running statistics stay
+  float32;
+- ``train_resume``: with ``torch.use_deterministic_algorithms(True,
+  warn_only=True)`` and deterministic cuDNN, an uninterrupted fit, then
+  the same fit with ``checkpoint_every=8`` and the ``preemption`` fault
+  at step 13, then a fit that resumes: the restored step 8 equal bit for
+  bit to the state saved there (manifest verified), steps redone ≤ 8,
+  the final params against the uninterrupted run's (bit for bit, or
+  max|Δ| within the Adam sign-flip bound 2·lr·steps), checkpoint save ms
+  (the host copy inside the loop, and a synchronous save) and bytes;
+- ``train_featurize``: the f32 fit's weights (``variables_of``) →
+  ``DeepImageFeaturizer("Xception")`` over 32 of the images, ``"force"``,
+  bf16: ``sep2d`` 34 launches a forward on the tensor-core body, rows
+  within ``BF16_REL·max|ref|`` of the same pass under ``"off"`` (the
+  plain layers); then the featurizer's model on a grad-recording input
+  under ``"force"`` raises the routes' ``ValueError``.
+
 The line ``{"phase": "total", ...}`` gives the script's seconds so far.
 
 ``--profile`` adds device times from ``torch.profiler`` beside each event
@@ -4490,6 +4527,408 @@ AUTOTUNE_PHASES = [
 ]
 
 
+TRAIN_CLASSES = 10
+TRAIN_BATCH = 32
+TRAIN_BATCHES = 12     # an epoch; 2 epochs = 24 steps
+TRAIN_LR = 1e-4
+TRAIN_STEP_REL = 1e-4  # one float32 step, card against CPU
+TRAIN_PREEMPT_AT = 13
+TRAIN_CKPT_EVERY = 8
+
+
+def train_net(seed=SEED):
+    """``Xception(classes=10)`` behind the registry's preprocessing for
+    Xception, with Flax's default initializers from a seeded generator."""
+    from sparkdl_tpu_torch.models import layers, registry
+    from sparkdl_tpu_torch.models.xception import Xception
+
+    preprocess = registry.get_model_spec("Xception").preprocess
+
+    class TrainNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = Xception(classes=TRAIN_CLASSES)
+
+        def forward(self, x):
+            return self.net(preprocess(x))
+
+    model = TrainNet()
+    gen = torch.Generator().manual_seed(seed)
+    for sub in model.modules():
+        if isinstance(sub, (layers.Conv2d, layers.Dense)):
+            layers.lecun_normal_(sub.weight, gen)
+    return model
+
+
+def train_batches(n=TRAIN_BATCHES, batch=TRAIN_BATCH, seed=SEED):
+    """Seeded 299×299 uint8 images, each tinted by its class's colour, and
+    one-hot labels of the 10 classes."""
+    rng = np.random.default_rng(seed + 7)
+    ids = rng.integers(0, TRAIN_CLASSES, n * batch)
+    x = rng.integers(0, 128, size=(n * batch, *TARGET, 3), dtype=np.uint8)
+    tint = (np.arange(TRAIN_CLASSES)[:, None]
+            * np.array([37, 71, 113])) % 128
+    x += tint.astype(np.uint8)[ids][:, None, None, :]
+    y = np.eye(TRAIN_CLASSES, dtype=np.float32)[ids]
+    return [(x[i * batch:(i + 1) * batch], y[i * batch:(i + 1) * batch])
+            for i in range(n)]
+
+
+def ours_launched(kernels) -> dict:
+    counts, by_body = launch_counts(kernels)
+    return {"launches": counts, "launches_by_body": by_body}
+
+
+def train_step_vs_cpu(s, kernels, batches):
+    """One float32 SGD step from one seeded state on the card and on the
+    CPU: the loss and every param and buffer after it."""
+    from sparkdl_tpu_torch.train import Trainer
+
+    x, y = batches[0][0][:4], batches[0][1][:4]
+    kernels.reset_launches()
+    got = {}
+    for device in ("cpu", "cuda"):
+        trainer, state = Trainer.from_module(
+            train_net(), optimizer="sgd", learning_rate=0.01, device=device)
+        step = trainer.make_train_step()
+        xd = torch.from_numpy(x).to(device).float()
+        yd = torch.from_numpy(y).to(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, xd, yd)
+        loss = float(metrics["loss"])
+        got[device] = (loss, time.perf_counter() - t0,
+                       {k: v.detach().cpu() for k, v in
+                        {**state.params, **state.model_state}.items()})
+        del trainer, state
+    (cpu_loss, cpu_s, cpu), (gpu_loss, gpu_s, gpu) = got["cpu"], got["cuda"]
+    worst, worst_rel, worst_name = 0.0, 0.0, None
+    for name, ref in cpu.items():
+        err = float((gpu[name] - ref).abs().max())
+        rel = err / max(1.0, float(ref.abs().max()))
+        if rel > worst_rel:
+            worst, worst_rel, worst_name = err, rel, name
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    out = {"phase": "train_step_vs_cpu", "model": "Xception",
+           "classes": TRAIN_CLASSES, "batch": 4, "optimizer": "sgd",
+           "learning_rate": 0.01, "tensors": len(cpu),
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "loss_cpu": cpu_loss, "loss_card": gpu_loss,
+           "loss_rel_err": loss_rel, "max_abs_err": worst,
+           "max_rel_err": worst_rel, "worst_tensor": worst_name,
+           "tolerance_rel": TRAIN_STEP_REL, "card_step_s": gpu_s,
+           "cpu_step_s": cpu_s, **ours_launched(kernels)}
+    emit(out)
+    assert loss_rel <= TRAIN_STEP_REL, out
+    assert worst_rel <= TRAIN_STEP_REL, out
+    assert not any(out["launches"].values()), out["launches"]
+    return out
+
+
+def timed_fit(trainer, state, batches, profile_fit=False, **kw):
+    """``trainer.fit`` with a CUDA event recorded after each step (the
+    card's step intervals, no host sync added), optionally under
+    ``torch.profiler`` (CUDA activity) for the card's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    events = []
+    inner = trainer.make_train_step()
+
+    def step(st, x, y):
+        out = inner(st, x, y)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
+
+    trainer.make_train_step = lambda: step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    busy_ms = None
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    if profile_fit:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = trainer.fit(state, batches, **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0
+                            and not getattr(e, "is_user_annotation",
+                                            False)),
+                           key=lambda k: -k[1])
+        busy_ms = sum(ms for _, ms, _ in by_kernel)
+    else:
+        state = trainer.fit(state, batches, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del trainer.make_train_step
+    steps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    stats = dict(trainer.fit_stats)
+    n_steps = max(1, len(events))
+    out = {"fit_s": wall, "steps": stats["steps"],
+           "first_step_ms": (start.elapsed_time(events[0]) if events
+                             else None),
+           "host_syncs": stats["syncs"],
+           "host_syncs_per_step": stats["syncs"] / max(1, stats["steps"]),
+           "step_ms": percentiles(steps),
+           "step_ms_mean": float(np.mean(steps)) if steps else None,
+           "peak_memory_allocated_mib":
+               torch.cuda.max_memory_allocated() / 2 ** 20,
+           "checkpoint_save_ms": [t * 1e3
+                                  for t in stats["checkpoint_save_s"]]}
+    if busy_ms is not None:
+        # the whole fit's, its first step (lazy kernel loads, first
+        # allocations) included; and the steady steps' estimate: the
+        # device's mean busy ms a step against the mean step interval
+        out.update(device_busy_ms=busy_ms,
+                   top_kernels=[{"name": k[:110], "ms_per_step": ms / n_steps,
+                                 "calls_per_step": c / n_steps,
+                                 "share": ms / busy_ms}
+                                for k, ms, c in by_kernel[:15]],
+                   idle_share=1.0 - busy_ms / (wall * 1e3),
+                   steady_idle_share_est=(
+                       1.0 - busy_ms / len(events) / out["step_ms_mean"]
+                       if steps else None))
+    return state, out
+
+
+def train_fit_phase(s, kernels, name, batches, compute_dtype=None):
+    """``Trainer.from_module`` → ``fit``: 2 epochs, adam, profiled."""
+    from sparkdl_tpu_torch.train import MetricsLogger, Trainer
+
+    kernels.reset_launches()
+    trainer, state = Trainer.from_module(
+        train_net(), optimizer="adam", learning_rate=TRAIN_LR,
+        compute_dtype=compute_dtype, device="cuda")
+    log = MetricsLogger(sinks=[lambda r: None])
+    state, fit = timed_fit(trainer, state, batches, profile_fit=True,
+                           epochs=2, metrics_logger=log, sync_every=8,
+                           prefetch=2)
+    losses = [r["loss"] for r in log.history]
+    images = len(losses) * TRAIN_BATCH
+    floats = {"params": {str(p.dtype) for p in state.params.values()},
+              "moments": {str(t.dtype) for slot in ("mu", "nu")
+                          for t in state.opt_state[slot].values()},
+              "model_state": {str(b.dtype)
+                              for b in state.model_state.values()}}
+    out = {"phase": name, "model": "Xception", "classes": TRAIN_CLASSES,
+           "source_size": list(TARGET), "batch": TRAIN_BATCH,
+           "optimizer": "adam", "learning_rate": TRAIN_LR,
+           "compute_dtype": str(compute_dtype or torch.float32),
+           "epochs": 2, "sync_every": 8, "prefetch": 2,
+           "losses": losses, "accuracy_last": log.history[-1]["accuracy"],
+           "images": images, "images_per_s": images / fit["fit_s"],
+           "steady_images_per_s": (TRAIN_BATCH * 1e3
+                                   / fit["step_ms"]["p50"]),
+           "dtypes": {k: sorted(v) for k, v in floats.items()},
+           "profiled": True, **fit, **ours_launched(kernels)}
+    emit(out)
+    assert len(losses) == 2 * TRAIN_BATCHES and np.isfinite(losses).all()
+    assert np.mean(losses[-4:]) < np.mean(losses[:4]), \
+        f"{name}: the loss did not descend: {losses}"
+    assert all(v == ["torch.float32"] for v in out["dtypes"].values()), \
+        f"{name}: masters, moments or statistics left float32: {floats}"
+    assert not any(out["launches"].values()), \
+        f"{name}: a kernel of ours launched in train mode"
+    return out, trainer, state
+
+
+def keeping_checkpoints(directory):
+    """A CheckpointManager that also keeps, in memory, the host copy of
+    each state it saved: what a restore must give back bit for bit."""
+    from sparkdl_tpu_torch.train import CheckpointManager
+    from sparkdl_tpu_torch.train.checkpoint import to_host
+
+    class Keeping(CheckpointManager):
+        def __init__(self, d):
+            super().__init__(d)
+            self.kept = {}
+
+        def save(self, step, state, synchronous=False):
+            self.kept[int(step)] = to_host(state)
+            return super().save(step, state, synchronous)
+
+    return Keeping(directory)
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    return a == b
+
+
+def train_resume(s, kernels, batches):
+    """Preempted at step 13 with checkpoints every 8 steps, resumed, held
+    against an uninterrupted fit under deterministic algorithms."""
+    from sparkdl_tpu_torch.core.resilience import (
+        Fault, FaultInjector, InjectedFault,
+    )
+    from sparkdl_tpu_torch.train import Trainer
+    from sparkdl_tpu_torch.train.checkpoint import to_host
+
+    def fresh():
+        return Trainer.from_module(train_net(), optimizer="adam",
+                                   learning_rate=TRAIN_LR, device="cuda")
+
+    kw = dict(epochs=2, sync_every=8, prefetch=2)
+    kernels.reset_launches()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    root = tempfile.mkdtemp(prefix="sparkdl_train_ckpt_")
+    try:
+        trainer, ref = fresh()
+        ref, ref_fit = timed_fit(trainer, ref, batches, **kw)
+        ckpt = keeping_checkpoints(os.path.join(root, "run"))
+        trainer, state = fresh()
+        with FaultInjector.seeded(0, preemption=Fault(
+                when=lambda c: c["step"] == TRAIN_PREEMPT_AT)) as inj:
+            try:
+                timed_fit(trainer, state, batches, checkpoint=ckpt,
+                          checkpoint_every=TRAIN_CKPT_EVERY, **kw)
+            except InjectedFault:
+                pass
+        fired = inj.fired["preemption"]
+        first = dict(trainer.fit_stats)
+        saved = ckpt.latest_step()
+        _, template = fresh()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(template)
+        restore_s = time.perf_counter() - t0
+        restored_equal = _tree_equal(to_host(restored), ckpt.kept[saved])
+        trainer, resumed = fresh()
+        resumed, resume_fit = timed_fit(trainer, resumed, batches,
+                                        checkpoint=ckpt, **kw)
+        redone = first["steps"] + resume_fit["steps"] - 2 * TRAIN_BATCHES
+        step_bytes = ckpt.step_bytes(saved)
+        sync_dir = keeping_checkpoints(os.path.join(root, "sync"))
+        t0 = time.perf_counter()
+        sync_dir.save(int(resumed.step), resumed, synchronous=True)
+        sync_save_s = time.perf_counter() - t0
+        sync_dir.close()
+        ckpt.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    diffs = {k: float((resumed.params[k] - ref.params[k]).abs().max()
+                      .detach()) for k in ref.params}
+    bit_for_bit = all(torch.equal(resumed.params[k], ref.params[k])
+                      for k in ref.params)
+    bound = 2 * TRAIN_LR * 2 * TRAIN_BATCHES
+    out = {"phase": "train_resume", "preempted_at": TRAIN_PREEMPT_AT,
+           "fired": fired, "checkpoint_every": TRAIN_CKPT_EVERY,
+           "resumed_from": saved, "steps_first_run": first["steps"],
+           "steps_resumed_run": resume_fit["steps"], "steps_redone": redone,
+           "restored_equals_saved": restored_equal, "restore_s": restore_s,
+           "deterministic": "use_deterministic_algorithms(warn_only) + "
+                            "cudnn.deterministic",
+           "final_bit_for_bit": bit_for_bit,
+           "final_max_abs_diff": max(diffs.values()),
+           "final_tensors_differing": sum(d > 0 for d in diffs.values()),
+           "tolerance_abs": bound,
+           "checkpoint_save_ms_in_loop": first["checkpoint_save_s"]
+           and [t * 1e3 for t in first["checkpoint_save_s"]],
+           "checkpoint_sync_save_ms": sync_save_s * 1e3,
+           "checkpoint_bytes": step_bytes,
+           "uninterrupted_step_ms": ref_fit["step_ms"],
+           "resumed_step_ms": resume_fit["step_ms"],
+           **ours_launched(kernels)}
+    emit(out)
+    assert fired == 1 and saved == TRAIN_CKPT_EVERY, out
+    assert restored_equal, "the restored step differs from the saved one"
+    assert 0 <= redone <= TRAIN_CKPT_EVERY, out
+    assert int(resumed.step) == 2 * TRAIN_BATCHES, out
+    assert bit_for_bit or out["final_max_abs_diff"] <= bound, out
+    return out
+
+
+def train_featurize(s, kernels, weights, batches):
+    """The trained weights featurized through the hand-written sep2d, held
+    against the plain layers; a grad-recording forward refused."""
+    from sparkdl_tpu_torch.core import health
+
+    images = list(batches[0][0])
+    s.EngineConfig.device = "cuda"
+    s.EngineConfig.inference_precision = "bfloat16"
+    feat, df = featurize(s, ("Xception", "named"), images, weights, BATCH)
+    rows = {}
+    counts = {}
+    for mode in ("force", "off"):
+        s.EngineConfig.pallas_kernels = mode
+        feat.transform(df).collect()           # warm-up: captures
+        kernels.reset_launches()
+        with health.HealthMonitor("train_featurize"):
+            t0 = time.perf_counter()
+            got = feat.transform(df).collect()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        rows[mode] = (row_vectors(got)[0], seconds)
+        counts[mode] = ours_launched(kernels)
+    s.EngineConfig.pallas_kernels = "force"
+    gpu, ref = rows["force"][0], rows["off"][0]
+    err = float(np.max(np.abs(gpu - ref)))
+    limit = BF16_REL * float(np.max(np.abs(ref)))
+    forwards = -(-len(images) // BATCH)
+    mf = model_function(s, feat).to("cuda")  # the float32 module
+    x = torch.from_numpy(np.stack(images[:2])).to("cuda").float()
+    x.requires_grad_(True)
+    try:
+        mf(x)
+        refused = None
+    except ValueError as e:
+        refused = str(e)[:200]
+    out = {"phase": "train_featurize", "model": "Xception",
+           "weights": "train_f32's variables_of", "images": len(images),
+           "batch_size": BATCH, "precision": "bfloat16",
+           "pallas_kernels": "force", "forwards": forwards,
+           "seconds": rows["force"][1], "plain_seconds": rows["off"][1],
+           "images_per_s": len(images) / rows["force"][1],
+           "plain_images_per_s": len(images) / rows["off"][1],
+           "max_abs_err_vs_plain": err, "tolerance": limit,
+           "feature_max_abs": float(np.max(np.abs(ref))),
+           "grad_recording_forward": refused,
+           "plain_launches": counts["off"]["launches"], **counts["force"]}
+    emit(out)
+    assert gpu.shape == (len(images), 2048) and np.isfinite(gpu).all()
+    assert out["launches"]["sep2d"] == 34 * forwards, out["launches"]
+    assert out["launches_by_body"]["sep2d"]["wgmma"] == 34 * forwards
+    assert not any(out["plain_launches"].values()), out["plain_launches"]
+    assert err <= limit, f"train_featurize: {err} > {limit}"
+    assert refused is not None and "no backward" in refused, refused
+    return out
+
+
+def train_path(s, kernels):
+    """The training phases, in order; the f32 fit's weights feed the
+    featurize phase."""
+    batches = train_batches()
+    phases = {"train_step_vs_cpu": train_step_vs_cpu(s, kernels, batches)}
+    phases["train_f32"], trainer, state = train_fit_phase(
+        s, kernels, "train_f32", batches)
+    weights = {k[len("net."):]: v.detach().cpu()
+               for k, v in trainer.variables_of(state).items()}
+    del trainer, state
+    phases["train_bf16"] = train_fit_phase(
+        s, kernels, "train_bf16", batches, torch.bfloat16)[0]
+    phases["train_resume"] = train_resume(s, kernels, batches)
+    phases["train_featurize"] = train_featurize(s, kernels, weights,
+                                                batches)
+    torch.cuda.empty_cache()
+    return phases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -4676,6 +5115,9 @@ def main() -> int:
     # traffic, a failed prepare, a replica killed under traffic
     phases.update(cluster_serving_path(s, kernels, serve_rows, serve_eager,
                                        phases["serving_predict"]))
+    # training: one step against the CPU, float32 and bf16 fits, a
+    # preempted fit resumed, the trained weights featurized through sep2d
+    phases.update(train_path(s, kernels))
     s.EngineConfig.inference_precision = "bfloat16"
     emit({"phase": "total", "seconds": time.perf_counter() - STARTED})
 

@@ -55,6 +55,13 @@ _LAZY_EXPORTS = {
     "ModelServer": ("sparkdl_tpu_torch.serving", "ModelServer"),
     "ModelRegistry": ("sparkdl_tpu_torch.serving", "ModelRegistry"),
     "ResidencyManager": ("sparkdl_tpu_torch.serving", "ResidencyManager"),
+    # training surface
+    "Trainer": ("sparkdl_tpu_torch.train", "Trainer"),
+    "TrainState": ("sparkdl_tpu_torch.train", "TrainState"),
+    "CheckpointManager": ("sparkdl_tpu_torch.train", "CheckpointManager"),
+    "MetricsLogger": ("sparkdl_tpu_torch.train", "MetricsLogger"),
+    "make_loss": ("sparkdl_tpu_torch.train", "make_loss"),
+    "make_optimizer": ("sparkdl_tpu_torch.train", "make_optimizer"),
 }
 
 __all__ = ["__version__"] + sorted(_LAZY_EXPORTS)

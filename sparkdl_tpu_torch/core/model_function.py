@@ -232,11 +232,18 @@ class ModelFunction:
 
     def __init__(self, apply_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                  variables: Any, input_spec: TensorSpec,
-                 name: str = "model") -> None:
+                 name: str = "model",
+                 trainable_mask: Any = None) -> None:
         self.apply_fn = apply_fn
         self.variables = variables
         self.input_spec = input_spec
         self.name = name
+        # Optional bools over the weights: a ``{name: bool}`` dict over a
+        # module's ``named_parameters()``, or a tree of bools matching a
+        # plain ``variables`` tree. False leaves are non-trainable (e.g.
+        # an ingested model's frozen layers) and the Trainer zeroes their
+        # updates. None = everything trainable.
+        self.trainable_mask = trainable_mask
         self._flat_cache: Optional["ModelFunction"] = None
         self._resize_cache: Dict[Tuple, "ModelFunction"] = {}
         self._precision_cache: Dict[str, "ModelFunction"] = {}
@@ -248,9 +255,10 @@ class ModelFunction:
 
     #: what stays behind when a model is pickled (a cluster worker's op
     #: chain): the memo lock, the device programs with their captured
-    #: graphs, and the memoized variants, which a worker builds again
+    #: graphs, the memoized variants, which a worker builds again, and
+    #: the Trainer's step cache (``train/trainer.py``)
     _LOCAL_STATE = ("_memo_lock", "_programs", "_flat_cache",
-                    "_resize_cache", "_precision_cache")
+                    "_resize_cache", "_precision_cache", "_train_step_cache")
 
     def __getstate__(self) -> Dict[str, Any]:
         """The model without its process-local state (:attr:`_LOCAL_STATE`):
@@ -302,7 +310,8 @@ class ModelFunction:
             return apply_fn(vs, pre(x))
 
         out = ModelFunction(fn, self.variables,
-                            input_spec or self.input_spec, name=self.name)
+                            input_spec or self.input_spec, name=self.name,
+                            trainable_mask=self.trainable_mask)
         out.kernel_routable = self.kernel_routable
         out.compute_dtype = self.compute_dtype
         return out
@@ -315,7 +324,8 @@ class ModelFunction:
             return post(apply_fn(vs, x))
 
         out = ModelFunction(fn, self.variables, self.input_spec,
-                            name=self.name)
+                            name=self.name,
+                            trainable_mask=self.trainable_mask)
         out.kernel_routable = self.kernel_routable
         out.compute_dtype = self.compute_dtype
         return out
@@ -338,7 +348,8 @@ class ModelFunction:
         def fn(vs, x):
             return apply_fn(vs, x.to(dtype)).float()
 
-        return ModelFunction(fn, variables, self.input_spec, name=self.name)
+        return ModelFunction(fn, variables, self.input_spec, name=self.name,
+                             trainable_mask=self.trainable_mask)
 
     def with_dtype(self, precision: str) -> "ModelFunction":
         """The precision knob (``EngineConfig.inference_precision`` applies
@@ -372,8 +383,8 @@ class ModelFunction:
         variant keeps :attr:`kernel_routable`, as the reference's does
         (unlike bf16's :meth:`with_compute_dtype`), so under
         ``"autotune"`` its sites are collected and auditioned. The
-        reference's ``trainable_mask`` is dropped with it: quantized
-        weights are for inference only."""
+        ``trainable_mask`` is dropped with it, as the reference drops it:
+        quantized weights are for inference only."""
         apply_fn = self.apply_fn
         if isinstance(self.variables, torch.nn.Module):
             variables = _quantized_module(self.variables)

@@ -84,6 +84,9 @@ _monotonic = time.monotonic
 # ---------------------------------------------------------------------------
 
 SPAN_RUN = "sparkdl.run"                      # telemetry scope root
+SPAN_FIT = "sparkdl.fit"                      # one Trainer.fit call
+SPAN_EPOCH = "sparkdl.epoch"                  # one epoch of the fit loop
+SPAN_CHECKPOINT_SAVE = "sparkdl.checkpoint_save"
 SPAN_MATERIALIZE = "sparkdl.materialize"      # DataFrame._materialize barrier
 SPAN_TASK = "sparkdl.task"                    # one pool attempt (or hedge)
 SPAN_TASK_ATTEMPT = "sparkdl.task_attempt"    # one retry-loop attempt
@@ -114,14 +117,15 @@ SPAN_CLUSTER_TASK = "sparkdl.cluster_task"    # a worker's run of one
                                               # (cluster/worker.py)
 
 CANONICAL_SPAN_NAMES = frozenset({
-    SPAN_RUN, SPAN_MATERIALIZE, SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
+    SPAN_RUN, SPAN_FIT, SPAN_EPOCH, SPAN_CHECKPOINT_SAVE, SPAN_MATERIALIZE,
+    SPAN_TASK, SPAN_TASK_ATTEMPT, SPAN_COMPILE,
     SPAN_COALESCED_LAUNCH, SPAN_DECODE_POOL, SPAN_DECODE_CHUNK,
     SPAN_MODEL_LOAD, SPAN_SERVING_SHADOW, SPAN_SERVING_PREDICT,
     SPAN_SERVING_WARMUP, SPAN_CLUSTER_DISPATCH, SPAN_CLUSTER_TASK,
     # phase names (core/profiling.py constants + literal call sites)
     "sparkdl.decode", "sparkdl.stage", "sparkdl.stage_batch",
     "sparkdl.host_stage", "sparkdl.host_resize", "sparkdl.host_wait",
-    "sparkdl.device_apply", "sparkdl.device_sync",
+    "sparkdl.device_apply", "sparkdl.train_step", "sparkdl.device_sync",
 })
 
 # Metric catalog. Histograms in seconds use DEFAULT_TIME_BOUNDS; row-count
@@ -129,6 +133,9 @@ CANONICAL_SPAN_NAMES = frozenset({
 # "sparkdl.health.<event>" per core/health.py event name, bumped in
 # health.record so telemetry counters equal HealthMonitor counts exactly.
 M_TASK_DURATION_S = "sparkdl.task.duration_s"          # histogram
+M_STEP_TIME_S = "sparkdl.train.step_time_s"            # histogram (host)
+M_STEPS_PER_SEC = "sparkdl.train.steps_per_sec"        # histogram
+M_EXAMPLES_PER_SEC = "sparkdl.train.examples_per_sec"  # gauge
 M_PREFETCH_DEPTH = "sparkdl.prefetch.queue_depth"      # gauge
 M_PREFETCH_STALL_S = "sparkdl.prefetch.stall_s"        # histogram
 M_BATCH_ROWS = "sparkdl.batching.rows"                 # counter (valid rows)
@@ -199,6 +206,9 @@ HEALTH_METRIC_PREFIX = "sparkdl.health."
 
 CANONICAL_METRIC_KINDS: Dict[str, str] = {
     M_TASK_DURATION_S: "histogram",
+    M_STEP_TIME_S: "histogram",
+    M_STEPS_PER_SEC: "histogram",
+    M_EXAMPLES_PER_SEC: "gauge",
     M_PREFETCH_DEPTH: "gauge",
     M_PREFETCH_STALL_S: "histogram",
     M_BATCH_ROWS: "counter",

@@ -106,31 +106,74 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1),
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis in the reference's op order:
-    ``(x − mean)·(γ·rsqrt(var + eps)) + β`` (``flax.linen.BatchNorm``),
-    NOT the folded affine — that belongs to the kernel route only. It
-    computes in the promoted type of input and statistics, then rounds to
-    ``dtype`` once where one is given (``flax.linen.BatchNorm(dtype=...)``
-    with float32 statistics)."""
+    """BatchNorm over the last axis, ``flax.linen.BatchNorm``'s.
+
+    Inference (the default, as a Flax module's ``train`` defaults to
+    False: a fresh layer starts in eval mode, ``module.train()`` switches
+    it) uses the running statistics, in the reference's op order
+    ``(x − mean)·(γ·rsqrt(var + eps)) + β``, NOT the folded affine (that
+    belongs to the kernel route only).
+
+    Training (``use_running_average=False``) takes the batch's mean and
+    variance over every axis but the last, in float32 at least
+    (``_compute_stats``): the "fast" biased variance ``E[x²] − E[x]²``,
+    clipped at 0; the same op order then normalizes with them, and the
+    running statistics move to ``m·ra + (1 − m)·batch`` with this layer's
+    ``momentum``. (``F.batch_norm(training=True)`` would move the running
+    variance by the UNBIASED variance, and its ``momentum`` is 1 − m.)
+
+    The arithmetic runs in the promoted type of the input, statistics and
+    γ/β; the result is rounded once to ``dtype`` where one is given, else
+    to the promoted type of input, γ and β, the statistics left out
+    (Flax's ``canonicalize_dtype(x, scale, bias)``): bf16 parameters over
+    float32 statistics give a bf16 result, as under mixed precision."""
 
     def __init__(self, channels: int, eps: float = KERAS_BN_EPS,
                  scale: bool = True,
-                 dtype: Optional[torch.dtype] = None) -> None:
+                 dtype: Optional[torch.dtype] = None,
+                 momentum: float = 0.99) -> None:
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.momentum = momentum
         self.weight = (nn.Parameter(torch.ones(channels)) if scale
                        else None)
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.training = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.training:
+            mean, var = batch_stats(x)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps)
+        out = self.bias.dtype if self.dtype is None else self.dtype
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x - self.running_mean) * mul + self.bias
-        return y if self.dtype is None else y.to(self.dtype)
+            if self.dtype is None:
+                out = torch.promote_types(out, self.weight.dtype)
+        y = (x - mean) * mul + self.bias
+        if self.dtype is None:
+            out = torch.promote_types(out, x.dtype)
+        return y.to(out)
+
+
+def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance over every axis but the last, in float32
+    at least: flax's ``_compute_stats`` with ``use_fast_variance``."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=axes)
+    mean2 = (xf * xf).mean(dim=axes)
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
 def max_pool_same(x: torch.Tensor, window: int = 3,

@@ -25,6 +25,7 @@ from sparkdl_tpu_torch.models.layers import (
 )
 
 MNV2_BN_EPS = 1e-3
+MNV2_BN_MOMENTUM = 0.999  # the reference's (mobilenet.py)
 
 # (filters, stride, expansion) per block, keras order.
 MNV2_BLOCKS = (
@@ -65,13 +66,16 @@ class InvertedResBlock(nn.Module):
         if block_id:
             ch = expansion * cin
             self.expand = Conv2d(cin, ch, 1, dtype=dtype)
-            self.expand_bn = BatchNorm(ch, MNV2_BN_EPS, dtype=dtype)
+            self.expand_bn = BatchNorm(ch, MNV2_BN_EPS, dtype=dtype,
+                                       momentum=MNV2_BN_MOMENTUM)
         self.depthwise = Conv2d(ch, ch, 3, stride,
                                 "VALID" if stride == 2 else "SAME",
                                 groups=ch, dtype=dtype)
-        self.depthwise_bn = BatchNorm(ch, MNV2_BN_EPS, dtype=dtype)
+        self.depthwise_bn = BatchNorm(ch, MNV2_BN_EPS, dtype=dtype,
+                                      momentum=MNV2_BN_MOMENTUM)
         self.project = Conv2d(ch, pointwise, 1, dtype=dtype)
-        self.project_bn = BatchNorm(pointwise, MNV2_BN_EPS, dtype=dtype)
+        self.project_bn = BatchNorm(pointwise, MNV2_BN_EPS, dtype=dtype,
+                                    momentum=MNV2_BN_MOMENTUM)
         self.out_channels = pointwise
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -97,7 +101,8 @@ class MobileNetV2(nn.Module):
         self.pooling = pooling
         first = _make_divisible(32 * alpha)
         self.Conv1 = Conv2d(3, first, 3, stride=2, dtype=dtype)
-        self.Conv1_bn = BatchNorm(first, MNV2_BN_EPS, dtype=dtype)
+        self.Conv1_bn = BatchNorm(first, MNV2_BN_EPS, dtype=dtype,
+                                  momentum=MNV2_BN_MOMENTUM)
         cin = first
         for bid, (f, s, e) in enumerate(MNV2_BLOCKS):
             block = InvertedResBlock(cin, f, s, e, alpha=alpha, block_id=bid,
@@ -106,7 +111,8 @@ class MobileNetV2(nn.Module):
             cin = block.out_channels
         last = _make_divisible(1280 * alpha) if alpha > 1.0 else 1280
         self.Conv_1 = Conv2d(cin, last, 1, dtype=dtype)
-        self.Conv_1_bn = BatchNorm(last, MNV2_BN_EPS, dtype=dtype)
+        self.Conv_1_bn = BatchNorm(last, MNV2_BN_EPS, dtype=dtype,
+                                   momentum=MNV2_BN_MOMENTUM)
         if include_top:
             self.predictions = Dense(last, classes, dtype=dtype)
 

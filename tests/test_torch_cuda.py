@@ -1046,3 +1046,135 @@ def test_cluster_serves_testnet_on_two_workers(serving_config):
         cluster_router.shutdown()
         serving_cluster.reset()
 
+
+
+# -- training (train/) -------------------------------------------------------
+
+def _train_stack(seed=0):
+    """A small ConvBN → SeparableConvBN → Dense stack with seeded
+    weights: train-mode BatchNorm on the card."""
+    from sparkdl_tpu_torch.models import layers
+
+    class Stack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.unit1 = layers.ConvBN(3, 16, 3, strides=2)
+            self.unit2 = layers.SeparableConvBN(16, 32,
+                                                kernel_family="stack")
+            self.head = layers.Dense(32, 4)
+
+        def forward(self, x):
+            x = self.unit2(self.unit1(x / 127.5 - 1.0)).mean(dim=(1, 2))
+            return torch.softmax(self.head(x), dim=-1)
+
+    net = Stack()
+    gen = torch.Generator().manual_seed(seed)
+    for m in net.modules():
+        if isinstance(m, (layers.Conv2d, layers.Dense)):
+            layers.lecun_normal_(m.weight, gen)
+    return net
+
+
+def _train_batches(n=4, batch=8, size=24, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, 4, batch)
+        x = rng.integers(0, 128, (batch, size, size, 3)) + ids[:, None,
+                                                               None, None] * 30
+        out.append((x.astype(np.uint8), np.eye(4, dtype=np.float32)[ids]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_train_fit_on_the_card_matches_the_cpu(card, optimizer):
+    """Two epochs of the pipelined fit (uint8 staged pinned, cast on the
+    card) on the card and on the CPU from one state: losses rtol 1e-4,
+    params and running statistics within 1e-4·max(1, max|cpu|) (another
+    summation order; Adam's first steps scale each gradient's sign)."""
+    from sparkdl_tpu_torch.train import MetricsLogger, Trainer
+
+    batches = _train_batches()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        trainer, state = Trainer.from_module(
+            _train_stack(), optimizer=optimizer, learning_rate=1e-3,
+            device=device)
+        log = MetricsLogger(sinks=[lambda r: None])
+        state = trainer.fit(state, batches, epochs=2, metrics_logger=log,
+                            sync_every=3)
+        assert state.step.device.type == device
+        runs[device] = (state, [r["loss"] for r in log.history], trainer)
+    (cpu, cpu_loss, _), (gpu, gpu_loss, trainer) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-4)
+    assert trainer.fit_stats["syncs"] == 4  # steps 3, 6 and two epoch ends
+    for tree in ("params", "model_state"):
+        for name, ref in getattr(cpu, tree).items():
+            got = getattr(gpu, tree)[name].detach().cpu()
+            bound = 1e-4 * max(1.0, float(ref.detach().abs().max()))
+            assert float((got - ref.detach()).abs().max()) <= bound, name
+
+
+@pytest.mark.cuda
+def test_train_bf16_keeps_float32_masters_and_statistics(card):
+    from sparkdl_tpu_torch.train import Trainer
+
+    trainer, state = Trainer.from_module(_train_stack(), optimizer="adam",
+                                         compute_dtype=torch.bfloat16,
+                                         device="cuda")
+    stats0 = {k: v.clone() for k, v in state.model_state.items()}
+    state = trainer.fit(state, _train_batches(), epochs=1)
+    assert all(p.dtype == torch.float32 for p in state.params.values())
+    assert all(t.dtype == torch.float32
+               for slot in ("mu", "nu")
+               for t in state.opt_state[slot].values())
+    assert all(b.dtype == torch.float32 for b in state.model_state.values())
+    assert any(not torch.equal(stats0[k], v)
+               for k, v in state.model_state.items())
+
+
+@pytest.mark.cuda
+def test_train_checkpoint_round_trips_a_card_state(card, tmp_path):
+    """Params, moments, running statistics and the card's generator come
+    back bit for bit, on the card."""
+    from sparkdl_tpu_torch.train import CheckpointManager, Trainer
+
+    trainer, state = Trainer.from_module(_train_stack(), optimizer="adam",
+                                         device="cuda")
+    state = trainer.fit(state, _train_batches(), epochs=1)
+    torch.rand(3, generator=state.rng, device="cuda")
+    ckpt = CheckpointManager(str(tmp_path / "ck"))
+    ckpt.save(int(state.step), state)
+    ckpt.wait_until_finished()
+    _, template = Trainer.from_module(_train_stack(), optimizer="adam",
+                                      device="cuda")
+    got = ckpt.restore(template)
+    ckpt.close()
+    assert got.step.device.type == "cuda" and int(got.step) == 4
+    for tree in ("params", "model_state"):
+        for k, v in getattr(state, tree).items():
+            assert torch.equal(getattr(got, tree)[k], v), k
+    for k, v in state.opt_state["mu"].items():
+        assert torch.equal(got.opt_state["mu"][k], v)
+    assert torch.equal(got.rng.get_state(), state.rng.get_state())
+
+
+@pytest.mark.cuda
+def test_train_grad_through_a_routed_kernel_raises(card, monkeypatch):
+    """Under "force" a fused unit in eval mode routes sep2d; with grad
+    recording it raises instead of returning an output with no graph,
+    and under no_grad it launches the kernel."""
+    from sparkdl_tpu_torch.engine.dataframe import EngineConfig
+    from sparkdl_tpu_torch.models.layers import SeparableConvBN
+
+    monkeypatch.setattr(EngineConfig, "pallas_kernels", "force")
+    unit = SeparableConvBN(32, 64, kernel_family="unit").to(card).eval()
+    x = torch.randn(2, 9, 9, 32, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        unit(x)
+    before = kernels.launches["sep2d"]
+    with torch.no_grad():
+        unit(x)
+    torch.cuda.synchronize()
+    assert kernels.launches["sep2d"] == before + 1

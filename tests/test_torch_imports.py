@@ -42,6 +42,10 @@ def test_no_forbidden_imports_in_source():
                     "cluster/worker.py", "cluster/router.py",
                     "cluster/aggregate.py", "cluster/transport.py"):
         assert ROOT / "sparkdl_tpu_torch" / cluster in files
+    for train in ("train/__init__.py", "train/trainer.py",
+                  "train/optimizers.py", "train/checkpoint.py",
+                  "train/metrics.py", "core/debug.py"):
+        assert ROOT / "sparkdl_tpu_torch" / train in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -119,6 +123,42 @@ def test_featurize_on_cpu_loads_no_jax(tmp_path):
     out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
                          env=env, capture_output=True, text=True,
                          timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_training_on_cpu_loads_no_jax(tmp_path):
+    """A fit of TestNet with checkpoints, a resume and a debug-mode step,
+    in a fresh process on the CPU, leaves no JAX and no ``sparkdl_tpu``
+    in ``sys.modules``."""
+    script = tmp_path / "train.py"
+    script.write_text(
+        "import sys\n"
+        "import numpy as np\n"
+        "import sparkdl_tpu_torch as s\n"
+        "from sparkdl_tpu_torch.core.debug import debug_mode\n"
+        "from sparkdl_tpu_torch.models.testnet import TestNet\n"
+        "s.EngineConfig.device = 'cpu'\n"
+        "rng = np.random.default_rng(0)\n"
+        "x = rng.integers(0, 256, (16, 32, 32, 3), dtype=np.uint8)\n"
+        "y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]\n"
+        "batches = [(x[:8], y[:8]), (x[8:], y[8:])]\n"
+        "trainer, state = s.Trainer.from_module(TestNet())\n"
+        "ckpt = s.CheckpointManager(sys.argv[1])\n"
+        "state = trainer.fit(state, batches, epochs=2, checkpoint=ckpt,\n"
+        "                    checkpoint_every=1)\n"
+        "_, fresh = s.Trainer.from_module(TestNet())\n"
+        "assert int(ckpt.restore(fresh).step) == 4\n"
+        "with debug_mode():\n"
+        "    trainer.fit(state, batches[:1], epochs=1)\n"
+        "ckpt.close()\n"
+        "top = {m.split('.')[0] for m in sys.modules}\n"
+        "print(sorted(top & {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                    'sparkdl_tpu'}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(script), str(tmp_path / "c")],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
 

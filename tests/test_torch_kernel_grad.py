@@ -149,6 +149,10 @@ def test_autotune_and_off_route_nothing_so_training_is_unaffected(
     from sparkdl_tpu_torch.models.layers import SeparableConvBN
 
     unit = SeparableConvBN(CIN, COUT, kernel_family="unit").eval()
+    gen = torch.Generator().manual_seed(0)
+    for conv in (unit.depthwise, unit.pointwise):
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen))
     x = torch.from_numpy(_operands()["x"]).requires_grad_(True)
     for mode in ("autotune", "off"):
         monkeypatch.setattr(EngineConfig, "pallas_kernels", mode)
