@@ -17,8 +17,9 @@ exactly, which is what makes a restarted fit replay to the same result.
   restores unverified.
 - **Fencing token**: constructing a manager claims the next monotonic
   incarnation for the directory (``<directory>.fence.json``); every
-  ``save`` re-checks it, and a superseded writer (a zombie of a
-  restarted attempt, still flushing asynchronous saves) is refused with
+  ``save`` re-checks it, and each write again just before its publish,
+  so a superseded writer (a zombie of a restarted attempt, still
+  flushing asynchronous saves) is refused with
   :class:`~sparkdl_tpu_torch.core.resilience.StaleCheckpointWriter`.
 - **Fallback**: ``restore`` with no step walks retained steps
   newest-first past corrupt ones (bit rot, torn disks, the injected
@@ -256,6 +257,9 @@ class CheckpointManager:
                 f.flush()
                 os.fsync(f.fileno())
             _fsync_dir(tmp)
+            # again at the publish: an asynchronous save queued before a
+            # successor claimed the directory must not land after it
+            self._check_fence(step)
             if os.path.exists(final):
                 logger.warning(
                     "checkpoint step %d already exists under %s (a restart "

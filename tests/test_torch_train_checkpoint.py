@@ -152,6 +152,37 @@ def test_stale_incarnation_save_refused(tmp_path, host_state):
     old.close()
 
 
+def test_async_save_superseded_before_its_publish_is_refused(
+        tmp_path, host_state, monkeypatch):
+    """A zombie's asynchronous save, queued before its successor claimed
+    the directory and written after, is refused at the publish: the step
+    never lands and the refusal surfaces at the barrier."""
+    import threading
+
+    from sparkdl_tpu_torch.train import checkpoint
+
+    writing, release = threading.Event(), threading.Event()
+    real_save = checkpoint.torch.save
+
+    def slow_save(obj, f):
+        writing.set()
+        assert release.wait(10.0)
+        real_save(obj, f)
+
+    old = CheckpointManager(str(tmp_path / "ck"))
+    monkeypatch.setattr(checkpoint.torch, "save", slow_save)
+    old.save(3, host_state)                      # queued, then blocks
+    assert writing.wait(10.0)
+    new = CheckpointManager(str(tmp_path / "ck"))  # supersedes `old`
+    release.set()
+    with pytest.raises(resilience.StaleCheckpointWriter):
+        old.wait_until_finished()
+    assert new.all_steps() == []
+    assert not [n for n in os.listdir(new.directory) if n.startswith(".")]
+    old.close()
+    new.close()
+
+
 def test_fence_token_is_monotonic_per_directory(tmp_path):
     a = CheckpointManager(str(tmp_path / "ck"))
     b = CheckpointManager(str(tmp_path / "ck"))
